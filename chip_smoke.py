@@ -2,12 +2,23 @@
 """Chip smoke test of the PyTorch/CUDA port on one CUDA card.
 
 Builds the port's Hopper kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version on the card, drives the YOLOv3
-case study (``repro_torch.case_study``) at the model's full 416 x 416
-width plus all 75 conv layers of a frame through the kernels, checks the
-paper chain (model-mode anchors exactly, simulated mode on the card bit
-for bit against the CPU), and times every kernel beside its plain
-version, a PyTorch library call and its roofline bound.
+each against its plain PyTorch version on the card, and drives the
+port's two paths through them:
+
+* the YOLOv3 case study (``repro_torch.case_study``) at the model's full
+  416 x 416 width plus all 75 conv layers of a frame, and the paper
+  chain (model-mode anchors exactly, simulated mode on the card bit for
+  bit against the CPU);
+* serving mamba2-130m at full width (``repro_torch.serve.ServeEngine``,
+  24 layers, d_model 768, random weights from a seed): 8 requests of
+  512 and 300 tokens, 32 new tokens each, 4 slots, with the engine's
+  stats, step log and oracle costs held exactly to the JAX reference's
+  (anchors below, from the reference on the CPU) and each prefill
+  group's first-token logits held to the same prefill through the SSD
+  step's plain version.
+
+Then it times every kernel beside its plain version, a PyTorch library
+call where one computes the same function, and its roofline bound.
 
 Run from the repository root:   python3 chip_smoke.py
 
@@ -47,6 +58,36 @@ POSTPROC_SHAPES = [(2, 32, 32, 16), (2, 64, 64, 8), (2, 30, 30, 8),
 ACTS = ("none", "relu", "sigmoid", "tanh")
 DTYPES = (torch.float32, torch.bfloat16)
 FIG5 = dict(sizes_kib=(0.5, 64, 1024, 4096), blocks=(32, 64, 128))
+
+# SSD intra-chunk (bb, l, chunk, h, p, n): test_kernels.py's shapes, the
+# serving path's full width (4 prompts of 512 = 2 chunks of 256) and a
+# 300-token prompt (one ragged chunk of 300)
+SSD_SHAPES = [(2, 64, 32, 4, 16, 32), (2, 128, 32, 8, 32, 64),
+              (2, 32, 32, 2, 16, 16), (4, 512, 256, 24, 64, 128),
+              (4, 300, 256, 24, 64, 128)]
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)   # the reference's own for this kernel
+# first-token logits, SSD step through the kernel vs its plain version,
+# bf16 model: the reference's one-step bf16 decode-parity tolerance
+LOGITS_TOL = dict(rtol=2e-2, atol=0.08)
+
+# Full-width mamba2-130m serving anchors: the JAX reference's
+# ServeEngine on the same traffic (CPU), EngineStats.to_record() and the
+# step log as runs of (kind, cycles, steps); oracle costs for 4 requests
+# of (512, 32) in PagedKVCache(num_blocks=140, block_size=16,
+# token_bytes=1).
+SERVE_STATS = {
+    "requests": 8, "tokens": 256, "steps": 65, "prefill_steps": 4,
+    "decode_steps": 64, "idle_steps": 0, "sim_time_s": 5.9693022175,
+    "tokens_per_s": 42.88608461630465, "latency_p50_s": 3.05363894,
+    "latency_p99_s": 5.9688022175, "mean_occupancy": 3.9384615384615387,
+    "max_occupancy": 4}
+SERVE_STEP_RUNS = [("prefill", 221081060, 1), ("mixed", 458566932, 1),
+                   ("decode", 286698068, 30), ("mixed", 491374576, 1),
+                   ("mixed", 458566932, 1), ("decode", 286698068, 30),
+                   ("decode", 270293516, 1)]
+ORACLE_PREFILL_CYCLES = 221_082_288     # prefill_step(kv, [0, 1])
+ORACLE_DECODE_CYCLES = 286_698_068      # decode_step(kv, [0, 1, 2, 3])
+ORACLE_DECODE_HIT_RATE = 0.5
 
 
 def phase(name: str) -> None:
@@ -180,6 +221,42 @@ def check_kernels(dev) -> dict:
     return errs
 
 
+def ssd_inputs(bb, l, h, p, n, gen, dev):
+    """Seeded SSD operands: x, post-softplus dt, negative A, B, C."""
+    x = torch.randn((bb, l, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bb, l, h), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.5)
+    B = torch.randn((bb, l, n), generator=gen, device=dev)
+    C = torch.randn((bb, l, n), generator=gen, device=dev)
+    return x, dt, A, B, C
+
+
+def check_ssd(dev) -> float:
+    """The SSD kernel against its plain version on the card: y_intra and
+    states within rtol = atol = 1e-4."""
+    from repro_torch.kernels.ssd import ops
+
+    phase("ssd against its plain version")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = 0.0
+    for bb, l, chunk, h, p, n in SSD_SHAPES:
+        args = ssd_inputs(bb, l, h, p, n, gen, dev)
+        y, states, cum = ops.ssd_intra_chunk(*args, chunk=chunk)
+        want_y, want_states, want_cum = ops.ssd_intra_chunk_plain(
+            *args, chunk=chunk)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(cum, want_cum, rtol=0, atol=0)
+        torch.testing.assert_close(y, want_y, **SSD_TOL)
+        torch.testing.assert_close(states, want_states, **SSD_TOL)
+        ey, es = max_err(y, want_y), max_err(states, want_states)
+        worst = max(worst, ey, es)
+        print(f"  ssd bb {bb} l {l} q {cum.shape[2]} h {h} p {p} n {n}: "
+              f"max abs err y {ey:.2e}, states {es:.2e} (|y| up to "
+              f"{float(want_y.abs().max()):.1f})")
+    return worst
+
+
 def frame_layers():
     from repro_torch.core.yolov3 import LAYERS
 
@@ -307,6 +384,233 @@ def paper_chain(res: dict, dev) -> dict:
     return times
 
 
+def serve_requests(vocab: int) -> list:
+    """The 8 requests of the serving path: prompt lengths alternating
+    512 and 300, tokens drawn as examples/serve_lm.py draws them, 32 new
+    tokens each, arrivals 100 µs apart."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(1)
+    return [Request(rid=i, tokens=tuple(int(t) for t in rng.integers(
+                3, vocab, 512 if i % 2 == 0 else 300)),
+                    max_new=32, arrival_s=i * 100e-6) for i in range(8)]
+
+
+def serve_path(dev) -> tuple[dict, dict]:
+    """The serving main path, with every launch counter at 0 before it:
+    mamba2-130m at full width through ServeEngine, held to the JAX
+    reference's anchors; then each prefill group's first-token logits
+    through the kernel against the plain SSD step, and the kernel
+    against its plain version on every layer's SSD operands of those
+    prefills."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.convcore import kernel as cc_kernel
+    from repro_torch.kernels.postproc import kernel as pp_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import (
+        decode_working_set,
+        init_caches,
+        init_params,
+        prefill,
+        slot_decode_step,
+    )
+    from repro_torch.serve import PagedKVCache, ServeEngine, SoCLatencyOracle
+    from repro_torch.types import param_values
+
+    phase("serving path: mamba2-130m at full width through ServeEngine")
+    cfg = get_config("mamba2-130m")
+    params = param_values(init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg))
+    eng = ServeEngine(cfg, params, cache_len=552, max_slots=4,
+                      temperature=0.0, eos_id=-1, device=dev)
+    requests = serve_requests(cfg.vocab_size)
+    for req in requests:
+        eng.submit(req)
+    cc_kernel.launches = pp_kernel.launches = ssd_kernel.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"convcore": cc_kernel.launches,
+                "postproc": pp_kernel.launches, "ssd": ssd_kernel.launches}
+    record = stats.to_record()
+    print(f"EngineStats {json.dumps(record)}")
+    print(f"serve wall time {wall:.2f} s: model (prefill + decode) "
+          f"{eng.wall_s['model']:.2f} s, oracle {eng.wall_s['oracle']:.2f}"
+          f" s, {len(eng.oracle._memo)} distinct oracle traces")
+
+    # the prefill groups the engine ran: per admitting step, by length
+    by_rid = {r.rid: r for r in requests}
+    groups = []
+    for step in eng.step_log:
+        lens = sorted({len(by_rid[r].tokens) for r in step.admitted})
+        groups += [[r for r in step.admitted
+                    if len(by_rid[r].tokens) == n] for n in lens]
+    print(f"ssd launches on the serving path: {launches['ssd']} "
+          f"({len(groups)} prefill groups x {cfg.num_layers} layers)")
+    if launches["ssd"] != cfg.num_layers * len(groups):
+        raise AssertionError(f"ssd launched {launches['ssd']} times, not "
+                             f"{cfg.num_layers} per prefill group")
+    if record != SERVE_STATS:
+        raise AssertionError(f"EngineStats differ from the reference's: "
+                             f"{record} != {SERVE_STATS}")
+    runs = []
+    for r in eng.step_log:
+        if runs and runs[-1][:2] == (r.kind, r.cycles):
+            runs[-1] = (r.kind, r.cycles, runs[-1][2] + 1)
+        else:
+            runs.append((r.kind, r.cycles, 1))
+    if runs != SERVE_STEP_RUNS:
+        raise AssertionError(f"step kinds/cycles {runs} != the "
+                             f"reference's {SERVE_STEP_RUNS}")
+    print(f"EngineStats and the {len(eng.step_log)} steps' kinds and "
+          "cycles equal the JAX reference's, bit for bit")
+
+    oracle = SoCLatencyOracle(decode_working_set(cfg), device=dev)
+    kv = PagedKVCache(num_blocks=140, block_size=16, token_bytes=1)
+    for rid in range(4):
+        kv.admit(rid, 512, 32)
+    t0 = time.perf_counter()
+    pre = oracle.prefill_step(kv, [0, 1])
+    t1 = time.perf_counter()
+    dec = oracle.decode_step(kv, [0, 1, 2, 3])
+    t2 = time.perf_counter()
+    if (pre.cycles, dec.cycles, dec.metrics.hit_rate) != \
+            (ORACLE_PREFILL_CYCLES, ORACLE_DECODE_CYCLES,
+             ORACLE_DECODE_HIT_RATE):
+        raise AssertionError(f"oracle: prefill {pre.cycles}, decode "
+                             f"{dec.cycles} (hit rate "
+                             f"{dec.metrics.hit_rate})")
+    print(f"oracle anchors equal: prefill_step {pre.cycles} cycles "
+          f"({t1 - t0:.2f} s), decode_step {dec.cycles} cycles, hit rate "
+          f"{dec.metrics.hit_rate} ({t2 - t1:.2f} s)")
+
+    # first-token logits: the kernel's prefill against the plain SSD step
+    first = {f["rid"]: f["tokens"][0] for f in eng.finished}
+    worst = ssd_worst = 0.0
+    kernel_op = ssd_ops.ssd_intra_chunk
+    for rids in groups:
+        batch = {"tokens": torch.as_tensor(
+            [list(by_rid[r].tokens) for r in rids], device=dev)}
+        operands = []
+
+        def capture(*args, **kw):
+            operands.append((args, kw))
+            return kernel_op(*args, **kw)
+
+        ssd_ops.ssd_intra_chunk = capture
+        try:
+            got, _, _ = prefill(params, batch, cfg, 552)
+        finally:
+            ssd_ops.ssd_intra_chunk = kernel_op
+        # the kernel on this prefill's own operands, layer by layer
+        for args, kw in operands:
+            y, states, cum = kernel_op(*args, **kw)
+            want_y, want_states, want_cum = ssd_ops.ssd_intra_chunk_plain(
+                *args, **kw)
+            torch.testing.assert_close(cum, want_cum, rtol=0, atol=0)
+            torch.testing.assert_close(y, want_y, **SSD_TOL)
+            torch.testing.assert_close(states, want_states, **SSD_TOL)
+            ssd_worst = max(ssd_worst, max_err(y, want_y),
+                            max_err(states, want_states))
+        ssd_ops.ssd_intra_chunk = ssd_ops.ssd_intra_chunk_plain
+        try:
+            want, _, _ = prefill(params, batch, cfg, 552)
+        finally:
+            ssd_ops.ssd_intra_chunk = kernel_op
+        got_first = got[:, :cfg.vocab_size].argmax(dim=1).tolist()
+        if got_first != [first[r] for r in rids]:
+            raise AssertionError(f"group {rids}: first tokens "
+                                 f"{got_first} differ from the engine's")
+        torch.testing.assert_close(got, want, **LOGITS_TOL)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"group {rids}: logits not finite")
+        worst = max(worst, max_err(got[:, :cfg.vocab_size],
+                                   want[:, :cfg.vocab_size]))
+    print(f"first-token logits of {len(groups)} prefill groups, kernel vs "
+          f"plain SSD step: max abs err {worst:.3e} (bf16 model; "
+          f"tolerance {LOGITS_TOL})")
+    print(f"ssd kernel vs plain on the {cfg.num_layers} layers' operands of "
+          f"each of the {len(groups)} prefill groups: max abs err "
+          f"{ssd_worst:.3e} (tolerance {SSD_TOL})")
+
+    split = {"wall_s": wall, "model_s": eng.wall_s["model"],
+             "oracle_s": eng.wall_s["oracle"],
+             "oracle_prefill_s": t1 - t0, "oracle_decode_s": t2 - t1,
+             "logits_max_abs_err": worst, "ssd_max_abs_err": ssd_worst}
+    kinds = {"ssd": "ssd_"}
+    caches = param_values(init_caches(cfg, 4, 552, device=dev))
+    toks = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+    ts = torch.full((4,), 512, dtype=torch.int64, device=dev)
+    one = {"tokens": torch.as_tensor([list(requests[0].tokens)],
+                                     device=dev)}
+    fresh = SoCLatencyOracle(decode_working_set(cfg), device=dev)
+    # the first profiled call of a process pays the tracer's start-up
+    # (~10 s on the card); keep it out of the measured splits
+    device_split(lambda: torch.ones(1, device=dev).sum(), kinds)
+    profiled = {
+        "prefill_1x512": device_split(
+            lambda: prefill(params, one, cfg, 552), kinds),
+        "decode_step_4_slots": device_split(
+            lambda: slot_decode_step(params, caches, toks, ts, cfg), kinds),
+        "oracle_decode_step": device_split(
+            lambda: fresh.decode_step(kv, [0, 1, 2, 3]), kinds)}
+    for name, sp in profiled.items():
+        busy = sp["ssd"] + sp["other"]
+        print(f"{name}: wall {sp['wall_ms']:.2f} ms, device busy "
+              f"{busy:.3f} ms ({busy / sp['wall_ms']:.1%}; ssd "
+              f"{sp['ssd']:.3f} ms)" if busy else
+              f"{name}: wall {sp['wall_ms']:.2f} ms, device time not "
+              "measured (no device events in the trace)")
+    split["profiled"] = profiled
+    return launches, split
+
+
+def time_ssd(dev) -> dict:
+    """The SSD kernel at the serving path's full width (4 prompts of 512
+    tokens: 8 chunks of 256, 24 heads, p 64, n 128) beside its plain
+    version and its bound."""
+    from repro_torch.kernels.ssd import kernel as K
+    from repro_torch.kernels.ssd import ops, ref
+
+    bb, l, chunk, h, p, n = SSD_SHAPES[3]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, dt, A, B, C = ssd_inputs(bb, l, h, p, n, gen, dev)
+    xc, dtc, cum, bc, cc = ops._chunked(x, dt, A, B, C, chunk)
+    nc, q = xc.shape[1], xc.shape[2]
+    out = {"ms": cuda_ms(lambda: K.ssd_intra_chunk_kernel(xc, dtc, cum, bc,
+                                                          cc), 50),
+           "plain_ms": cuda_ms(lambda: ref.ssd_intra_chunk_ref(
+               xc, dtc, cum, bc, cc), 20),
+           "library_ms": None}
+    # FLOPs the masked function needs: the causal (l >= s) pairs of C.B^T
+    # (once per chunk) and of scores @ x, ~5 a pair per head for the
+    # decay and mask, and the per-head state product B^T (w x)
+    pairs = q * (q + 1) // 2
+    flops = bb * nc * (2 * pairs * n + h * (2 * pairs * p + 5 * pairs
+                                            + 2 * q * n * p))
+    # the TPU kernel's own count (the full q x q), printed for comparison
+    full_flops = bb * nc * (2 * q * q * n + h * (2 * q * q * p + 5 * q * q
+                                                 + 2 * q * n * p))
+    nbytes = 4 * bb * nc * (2 * q * h * p + h * n * p + 2 * q * n
+                            + 2 * q * h)
+    out["bound_ms"] = max(flops / FP32_OPS_PER_S,
+                          nbytes / HBM_BYTES_PER_S) * 1e3
+    out["bound_by"] = "operations" if flops / FP32_OPS_PER_S >= \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    print(f"ssd {bb}x{nc} chunks of {q}, h {h}, p {p}, n {n}: kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, no library "
+          f"call computes it, bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}: {flops / 1e6:.0f} MFLOP causal, "
+          f"{nbytes / 1e6:.1f} MB; the TPU kernel's full q x q count "
+          f"{full_flops / 1e6:.0f} MFLOP would give "
+          f"{full_flops / FP32_OPS_PER_S * 1e3:.4f} ms)")
+    return out
+
+
 def int_mm_ms(patches, wmat, reps):
     """torch._int_mm on the same GEMM (K and N padded to multiples of
     8, as it requires), or None where it refuses the operands."""
@@ -401,10 +705,11 @@ def time_kernels(dev) -> tuple[dict, list]:
     return {"convcore": cc, "postproc": pp}, rows
 
 
-def device_split(fn) -> dict:
+def device_split(fn, kinds=None) -> dict:
     """Wall time of ``fn`` and the device time of the kernels it
-    launches, by kind, from a torch.profiler trace (ms; the wall time
-    includes the profiler's own cost)."""
+    launches, by kind (name -> substring of the kernel's name), from a
+    torch.profiler trace (ms; the wall time includes the profiler's own
+    cost)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -413,13 +718,14 @@ def device_split(fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    split = {"wall_ms": (time.perf_counter() - t0) * 1e3, "convcore": 0.0,
-             "postproc": 0.0, "other": 0.0}
+    kinds = kinds or {"convcore": "matmul_int8_kernel",
+                      "postproc": "postproc_kernel"}
+    split = {"wall_ms": (time.perf_counter() - t0) * 1e3, "other": 0.0,
+             **{k: 0.0 for k in kinds}}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            kind = ("convcore" if "matmul_int8_kernel" in e.name
-                    else "postproc" if "postproc_kernel" in e.name
-                    else "other")
+            kind = next((k for k, sub in kinds.items() if sub in e.name),
+                        "other")
             split[kind] += e.device_time_total / 1e3
     return split
 
@@ -468,9 +774,14 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = setup()
     errs = check_kernels(dev)
+    errs["ssd"] = check_ssd(dev)
     res, launches, main_errs = main_path(dev)
     engine_times = paper_chain(res, dev)
+    serve_launches, serve = serve_path(dev)
+    launches["ssd"] = serve_launches["ssd"]
+    main_errs["ssd"] = serve["ssd_max_abs_err"]
     timed, rows = time_kernels(dev)
+    timed["ssd"] = time_ssd(dev)
     profiled = where_time_goes(dev)
 
     meta = {
@@ -478,6 +789,8 @@ def main() -> int:
                      "src/repro/kernels/convcore/kernel.py:62"),
         "postproc": ("src/repro_torch/csrc/postproc.cu",
                      "src/repro/kernels/postproc/kernel.py:50"),
+        "ssd": ("src/repro_torch/csrc/ssd.cu",
+                "src/repro/kernels/ssd/kernel.py:60"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -497,7 +810,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "convcore_layers": rows,
-         "engine_wall_s": engine_times, "profiled": profiled}, indent=1))
+         "engine_wall_s": engine_times, "profiled": profiled,
+         "serve": serve}, indent=1))
     print(f"\nchip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,9 @@ The port imports nothing of the reference, so this is duck-typed: the
 numeric stage's parameters arrive as numpy arrays (or anything
 ``np.asarray`` takes) and configs as any objects with the same
 dataclass fields as the port's.  Tests use it to feed both packages the
-same state.
+same state: the numeric stage's tensors and configs (``stage_layers``,
+``to_config``) and a model's parameter and decode-cache trees
+(``model_tree``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.core.accelerator import AccelConfig, MemSystemConfig
 from repro_torch.core.cache import LLCConfig
 from repro_torch.core.dram import DRAMConfig
 from repro_torch.core.soc import CpuConfig, SoCConfig
+from repro_torch.types import tree_map
 from repro_torch.utils.env import default_device
 
 CONFIGS = {c.__name__: c for c in (SoCConfig, LLCConfig, DRAMConfig,
@@ -64,3 +67,25 @@ def to_config(obj, cls=None):
             value = to_config(value)
         fields[f.name] = value
     return cls(**fields)
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":      # ml_dtypes' bf16: exact via fp32
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def model_tree(tree, *, device=None):
+    """A reference model tree with array leaves — the values of
+    ``repro.models.init_params`` (``param_values``), or the decode
+    caches of ``prefill``/``init_caches`` — as the port's tree of
+    tensors on ``device`` (``cuda`` when None).
+
+    The port keeps the reference's layout (dicts and tuples; the
+    ``blocks`` leaves stacked on a leading layer axis), so the tree
+    converts leaf for leaf; dtypes are kept (fp32 parameters and SSM
+    states, bf16 conv tails)."""
+    dev = default_device(device)
+    return tree_map(lambda a: _tensor(a, dev), tree)

@@ -1,12 +1,16 @@
 """Set-associative LLC simulator — exact, lane-batched, runtime-configurable.
 
 The FireSim LLC model is runtime-configurable in sets/ways/block size
-without an FPGA rebuild; this is the same knob set, in PyTorch.  Two
+without an FPGA rebuild; this is the same knob set, in PyTorch.  Three
 execution paths, bit-identical in hit counts:
 
 * **exact per-access scan** (``simulate_trace``): a Python loop, one
   true-LRU update per access — the reference semantics, used on
   unit-test traces as the parity oracle;
+* **segment engine** (``simulate_segments``): one geometry, per-set
+  rounds over block arrivals, with per-segment hits, exact miss runs
+  for the DRAM row model, and warm-state continuation — what the
+  serving oracle's interference lanes run on;
 * **segment-lane engine** (``segment_lane_scan``): a DBB stream is
   run-length-compressed into ``(base, stride, count)`` segments
   (``repro_torch.core.traces``) and replayed segment by segment, with a
@@ -272,3 +276,165 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
     if hit_rows:
         out[:, hit_segs] += torch.stack(hit_rows, dim=1).cpu().numpy()
     return out
+
+
+# --------------------------------------------------------------------------
+# single-geometry segment engine with per-segment hits and miss runs
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class SegmentSimResult:
+    hits: int
+    accesses: int
+    state: tuple                 # final (tags, age), (sets, ways) int32
+    per_segment_hits: np.ndarray | None = None   # (n_segments,) int64
+    miss_runs: list | None = None  # [(first_block, n_blocks, seg_idx)]
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / max(1, self.accesses)
+
+
+def _split_blocks(base, stride, count, sets: int, ways: int, bb: int,
+                  warm: bool) -> np.ndarray:
+    """The block at which the reference engine splits a long segment
+    that revisits touched blocks into a round-scanned prefix and a
+    closed-form suffix (-1 where it does not split).  The split shows in
+    the miss runs, which the reference emits per part."""
+    live = count > 0
+    b_first = base // bb
+    b_last = (base + np.maximum(count - 1, 0) * stride) // bb
+    uniform = np.remainder(bb, np.maximum(stride, 1)) == 0
+    split = np.full(base.shape[0], -1, np.int64)
+    long = live & (stride <= bb) & uniform & \
+        (b_last - b_first + 1 >= 2 * (ways + 1) * sets)
+    for j in np.flatnonzero(long):
+        # touched: a warm start, or any earlier live segment's blocks
+        if warm or np.any(live[:j] & (b_first[:j] <= b_last[j])
+                          & (b_last[:j] >= b_first[j])):
+            split[j] = b_first[j] + (ways + 1) * sets
+    return split
+
+
+def simulate_segments(segments, cfg: LLCConfig, state=None, *,
+                      per_segment: bool = False,
+                      collect_miss_runs: bool = False,
+                      device=None) -> SegmentSimResult:
+    """Replay a compressed DBB trace (iterable of objects/tuples with
+    ``base, stride, count`` in bytes/bursts, stride > 0) through the
+    LLC on ``device`` (``cuda`` when None), optionally continuing from a
+    prior (tags, age) ``state``.
+
+    Sets are independent under LRU, and all accesses of one segment to
+    one block are consecutive in the trace, so the replay runs per set:
+    every block a segment touches is one *arrival* carrying its access
+    count (a segment with stride > block size: one arrival per access),
+    arrivals are ranked within their set in trace order, and round r
+    retires the r-th arrival of every set at once — one true-LRU touch
+    (hit: first matching way; miss: first way of greatest age), the
+    touched way's age reset, every other way of the set aged by the
+    arrival's access count.  Serial depth is the largest number of
+    arrivals any set receives, not the number of segments or accesses.
+    Hit counts, final state, ``per_segment`` hits and
+    ``collect_miss_runs`` runs (maximal runs of consecutive missed
+    blocks per segment, in access order) are bit-identical to the
+    reference's ``simulate_segments``, and so to expanding the trace and
+    running the per-access ``simulate_trace``."""
+    from repro_torch.core.traces import segment_tuple
+
+    dev = default_device(device)
+    sets, ways, bb = cfg.sets, cfg.ways, cfg.block_bytes
+    metas = [segment_tuple(s) for s in segments]
+    arr = np.asarray(metas, np.int64).reshape(-1, 3)
+    base, stride, count = arr[:, 0], arr[:, 1], arr[:, 2]
+    live = count > 0
+    if np.any(live & (stride <= 0)):
+        raise ValueError(
+            f"segment stride must be positive, got "
+            f"{int(stride[live & (stride <= 0)][0])} (a repeated single "
+            "address is not a compressible sequential burst stream)")
+    split = _split_blocks(base, stride, count, sets, ways, bb,
+                          state is not None)
+    if state is None:
+        tags, age = cold_state(sets, ways, device=dev)
+    else:
+        tags, age = (s.to(device=dev, dtype=torch.int32)
+                     if isinstance(s, torch.Tensor) else
+                     torch.as_tensor(np.array(s), dtype=torch.int32,
+                                     device=dev) for s in state)
+    accesses = int(count[live].sum())
+    compress = stride <= bb
+    b_first = base // bb
+    b_last = (base + np.maximum(count - 1, 0) * stride) // bb
+    n_arr = np.where(live, np.where(compress, b_last - b_first + 1, count),
+                     0)
+    n_total = int(n_arr.sum())
+
+    # arrivals, in trace order (device)
+    def col(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64,
+                               device=dev)
+
+    seg_of = torch.repeat_interleave(
+        torch.arange(len(metas), device=dev), col(n_arr))
+    start = col(np.cumsum(n_arr) - n_arr)
+    i = torch.arange(n_total, device=dev) - start[seg_of]
+    base_a, stride_a, count_a = (col(a)[seg_of] for a in (base, stride,
+                                                           count))
+    comp_a = torch.as_tensor(compress, device=dev)[seg_of]
+    block = torch.where(comp_a, col(b_first)[seg_of] + i,
+                        _fdiv(base_a + i * stride_a, bb))
+    acc = torch.where(comp_a,
+                      _last_access(block, base_a, stride_a, count_a, bb)
+                      - _first_access(block, base_a, stride_a, bb) + 1, 1)
+    set_a = torch.remainder(block, sets)
+    tag_a = _fdiv(block, sets).to(torch.int32)
+
+    # rank every arrival within its set; round r takes position
+    # first[s] + r of the set-sorted order
+    order = torch.sort(set_a, stable=True).indices
+    per_set = torch.bincount(set_a, minlength=sets)
+    first = torch.cumsum(per_set, 0) - per_set
+    tag_s, acc_s = tag_a[order], acc[order].to(torch.int32)
+    hit_s = torch.zeros(n_total + 1, dtype=torch.bool, device=dev)
+    rounds = int(per_set.max()) if n_total else 0
+    for r in range(rounds):
+        pos = first + r
+        v = per_set > r
+        pick = torch.clamp(pos, max=n_total - 1)
+        t, a = tag_s[pick], acc_s[pick]
+        match = tags == t[:, None]
+        hit = match.any(dim=1)
+        score = torch.where(match, _IMAX, age)
+        is_max = score == score.amax(dim=1, keepdim=True)
+        touched = (is_max.cumsum(dim=1) == 1) & is_max & v[:, None]
+        tags = torch.where(touched, t[:, None], tags)
+        age = torch.where(v[:, None],
+                          torch.where(touched, 0, age + a[:, None]), age)
+        hit_s[torch.where(v, pos, n_total)] = hit & v
+    hit_a = torch.empty(n_total, dtype=torch.bool, device=dev)
+    hit_a[order] = hit_s[:n_total]
+
+    seg_hits = torch.zeros(len(metas), dtype=torch.int64, device=dev)
+    seg_hits.index_add_(0, seg_of, acc - 1 + hit_a.to(torch.int64))
+    per_seg = seg_hits.cpu().numpy()
+    miss_runs = None
+    if collect_miss_runs:
+        miss = torch.nonzero(~hit_a).flatten()
+        blk, sg = block[miss], seg_of[miss]
+        cut = torch.ones(miss.shape[0], dtype=torch.bool, device=dev)
+        cut[1:] = (sg[1:] != sg[:-1]) | (blk[1:] != blk[:-1] + 1)
+        cut |= blk == col(split)[sg]
+        starts = torch.nonzero(cut).flatten()
+        lengths = torch.diff(starts, append=torch.tensor(
+            [miss.shape[0]], device=dev))
+        miss_runs = list(zip(blk[starts].tolist(), lengths.tolist(),
+                             sg[starts].tolist()))
+    return SegmentSimResult(hits=int(per_seg.sum()), accesses=accesses,
+                            state=(tags, age),
+                            per_segment_hits=per_seg if per_segment else None,
+                            miss_runs=miss_runs)
+
+
+def hit_rate_segments(segments, cfg: LLCConfig, *, device=None) -> float:
+    """LLC hit rate of a compressed trace (exact)."""
+    return simulate_segments(segments, cfg, device=device).hit_rate
