@@ -3,7 +3,7 @@
 
 Builds the port's Hopper kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, and drives the
-port's two paths through them:
+port's three paths through them:
 
 * the YOLOv3 case study (``repro_torch.case_study``) at the model's full
   416 x 416 width plus all 75 conv layers of a frame, and the paper
@@ -15,7 +15,14 @@ port's two paths through them:
   stats, step log and oracle costs held exactly to the JAX reference's
   (anchors below, from the reference on the CPU) and each prefill
   group's first-token logits held to the same prefill through the SSD
-  step's plain version.
+  step's plain version;
+* serving recurrentgemma-9b at full width (38 layers, d_model 4096, 12
+  local-attention layers with a 2048-token window, random weights from
+  a seed): 8 requests of 2560 and 2100 tokens, 16 new tokens each, 4
+  slots, held the same way to the reference's anchors, with the SWA
+  kernel held to its plain version on every attention layer's own
+  operands of each prefill group, and each group's first-token logits
+  through the kernel held to the plain version's in an fp32 prefill.
 
 Then it times every kernel beside its plain version, a PyTorch library
 call where one computes the same function, and its roofline bound.
@@ -30,6 +37,7 @@ non-zero and the last line is not printed.  Per-layer timings also go to
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -69,6 +77,46 @@ SSD_TOL = dict(rtol=1e-4, atol=1e-4)   # the reference's own for this kernel
 # first-token logits, SSD step through the kernel vs its plain version,
 # bf16 model: the reference's one-step bf16 decode-parity tolerance
 LOGITS_TOL = dict(rtol=2e-2, atol=0.08)
+
+# SWA attention: test_kernels.py's (s, window) pairs at b 2, hq 4, hkv 2,
+# d 32 and its tolerances (fp32 2e-5, bf16 2e-2); its softcap case (s 64,
+# window 64, cap 30, inputs x3); and recurrentgemma-9b's full-width
+# prefill shape (b, s, hq, hkv, d, window), bf16
+SWA_SHAPES = [(128, 32), (128, 64), (256, 256), (96, 32)]
+SWA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SWA_FULL = (1, 2560, 16, 1, 256, 2048)
+BF16_OPS_PER_S = 989e12
+# first-token logits through the SWA kernel vs the plain version, both
+# prefills in fp32: the reference's one-step decode-parity tolerance for
+# recurrentgemma-9b.  In bf16 the 38 random-weight layers amplify the
+# one-ulp differences of two summation orders in every attention output
+# to logit differences of 0.1 and more, so bf16 is held layer by layer
+# (each attention layer's own operands, 2e-2) and by the first tokens.
+RG_LOGITS_TOL = dict(rtol=2e-2, atol=2e-2)
+
+# Full-width recurrentgemma-9b serving anchors: the JAX reference's
+# ServeEngine on the same traffic and oracle, on the CPU, with the
+# engine's model calls replaced by stubs that return zero logits and
+# well-shaped caches (with eos_id=-1 no cycle count depends on the
+# tokens, and a full-width JAX forward is out of a CPU's reach).  The
+# model streams 19,145,129,984 bytes of weights per step, more than fit
+# below the paged-KV region, so the oracle models a resident subset of
+# 256 MiB (weight_bytes=).  Oracle costs for 4 requests of (2560, 16) in
+# PagedKVCache(num_blocks=644, block_size=16, token_bytes=12288).
+RG_WEIGHT_BYTES = 268_435_456
+RG_STATS = {
+    "requests": 8, "tokens": 128, "steps": 33, "prefill_steps": 4,
+    "decode_steps": 32, "idle_steps": 0, "sim_time_s": 3.49410636,
+    "tokens_per_s": 36.63311496905893, "latency_p50_s": 1.82730774,
+    "latency_p99_s": 3.49360636, "mean_occupancy": 3.878787878787879,
+    "max_occupancy": 4}
+RG_STEP_RUNS = [("prefill", 257134592, 1), ("mixed", 554039072, 1),
+                ("decode", 320125824, 14), ("mixed", 554769568, 1),
+                ("mixed", 554039072, 1), ("decode", 320125824, 14),
+                ("decode", 297634976, 1)]
+RG_ORACLE_PREFILL_CYCLES = 284_106_752   # prefill_step(kv, [0, 1])
+RG_ORACLE_DECODE_CYCLES = 320_125_824    # decode_step(kv, [0, 1, 2, 3])
+RG_ORACLE_DECODE_HIT_RATE = 0.5
 
 # Full-width mamba2-130m serving anchors: the JAX reference's
 # ServeEngine on the same traffic (CPU), EngineStats.to_record() and the
@@ -384,18 +432,69 @@ def paper_chain(res: dict, dev) -> dict:
     return times
 
 
-def serve_requests(vocab: int) -> list:
-    """The 8 requests of the serving path: prompt lengths alternating
-    512 and 300, tokens drawn as examples/serve_lm.py draws them, 32 new
-    tokens each, arrivals 100 µs apart."""
+def serve_requests(vocab: int, lengths=(512, 300), max_new: int = 32
+                   ) -> list:
+    """The 8 requests of a serving phase: prompt lengths alternating
+    ``lengths``, tokens drawn as examples/serve_lm.py draws them,
+    ``max_new`` new tokens each, arrivals 100 µs apart."""
     import numpy as np
 
     from repro_torch.serve import Request
 
     rng = np.random.default_rng(1)
     return [Request(rid=i, tokens=tuple(int(t) for t in rng.integers(
-                3, vocab, 512 if i % 2 == 0 else 300)),
-                    max_new=32, arrival_s=i * 100e-6) for i in range(8)]
+                3, vocab, lengths[i % 2])),
+                    max_new=max_new, arrival_s=i * 100e-6) for i in range(8)]
+
+
+def prefill_groups(eng, requests) -> list:
+    """The prefill groups the engine ran: per admitting step, the
+    admitted rids by prompt length."""
+    by_rid = {r.rid: r for r in requests}
+    groups = []
+    for step in eng.step_log:
+        lens = sorted({len(by_rid[r].tokens) for r in step.admitted})
+        groups += [[r for r in step.admitted
+                    if len(by_rid[r].tokens) == n] for n in lens]
+    return groups
+
+
+def check_engine(eng, stats, want_stats: dict, want_runs: list) -> None:
+    """EngineStats and the step log's (kind, cycles) runs, exactly."""
+    record = stats.to_record()
+    if record != want_stats:
+        raise AssertionError(f"EngineStats differ from the reference's: "
+                             f"{record} != {want_stats}")
+    runs = []
+    for r in eng.step_log:
+        if runs and runs[-1][:2] == (r.kind, r.cycles):
+            runs[-1] = (r.kind, r.cycles, runs[-1][2] + 1)
+        else:
+            runs.append((r.kind, r.cycles, 1))
+    if runs != want_runs:
+        raise AssertionError(f"step kinds/cycles {runs} != the "
+                             f"reference's {want_runs}")
+    print(f"EngineStats and the {len(eng.step_log)} steps' kinds and "
+          "cycles equal the JAX reference's, bit for bit")
+
+
+def check_oracle(oracle, kv, want: tuple) -> tuple:
+    """One prefill_step and one decode_step against the reference's
+    (prefill cycles, decode cycles, decode hit rate); returns their
+    host times (s)."""
+    t0 = time.perf_counter()
+    pre = oracle.prefill_step(kv, [0, 1])
+    t1 = time.perf_counter()
+    dec = oracle.decode_step(kv, [0, 1, 2, 3])
+    t2 = time.perf_counter()
+    if (pre.cycles, dec.cycles, dec.metrics.hit_rate) != want:
+        raise AssertionError(f"oracle: prefill {pre.cycles}, decode "
+                             f"{dec.cycles} (hit rate "
+                             f"{dec.metrics.hit_rate}) != {want}")
+    print(f"oracle anchors equal: prefill_step {pre.cycles} cycles "
+          f"({t1 - t0:.2f} s), decode_step {dec.cycles} cycles, hit rate "
+          f"{dec.metrics.hit_rate} ({t2 - t1:.2f} s)")
+    return t1 - t0, t2 - t1
 
 
 def serve_path(dev) -> tuple[dict, dict]:
@@ -436,57 +535,26 @@ def serve_path(dev) -> tuple[dict, dict]:
     wall = time.perf_counter() - t0
     launches = {"convcore": cc_kernel.launches,
                 "postproc": pp_kernel.launches, "ssd": ssd_kernel.launches}
-    record = stats.to_record()
-    print(f"EngineStats {json.dumps(record)}")
+    print(f"EngineStats {json.dumps(stats.to_record())}")
     print(f"serve wall time {wall:.2f} s: model (prefill + decode) "
           f"{eng.wall_s['model']:.2f} s, oracle {eng.wall_s['oracle']:.2f}"
           f" s, {len(eng.oracle._memo)} distinct oracle traces")
 
-    # the prefill groups the engine ran: per admitting step, by length
     by_rid = {r.rid: r for r in requests}
-    groups = []
-    for step in eng.step_log:
-        lens = sorted({len(by_rid[r].tokens) for r in step.admitted})
-        groups += [[r for r in step.admitted
-                    if len(by_rid[r].tokens) == n] for n in lens]
+    groups = prefill_groups(eng, requests)
     print(f"ssd launches on the serving path: {launches['ssd']} "
           f"({len(groups)} prefill groups x {cfg.num_layers} layers)")
     if launches["ssd"] != cfg.num_layers * len(groups):
         raise AssertionError(f"ssd launched {launches['ssd']} times, not "
                              f"{cfg.num_layers} per prefill group")
-    if record != SERVE_STATS:
-        raise AssertionError(f"EngineStats differ from the reference's: "
-                             f"{record} != {SERVE_STATS}")
-    runs = []
-    for r in eng.step_log:
-        if runs and runs[-1][:2] == (r.kind, r.cycles):
-            runs[-1] = (r.kind, r.cycles, runs[-1][2] + 1)
-        else:
-            runs.append((r.kind, r.cycles, 1))
-    if runs != SERVE_STEP_RUNS:
-        raise AssertionError(f"step kinds/cycles {runs} != the "
-                             f"reference's {SERVE_STEP_RUNS}")
-    print(f"EngineStats and the {len(eng.step_log)} steps' kinds and "
-          "cycles equal the JAX reference's, bit for bit")
+    check_engine(eng, stats, SERVE_STATS, SERVE_STEP_RUNS)
 
     oracle = SoCLatencyOracle(decode_working_set(cfg), device=dev)
     kv = PagedKVCache(num_blocks=140, block_size=16, token_bytes=1)
     for rid in range(4):
         kv.admit(rid, 512, 32)
-    t0 = time.perf_counter()
-    pre = oracle.prefill_step(kv, [0, 1])
-    t1 = time.perf_counter()
-    dec = oracle.decode_step(kv, [0, 1, 2, 3])
-    t2 = time.perf_counter()
-    if (pre.cycles, dec.cycles, dec.metrics.hit_rate) != \
-            (ORACLE_PREFILL_CYCLES, ORACLE_DECODE_CYCLES,
-             ORACLE_DECODE_HIT_RATE):
-        raise AssertionError(f"oracle: prefill {pre.cycles}, decode "
-                             f"{dec.cycles} (hit rate "
-                             f"{dec.metrics.hit_rate})")
-    print(f"oracle anchors equal: prefill_step {pre.cycles} cycles "
-          f"({t1 - t0:.2f} s), decode_step {dec.cycles} cycles, hit rate "
-          f"{dec.metrics.hit_rate} ({t2 - t1:.2f} s)")
+    pre_s, dec_s = check_oracle(oracle, kv, (
+        ORACLE_PREFILL_CYCLES, ORACLE_DECODE_CYCLES, ORACLE_DECODE_HIT_RATE))
 
     # first-token logits: the kernel's prefill against the plain SSD step
     first = {f["rid"]: f["tokens"][0] for f in eng.finished}
@@ -539,7 +607,7 @@ def serve_path(dev) -> tuple[dict, dict]:
 
     split = {"wall_s": wall, "model_s": eng.wall_s["model"],
              "oracle_s": eng.wall_s["oracle"],
-             "oracle_prefill_s": t1 - t0, "oracle_decode_s": t2 - t1,
+             "oracle_prefill_s": pre_s, "oracle_decode_s": dec_s,
              "logits_max_abs_err": worst, "ssd_max_abs_err": ssd_worst}
     kinds = {"ssd": "ssd_"}
     caches = param_values(init_caches(cfg, 4, 552, device=dev))
@@ -558,15 +626,279 @@ def serve_path(dev) -> tuple[dict, dict]:
             lambda: slot_decode_step(params, caches, toks, ts, cfg), kinds),
         "oracle_decode_step": device_split(
             lambda: fresh.decode_step(kv, [0, 1, 2, 3]), kinds)}
-    for name, sp in profiled.items():
-        busy = sp["ssd"] + sp["other"]
-        print(f"{name}: wall {sp['wall_ms']:.2f} ms, device busy "
-              f"{busy:.3f} ms ({busy / sp['wall_ms']:.1%}; ssd "
-              f"{sp['ssd']:.3f} ms)" if busy else
-              f"{name}: wall {sp['wall_ms']:.2f} ms, device time not "
-              "measured (no device events in the trace)")
+    print_splits(profiled, "ssd")
     split["profiled"] = profiled
     return launches, split
+
+
+def print_splits(profiled: dict, kernel: str) -> None:
+    for name, sp in profiled.items():
+        busy = sp[kernel] + sp["other"]
+        print(f"{name}: wall {sp['wall_ms']:.2f} ms, device busy "
+              f"{busy:.3f} ms ({busy / sp['wall_ms']:.1%}; {kernel} "
+              f"{sp[kernel]:.3f} ms)" if busy else
+              f"{name}: wall {sp['wall_ms']:.2f} ms, device time not "
+              "measured (no device events in the trace)")
+
+
+def swa_inputs(b, s, hq, hkv, d, dtype, gen, dev, scale=1.0):
+    """Seeded q (B, S, Hq, D) and k/v (B, S, Hkv, D) in ``dtype``."""
+    q = torch.randn((b, s, hq, d), generator=gen, device=dev) * scale
+    k = torch.randn((b, s, hkv, d), generator=gen, device=dev) * scale
+    v = torch.randn((b, s, hkv, d), generator=gen, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def check_swa_close(q, k, v, **kw) -> float:
+    """The SWA kernel against its plain version on the same operands
+    and options, at the dtype's tolerance (fp32 2e-5, bf16 2e-2)."""
+    from repro_torch.kernels.swa import ops
+
+    got = ops.swa_attention(q, k, v, **kw)
+    want = ops.swa_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = SWA_TOL[q.dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    return max_err(got, want)
+
+
+def check_swa(dev) -> float:
+    """The SWA kernel against its plain version on the card at
+    test_kernels.py's shapes (fp32 and bf16), its softcap case and the
+    serving path's full-width prefill shape."""
+    phase("swa against its plain version")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = 0.0
+    for s, window in SWA_SHAPES:
+        for dtype in DTYPES:
+            err = check_swa_close(
+                *swa_inputs(2, s, 4, 2, 32, dtype, gen, dev), window=window)
+            worst = max(worst, err)
+            print(f"  swa b 2 s {s} window {window} hq 4 hkv 2 d 32 "
+                  f"{str(dtype)[6:]}: max abs err {err:.2e}")
+    err = check_swa_close(*swa_inputs(1, 64, 2, 2, 32, torch.float32, gen,
+                                      dev, scale=3.0), window=64,
+                          softcap=30.0)
+    worst = max(worst, err)
+    print(f"  swa s 64 window 64 softcap 30 fp32: max abs err {err:.2e}")
+    b, s, hq, hkv, d, window = SWA_FULL
+    err = check_swa_close(
+        *swa_inputs(b, s, hq, hkv, d, torch.bfloat16, gen, dev),
+        window=window)
+    worst = max(worst, err)
+    print(f"  swa full width b {b} s {s} hq {hq} hkv {hkv} d {d} window "
+          f"{window} bf16: max abs err {err:.2e}")
+    return worst
+
+
+def serve_rg_path(dev) -> tuple[dict, dict]:
+    """The second serving main path, with every launch counter at 0
+    before it: recurrentgemma-9b at full width through ServeEngine,
+    held to the JAX reference's anchors; then each prefill group's
+    first-token logits through the SWA kernel against the plain
+    version, and the kernel against its plain version on every
+    attention layer's operands of those prefills."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.convcore import kernel as cc_kernel
+    from repro_torch.kernels.postproc import kernel as pp_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.swa import kernel as swa_kernel
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.models import (
+        decode_working_set,
+        init_caches,
+        init_params,
+        prefill,
+        slot_decode_step,
+    )
+    from repro_torch.serve import PagedKVCache, ServeEngine, SoCLatencyOracle
+    from repro_torch.types import param_values, tree_map
+
+    phase("serving path: recurrentgemma-9b at full width through "
+          "ServeEngine")
+    cfg = get_config("recurrentgemma-9b")
+    cache_len = 2576
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = param_values(init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg))
+    torch.cuda.synchronize()
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    n_params = sum(sizes)
+    print(f"{n_params:,} fp32 parameters in {time.perf_counter() - t0:.1f} "
+          f"s; peak device memory {torch.cuda.max_memory_allocated():,} "
+          "bytes")
+    ws = decode_working_set(cfg)
+    eng = ServeEngine(cfg, params, cache_len=cache_len, max_slots=4,
+                      temperature=0.0, eos_id=-1, device=dev,
+                      oracle=SoCLatencyOracle(
+                          ws, weight_bytes=RG_WEIGHT_BYTES, device=dev))
+    requests = serve_requests(cfg.vocab_size, lengths=(2560, 2100),
+                              max_new=16)
+    for req in requests:
+        eng.submit(req)
+    cc_kernel.launches = pp_kernel.launches = ssd_kernel.launches = 0
+    swa_kernel.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"convcore": cc_kernel.launches,
+                "postproc": pp_kernel.launches, "ssd": ssd_kernel.launches,
+                "swa": swa_kernel.launches}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"EngineStats {json.dumps(stats.to_record())}")
+    print(f"serve wall time {wall:.2f} s: model (prefill + decode) "
+          f"{eng.wall_s['model']:.2f} s, oracle {eng.wall_s['oracle']:.2f}"
+          f" s, {len(eng.oracle._memo)} distinct oracle traces; peak "
+          f"device memory {peak:,} bytes")
+
+    by_rid = {r.rid: r for r in requests}
+    groups = prefill_groups(eng, requests)
+    n_attn = cfg.layer_kinds().count("attn")
+    print(f"launches on the serving path: {launches} ({len(groups)} "
+          f"prefill groups x {n_attn} attention layers)")
+    if launches["swa"] != n_attn * len(groups):
+        raise AssertionError(f"swa launched {launches['swa']} times, not "
+                             f"{n_attn} per prefill group")
+    check_engine(eng, stats, RG_STATS, RG_STEP_RUNS)
+
+    kv = PagedKVCache(num_blocks=644, block_size=16,
+                      token_bytes=ws.kv_token_bytes)
+    for rid in range(4):
+        kv.admit(rid, 2560, 16)
+    pre_s, dec_s = check_oracle(
+        SoCLatencyOracle(ws, weight_bytes=RG_WEIGHT_BYTES, device=dev), kv,
+        (RG_ORACLE_PREFILL_CYCLES, RG_ORACLE_DECODE_CYCLES,
+         RG_ORACLE_DECODE_HIT_RATE))
+
+    # each group's bf16 prefill through the kernel (its first tokens are
+    # the engine's; the kernel against the plain version on every
+    # attention layer's own operands), then the first-token logits
+    # through the kernel against the plain SWA, in bf16 (reported) and
+    # in fp32 (held to RG_LOGITS_TOL)
+    first = {f["rid"]: f["tokens"][0] for f in eng.finished}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    worst = bf16_worst = swa_worst = 0.0
+    kernel_op = swa_ops.swa_attention
+
+    def plain_prefill(batch, c):
+        swa_ops.swa_attention = swa_ops.swa_attention_plain
+        try:
+            return prefill(params, batch, c, cache_len)[0]
+        finally:
+            swa_ops.swa_attention = kernel_op
+
+    for rids in groups:
+        batch = {"tokens": torch.as_tensor(
+            [list(by_rid[r].tokens) for r in rids], device=dev)}
+        operands = []
+
+        def capture(*args, **kw):
+            operands.append((args, kw))
+            return kernel_op(*args, **kw)
+
+        swa_ops.swa_attention = capture
+        try:
+            got, _, _ = prefill(params, batch, cfg, cache_len)
+        finally:
+            swa_ops.swa_attention = kernel_op
+        for args, kw in operands:
+            swa_worst = max(swa_worst, check_swa_close(*args, **kw))
+        del operands
+        got_first = got[:, :cfg.vocab_size].argmax(dim=1).tolist()
+        if got_first != [first[r] for r in rids]:
+            raise AssertionError(f"group {rids}: first tokens "
+                                 f"{got_first} differ from the engine's")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"group {rids}: logits not finite")
+        bf16_worst = max(bf16_worst, max_err(
+            got[:, :cfg.vocab_size],
+            plain_prefill(batch, cfg)[:, :cfg.vocab_size]))
+        got32, _, _ = prefill(params, batch, cfg32, cache_len)
+        want32 = plain_prefill(batch, cfg32)
+        torch.testing.assert_close(got32, want32, **RG_LOGITS_TOL)
+        worst = max(worst, max_err(got32[:, :cfg.vocab_size],
+                                   want32[:, :cfg.vocab_size]))
+    print(f"swa kernel vs plain on the {n_attn} attention layers' operands "
+          f"of each of the {len(groups)} prefill groups: max abs err "
+          f"{swa_worst:.3e} (tolerance {SWA_TOL[torch.bfloat16]})")
+    print(f"first-token logits of {len(groups)} prefill groups, kernel vs "
+          f"plain SWA: fp32 prefill max abs err {worst:.3e} (tolerance "
+          f"{RG_LOGITS_TOL}); bf16 prefill {bf16_worst:.3e}")
+
+    split = {"wall_s": wall, "model_s": eng.wall_s["model"],
+             "oracle_s": eng.wall_s["oracle"],
+             "oracle_prefill_s": pre_s, "oracle_decode_s": dec_s,
+             "n_params": n_params, "peak_memory_bytes": peak,
+             "logits_fp32_max_abs_err": worst,
+             "logits_bf16_max_abs_err": bf16_worst,
+             "swa_max_abs_err": swa_worst}
+    kinds = {"swa": "swa_kernel"}
+    caches = param_values(init_caches(cfg, 4, cache_len, device=dev))
+    toks = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+    ts = torch.full((4,), 2560, dtype=torch.int64, device=dev)
+    one = {"tokens": torch.as_tensor([list(requests[0].tokens)],
+                                     device=dev)}
+    split["profiled"] = {
+        "prefill_1x2560": device_split(
+            lambda: prefill(params, one, cfg, cache_len), kinds),
+        "decode_step_4_slots": device_split(
+            lambda: slot_decode_step(params, caches, toks, ts, cfg), kinds)}
+    print_splits(split["profiled"], "swa")
+    del params, eng, caches
+    torch.cuda.empty_cache()
+    return launches, split
+
+
+def time_swa(dev) -> dict:
+    """The SWA kernel at recurrentgemma-9b's full-width prefill (1 x
+    2560 tokens, 16 query heads, 1 KV head, D 256, window 2048, bf16)
+    beside its plain version, scaled_dot_product_attention with the
+    boolean band mask, and its bound."""
+    from repro_torch.kernels.swa import kernel as K
+    from repro_torch.kernels.swa import ops
+
+    b, s, hq, hkv, d, window = SWA_FULL
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = swa_inputs(b, s, hq, hkv, d, torch.bfloat16, gen, dev)
+    out = {"ms": cuda_ms(lambda: K.swa_attention_kernel(
+               q, k, v, window=window, scale=d ** -0.5), 20),
+           "plain_ms": cuda_ms(lambda: ops.swa_attention_plain(
+               q, k, v, window=window), 5)}
+    # the library yardstick: one PyTorch call on the same function (KV
+    # heads expanded and the band as a boolean mask, outside the timing)
+    pos = torch.arange(s, device=dev)
+    band = (pos[:, None] >= pos[None, :]) & \
+        (pos[:, None] - pos[None, :] < window)
+    qh = q.transpose(1, 2)
+    kh, vh = (x.transpose(1, 2).expand(b, hq, s, d).contiguous()
+              for x in (k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=band)
+
+    out["library_ms"] = cuda_ms(sdpa, 20)
+    lib_err = max_err(sdpa().transpose(1, 2),
+                      ops.swa_attention_plain(q, k, v, window=window))
+    # FLOPs of the in-band pairs only (q.k and p.v, 2 D each), bytes of
+    # q, o and the un-expanded k, v
+    pairs = sum(min(i + 1, window) for i in range(s))
+    flops = 4 * d * pairs * hq * b
+    nbytes = q.element_size() * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+    out["bound_ms"] = max(flops / BF16_OPS_PER_S,
+                          nbytes / HBM_BYTES_PER_S) * 1e3
+    out["bound_by"] = "operations" if flops / BF16_OPS_PER_S >= \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    print(f"swa b {b} s {s} hq {hq} hkv {hkv} d {d} window {window} bf16: "
+          f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+          f"scaled_dot_product_attention {out['library_ms']:.4f} ms (max abs "
+          f"err vs plain {lib_err:.2e}), bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}: {flops / 1e9:.2f} GFLOP in band, "
+          f"{nbytes / 1e6:.1f} MB)")
+    return out
 
 
 def time_ssd(dev) -> dict:
@@ -775,13 +1107,18 @@ def main() -> int:
     smi = setup()
     errs = check_kernels(dev)
     errs["ssd"] = check_ssd(dev)
+    errs["swa"] = check_swa(dev)
     res, launches, main_errs = main_path(dev)
     engine_times = paper_chain(res, dev)
     serve_launches, serve = serve_path(dev)
     launches["ssd"] = serve_launches["ssd"]
     main_errs["ssd"] = serve["ssd_max_abs_err"]
+    rg_launches, serve_rg = serve_rg_path(dev)
+    launches["swa"] = rg_launches["swa"]
+    main_errs["swa"] = serve_rg["swa_max_abs_err"]
     timed, rows = time_kernels(dev)
     timed["ssd"] = time_ssd(dev)
+    timed["swa"] = time_swa(dev)
     profiled = where_time_goes(dev)
 
     meta = {
@@ -791,6 +1128,8 @@ def main() -> int:
                      "src/repro/kernels/postproc/kernel.py:50"),
         "ssd": ("src/repro_torch/csrc/ssd.cu",
                 "src/repro/kernels/ssd/kernel.py:60"),
+        "swa": ("src/repro_torch/csrc/swa.cu",
+                "src/repro/kernels/swa/kernel.py:78"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -811,7 +1150,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "convcore_layers": rows,
          "engine_wall_s": engine_times, "profiled": profiled,
-         "serve": serve}, indent=1))
+         "serve": serve, "serve_recurrentgemma": serve_rg}, indent=1))
     print(f"\nchip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
 Lists the architectures whose block kinds the port runs — so far the
-SSM family (``mamba2-130m``).  The other archs of the reference's
+SSM family (``mamba2-130m``) and the Griffin hybrid of RG-LRU and local
+attention (``recurrentgemma-9b``).  The other archs of the reference's
 registry arrive with their block kinds (ROADMAP, port queue).
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _ARCH_MODULES = {
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

@@ -85,7 +85,8 @@ def model_tree(tree, *, device=None):
 
     The port keeps the reference's layout (dicts and tuples; the
     ``blocks`` leaves stacked on a leading layer axis), so the tree
-    converts leaf for leaf; dtypes are kept (fp32 parameters and SSM
-    states, bf16 conv tails)."""
+    converts leaf for leaf; dtypes are kept (fp32 parameters and
+    recurrent states, bf16 conv tails, attention caches in the compute
+    dtype)."""
     dev = default_device(device)
     return tree_map(lambda a: _tensor(a, dev), tree)

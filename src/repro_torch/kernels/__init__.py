@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port, one package per TPU kernel
-they replace: ``convcore`` (int8 GEMM + fused SDP epilogue) and
-``postproc`` (fused SDP + PDP).  Each keeps the reference's
+they replace: ``convcore`` (int8 GEMM + fused SDP epilogue),
+``postproc`` (fused SDP + PDP), ``ssd`` (the Mamba-2 intra-chunk step)
+and ``swa`` (sliding-window flash attention).  Each keeps the reference's
 ``kernel.py`` (launch) / ``ops.py`` (public op) / ``ref.py`` (plain
 PyTorch version) split; the CUDA sources live in ``repro_torch/csrc``.
 """

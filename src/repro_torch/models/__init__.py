@@ -1,4 +1,6 @@
-"""Model zoo of the port: the block kinds ported so far (mamba-2)."""
+"""Model zoo of the port: the block kinds ported so far — mamba-2
+(``"ssm"``), RG-LRU (``"rec"``) and causal / local self-attention
+(``"attn"``)."""
 from repro_torch.models.decoding import (  # noqa: F401
     DecodeWorkingSet,
     cache_slot_axes,

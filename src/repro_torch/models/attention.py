@@ -1,0 +1,191 @@
+"""Attention: GQA/MQA self-attention, sliding-window (banded), KV caches.
+
+* Prefill is causal attention over a band of ``window`` keys through
+  ``kernels.swa`` — the Hopper kernel on the card, its plain version on
+  the CPU.  The reference computes the same function with a
+  query-chunked, banded jnp path (``repro.models.attention.attend``) and
+  keeps the Pallas SWA kernel as its TPU-native form; the port runs the
+  kernel.  GQA is never expanded in memory: query head ``h`` reads KV
+  head ``h // group``.
+* Decode reads a rolling-buffer cache of ``min(window, cache_len)`` slots
+  (slot = position mod length), with RoPE applied at insert time
+  (absolute positions).  It is plain torch, as in the reference (no
+  kernel there either).  Each batch row may sit at its own position.
+
+Full-context attention (``window`` 0, the dense archs' dense caches),
+cross-attention, int8 KV caches and split-K decode raise
+``NotImplementedError`` until their slices land (ROADMAP, port queue).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.swa import ops as swa_ops
+from repro_torch.models.layers import _dense_init, apply_rope, compute_dtype
+from repro_torch.types import Param
+
+NEG_INF = -1e30
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet — ROADMAP, port queue (the "
+        "recurrentgemma-9b slice runs local causal self-attention with a "
+        "bf16 or fp32 KV cache)")
+
+
+def _windowed(window: int) -> int:
+    if window < 1:
+        raise _unported("full-context attention (window 0, the dense archs)")
+    return window
+
+
+# --------------------------------------------------------------------------
+# params
+# --------------------------------------------------------------------------
+def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, nq, nkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = gen.device
+    p = {
+        "wq": Param(_dense_init(gen, (d, nq, hd), d),
+                    ("embed", "heads", "head_dim")),
+        "wk": Param(_dense_init(gen, (d, nkv, hd), d),
+                    ("embed", "kv_heads", "head_dim")),
+        "wv": Param(_dense_init(gen, (d, nkv, hd), d),
+                    ("embed", "kv_heads", "head_dim")),
+        "wo": Param(_dense_init(gen, (nq, hd, d), nq * hd),
+                    ("heads", "head_dim", "embed")),
+    }
+    if cfg.attn_bias:
+        p["bq"] = Param(torch.zeros((nq, hd), device=dev), ("heads", "head_dim"))
+        p["bk"] = Param(torch.zeros((nkv, hd), device=dev),
+                        ("kv_heads", "head_dim"))
+        p["bv"] = Param(torch.zeros((nkv, hd), device=dev),
+                        ("kv_heads", "head_dim"))
+    return p
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., d) @ (d, n, h) -> (..., n, h) in x's dtype."""
+    d, n, h = w.shape
+    return (x @ w.to(x.dtype).reshape(d, n * h)).reshape(*x.shape[:-1], n, h)
+
+
+def _project_q(params, x, cfg: ModelConfig):
+    q = _heads(x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+    return q
+
+
+def _project_kv(params, x, cfg: ModelConfig):
+    k, v = _heads(x, params["wk"]), _heads(x, params["wv"])
+    if "bk" in params:
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    return k, v
+
+
+def _out(params, o: torch.Tensor) -> torch.Tensor:
+    """(B, S, nq, hd) @ wo (nq, hd, d) -> (B, S, d)."""
+    nq, hd, d = params["wo"].shape
+    return o.reshape(*o.shape[:-2], nq * hd) @ params["wo"].to(o.dtype) \
+        .reshape(nq * hd, d)
+
+
+def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0.0:
+        return cap * torch.tanh(scores / cap)
+    return scores
+
+
+# --------------------------------------------------------------------------
+# prefill path (the SWA kernel)
+# --------------------------------------------------------------------------
+def attend(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+           positions: torch.Tensor, causal: bool = True, window: int = 0,
+           kv_src: torch.Tensor | None = None, return_kv: bool = False):
+    """Full-sequence local causal self-attention (prefill).
+
+    x: (B, S, d); positions: (S,) query positions; each query sees the
+    ``window`` positions up to its own.  Returns (B, S, d) [, (k, v)
+    after RoPE, at n_kv heads]."""
+    if kv_src is not None or not causal:
+        raise _unported("cross-attention and non-causal attention "
+                        "(encoder stacks)")
+    q = _project_q(params, x, cfg)
+    k, v = _project_kv(params, x, cfg)
+    if cfg.rope_fraction > 0:
+        q = apply_rope(q, positions, cfg)
+        k = apply_rope(k, positions, cfg)
+    out = swa_ops.swa_attention(q, k, v, window=_windowed(window),
+                                scale=cfg.head_dim ** -0.5,
+                                softcap=cfg.attn_logit_softcap)
+    y = _out(params, out)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+# --------------------------------------------------------------------------
+# decode path
+# --------------------------------------------------------------------------
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                    window: int = 0, device) -> dict:
+    """Rolling-buffer cache of length ``min(window, max_len)``, in the
+    compute dtype."""
+    if cfg.kv_cache_dtype == "int8":
+        raise _unported(f"kv_cache_dtype='int8' ({cfg.name})")
+    length = min(_windowed(window), max_len)
+    shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+    dt = compute_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def cache_axes() -> dict:
+    kv = ("act_batch", "cache_seq", "act_kv_heads", None)
+    return {"k": kv, "v": kv, "k_scale": kv[:-1], "v_scale": kv[:-1]}
+
+
+def attend_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  cache: dict, t, *, window: int = 0,
+                  cross_cache: dict | None = None):
+    """One-token decode. x: (B, 1, d); t: the absolute position, a
+    scalar or one per row (B,).  Returns (y, new_cache); the cache is
+    not written in place."""
+    if cross_cache is not None:
+        raise _unported("cross-attention decode")
+    window = _windowed(window)
+    b = x.shape[0]
+    ts = torch.as_tensor(t, device=x.device).to(torch.int64).reshape(-1) \
+        .expand(b)
+    q = _project_q(params, x, cfg)                 # (B, 1, nq, hd)
+    k_new, v_new = _project_kv(params, x, cfg)
+    if cfg.rope_fraction > 0:
+        q = apply_rope(q, ts[:, None], cfg)
+        k_new = apply_rope(k_new, ts[:, None], cfg)
+    length = cache["k"].shape[1]
+    slot = ts % length
+    rows = torch.arange(b, device=x.device)
+    new_cache = {}
+    for name, val in (("k", k_new), ("v", v_new)):
+        buf = cache[name].clone()
+        buf[rows, slot] = val[:, 0].to(buf.dtype)
+        new_cache[name] = buf
+    # slot i holds absolute position p_i = t - ((t - i) mod length)
+    idx = torch.arange(length, device=x.device)
+    kpos = ts[:, None] - torch.remainder(ts[:, None] - idx[None, :], length)
+    valid = (kpos >= 0) & (ts[:, None] - kpos < window)
+    # GQA by grouping the query heads (the reference broadcasts each KV
+    # head over its group; the products are the same)
+    nkv, hd = cfg.num_kv_heads, cfg.head_dim
+    qg = q.reshape(b, 1, nkv, cfg.num_heads // nkv, hd)
+    scores = torch.einsum("blkgh,btkh->bkglt", qg.to(torch.float32),
+                          new_cache["k"].to(torch.float32)) * hd ** -0.5
+    scores = _softcap(scores, cfg.attn_logit_softcap)
+    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bkglt,btkh->blkgh", probs, new_cache["v"])
+    return _out(params, out.reshape(b, 1, cfg.num_heads, hd)), new_cache

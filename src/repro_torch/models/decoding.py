@@ -6,8 +6,13 @@ axis leading in ``blocks`` leaves, so the same layer loop drives both.
 ``init_caches`` returns ``Param``-wrapped leaves (logical axes), as the
 reference does.
 
-Cache kinds ported so far: mamba-2 — ``(B, conv_k-1, C)`` bf16 conv tail
-+ ``(B, H, N, P)`` fp32 SSM state.
+Cache kinds ported so far:
+
+* attention, windowed (local / SWA) — rolling buffer of ``min(window,
+  cache_len)`` slots, slot = position mod length;
+* mamba-2 — ``(B, conv_k-1, C)`` bf16 conv tail + ``(B, H, N, P)`` fp32
+  SSM state;
+* RG-LRU — ``(B, conv_k-1, W)`` bf16 conv tail + ``(B, W)`` fp32 state.
 """
 from __future__ import annotations
 
@@ -16,9 +21,12 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.transformer import (
+    _attn_window,
     _check_supported,
     _embed_input,
     _run_stack,
@@ -35,20 +43,30 @@ from repro_torch.utils.env import default_device
 # --------------------------------------------------------------------------
 # cache init
 # --------------------------------------------------------------------------
-def _layer_cache(cfg: ModelConfig, kind: str, batch: int, *, device) -> dict:
-    if kind != "ssm":
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                 *, device) -> dict:
+    if kind == "ssm":
+        values = ssm_mod.init_ssm_cache(cfg, batch, device=device)
+        axes = ssm_mod.ssm_cache_axes()
+    elif kind == "rec":
+        values = rglru_mod.init_rglru_cache(cfg, batch, device=device)
+        axes = rglru_mod.rglru_cache_axes()
+    elif kind == "attn":
+        values = attn_mod.init_attn_cache(cfg, batch, cache_len,
+                                          window=_attn_window(cfg),
+                                          device=device)
+        axes = attn_mod.cache_axes()
+    else:
         raise _unported(f"the {kind!r} cache")
-    values = ssm_mod.init_ssm_cache(cfg, batch, device=device)
-    axes = ssm_mod.ssm_cache_axes()
     return {k: Param(v, axes[k]) for k, v in values.items()}
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
                 device=None) -> dict:
     """Param-wrapped cache tree for ``decode_step`` (strip with
-    ``param_values``), on ``device`` (``cuda`` when None).  SSM caches
-    do not grow with ``cache_len``; it is kept for the reference's
-    signature."""
+    ``param_values``), on ``device`` (``cuda`` when None).  Recurrent
+    caches do not grow with ``cache_len``; attention caches hold
+    ``min(window, cache_len)`` positions."""
     _check_supported(cfg)
     dev = default_device(device)
     pattern, n_full, rem = pattern_split(cfg)
@@ -57,11 +75,13 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
         caches["blocks"] = tuple(
             {k: Param(p.value[None].expand((n_full,) + p.value.shape)
                       .contiguous(), ("layers",) + p.axes)
-             for k, p in _layer_cache(cfg, kind, batch, device=dev).items()}
+             for k, p in _layer_cache(cfg, kind, batch, cache_len,
+                                      device=dev).items()}
             for kind in pattern)
     if rem:
         caches["rem"] = tuple(
-            _layer_cache(cfg, pattern[j % len(pattern)], batch, device=dev)
+            _layer_cache(cfg, pattern[j % len(pattern)], batch, cache_len,
+                         device=dev)
             for j in range(rem))
     return caches
 
@@ -69,17 +89,46 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
 # --------------------------------------------------------------------------
 # prefill: full-sequence forward that also fills the caches
 # --------------------------------------------------------------------------
+def _to_decode_cache(raw, cfg: ModelConfig, kind: str, cache_len: int,
+                     positions: torch.Tensor):
+    """A raw prefill cache (one layer, or layers stacked on a leading
+    axis) in the decode layout.  Recurrent caches already are; an
+    attention layer's keys and values go to their rolling-buffer slots:
+    the last ``min(S, length)`` positions, at ``position mod length``."""
+    if kind in ("ssm", "rec"):
+        return raw
+    k, v = raw["k"], raw["v"]                  # (..., B, S, n_kv, hd)
+    length = min(_attn_window(cfg), cache_len)
+    take = min(k.shape[-3], length)
+    slots = torch.remainder(positions[-take:], length)
+    out = {}
+    for name, val in (("k", k), ("v", v)):
+        buf = val.new_zeros(val.shape[:-3] + (length,) + val.shape[-2:])
+        buf[..., slots, :, :] = val[..., val.shape[-3] - take:, :, :]
+        out[name] = buf
+    return out
+
+
 def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int):
     """Run the full prompt, return (last-token logits (B, Vp), caches,
-    t_next).  SSM caches come out of the stack already in decode format
-    (conv tail + final state)."""
+    t_next), the caches in decode format."""
     _check_supported(cfg)
     pattern, _, _ = pattern_split(cfg)
     x, positions, _ = _embed_input(params, batch, cfg)
-    x, caches = _run_stack(params, x, cfg, pattern, positions=positions,
-                           collect_cache=True)
+    x, raw = _run_stack(params, x, cfg, pattern, positions=positions,
+                        collect_cache=True)
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x[:, -1:], cfg)[:, 0]
+    caches: dict = {}
+    if "blocks" in raw:
+        caches["blocks"] = tuple(
+            _to_decode_cache(c, cfg, kind, cache_len, positions)
+            for c, kind in zip(raw["blocks"], pattern))
+    if "rem" in raw:
+        caches["rem"] = tuple(
+            _to_decode_cache(c, cfg, pattern[j % len(pattern)], cache_len,
+                             positions)
+            for j, c in enumerate(raw["rem"]))
     return logits, caches, int(x.shape[1])
 
 
@@ -134,7 +183,8 @@ def slot_decode_step(params, caches, tokens: torch.Tensor,
     ``tokens`` (B, 1), ``ts`` (B,) absolute positions.  The reference
     ``vmap``s a batch-1 ``decode_step`` over the slot axis; with the
     batch written out, every row of a ported block is already
-    independent of the others (an SSM step reads no position), so the
+    independent of the others, and the attention step takes each row's
+    own position for RoPE, the write slot and the valid mask, so the
     batch runs as one ``decode_step`` with the per-row positions.
 
     Returns (logits (B, padded_vocab) fp32, new_caches)."""
@@ -176,7 +226,7 @@ def decode_working_set(cfg: ModelConfig) -> DecodeWorkingSet:
     layout the reference's ``init_caches`` builds for every block kind
     (the arithmetic needs no ported block)."""
     dt_bytes = L.compute_dtype(cfg).itemsize
-    window = cfg.sliding_window or cfg.local_window
+    window = _attn_window(cfg)
     kv_entries = []
     state = 0
     for kind in cfg.layer_kinds():

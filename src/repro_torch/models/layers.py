@@ -1,4 +1,4 @@
-"""Shared model building blocks: norms, embeddings, initialisers.
+"""Shared model building blocks: norms, RoPE, MLPs, embeddings.
 
 All modules are plain functions over explicit parameter trees.  Compute
 happens in ``cfg.dtype`` (bf16 by default) with fp32 accumulations where
@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, pad_to
 from repro_torch.types import Param
@@ -59,6 +60,76 @@ def apply_norm(params: dict, x: torch.Tensor, cfg: ModelConfig
 
 
 # --------------------------------------------------------------------------
+# rotary embeddings (fraction < 1 => partial rotary on the leading dims)
+# --------------------------------------------------------------------------
+def rope_dim(cfg: ModelConfig) -> int:
+    d = int(cfg.head_dim * cfg.rope_fraction)
+    return d - (d % 2)
+
+
+def rope_angles(positions: torch.Tensor, dim: int, theta: float) -> tuple:
+    """positions (...,) -> fp32 cos/sin of shape (..., dim//2)."""
+    inv_freq = 1.0 / (theta ** (torch.arange(
+        0, dim, 2, dtype=torch.float32, device=positions.device) / dim))
+    ang = positions.to(torch.float32)[..., None] * inv_freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions broadcastable to
+    (..., seq).  Half-split rotation (the two halves of the first
+    ``rope_dim`` dims), computed in fp32 and cast back."""
+    rd = rope_dim(cfg)
+    if rd == 0:
+        return x
+    cos, sin = rope_angles(positions, rd, cfg.rope_theta)
+    cos = cos[..., None, :]  # (..., seq, 1, rd//2)
+    sin = sin[..., None, :]
+    rot, rest = x[..., :rd], x[..., rd:]
+    x1, x2 = rot[..., :rd // 2], rot[..., rd // 2:]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.cat([out1.to(x.dtype), out2.to(x.dtype), rest], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# MLP (gated SwiGLU/GeGLU or plain 2-matrix)
+# --------------------------------------------------------------------------
+def _act(name: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return {"silu": F.silu, "relu": F.relu,
+            "gelu": lambda h: F.gelu(h, approximate="tanh")}[name]
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    p = {"w_in": Param(_dense_init(gen, (d, ff), d), ("embed", "mlp")),
+         "w_out": Param(_dense_init(gen, (ff, d), ff), ("mlp", "embed"))}
+    if cfg.gated_mlp:
+        p["w_gate"] = Param(_dense_init(gen, (d, ff), d), ("embed", "mlp"))
+    if not cfg.gated_mlp and cfg.attn_bias:  # whisper-style biased MLP
+        p["b_in"] = Param(torch.zeros(ff, device=gen.device), ("mlp",))
+        p["b_out"] = Param(torch.zeros(d, device=gen.device), ("norm",))
+    return p
+
+
+def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    dt = x.dtype
+    h = x @ params["w_in"].to(dt)
+    if "b_in" in params:
+        h = h + params["b_in"].to(dt)
+    h = _act(cfg.act)(h)
+    if cfg.gated_mlp:
+        h = h * (x @ params["w_gate"].to(dt))
+    out = h @ params["w_out"].to(dt)
+    if "b_out" in params:
+        out = out + params["b_out"].to(dt)
+    return out
+
+
+# --------------------------------------------------------------------------
 # embeddings / unembedding
 # --------------------------------------------------------------------------
 def init_embeddings(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -73,7 +144,11 @@ def init_embeddings(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
-    return params["embed"].to(compute_dtype(cfg))[tokens]
+    dt = compute_dtype(cfg)
+    x = params["embed"][tokens].to(dt)     # gather, then cast the rows
+    if cfg.family == "hybrid":  # gemma-style sqrt(d) scale, in dt
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+    return x
 
 
 def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

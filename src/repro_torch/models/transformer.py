@@ -7,22 +7,27 @@ applies the remainder layers unrolled.  The port keeps that parameter
 layout — so a reference tree converts leaf for leaf — and walks the
 stacked axis with a Python loop.
 
-Only the ``"ssm"`` block kind (mamba-2) is ported; the other kinds
-raise ``NotImplementedError`` until their slice lands (ROADMAP, port
-queue).
+The ported block kinds are ``"ssm"`` (mamba-2), ``"rec"`` (RG-LRU +
+MLP) and ``"attn"`` (local causal self-attention + MLP); full-context
+attention, MoE FFNs, the encoder-decoder stack, VLM inputs and int8 KV
+caches raise ``NotImplementedError`` until their slices land (ROADMAP,
+port queue).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.types import Param, is_param, param_values, tree_map
+from repro_torch.types import Param, is_param, tree_map
 
-NEXT_SLICE = ("ROADMAP, port queue: 'rec'/'attn' blocks come with the "
-              "recurrentgemma-9b slice (swa kernel, rglru, attention, "
-              "MLP, RoPE); MoE, encoder-decoder and VLM inputs after it")
+NEXT_SLICE = ("ROADMAP, port queue: MoE FFNs (mixtral), the dense archs' "
+              "full-attention paths, int8 KV caches, cross-attention, "
+              "encoder-decoder and VLM inputs come with later slices")
+BLOCK_KINDS = ("ssm", "rec", "attn")
 
 
 def _unported(what: str):
@@ -39,43 +44,98 @@ def pattern_split(cfg: ModelConfig) -> tuple[tuple[str, ...], int, int]:
     return pat, n_full, rem
 
 
+def _attn_window(cfg: ModelConfig) -> int:
+    return cfg.sliding_window or cfg.local_window
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
-        if kind != "ssm":
+        if kind not in BLOCK_KINDS:
             raise _unported(f"block kind {kind!r} ({cfg.name})")
+    if "attn" in cfg.block_pattern and not _attn_window(cfg):
+        raise _unported(f"full-context attention ({cfg.name})")
+    if cfg.num_experts:
+        raise _unported(f"the MoE FFN ({cfg.name})")
     if cfg.is_encoder_decoder:
         raise _unported(f"the encoder-decoder stack ({cfg.name})")
+    if cfg.kv_cache_dtype == "int8":
+        raise _unported(f"the int8 KV cache ({cfg.name})")
 
 
 # --------------------------------------------------------------------------
 # per-block init / apply
 # --------------------------------------------------------------------------
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
+    dev = gen.device
     if kind == "ssm":
-        return {"norm1": L.init_norm(cfg, gen.device),
+        return {"norm1": L.init_norm(cfg, dev),
                 "ssm": ssm_mod.init_ssm(gen, cfg)}
+    if kind == "rec":
+        return {"norm1": L.init_norm(cfg, dev),
+                "rec": rglru_mod.init_rglru(gen, cfg),
+                "norm2": L.init_norm(cfg, dev),
+                "mlp": L.init_mlp(gen, cfg)}
+    if kind == "attn":
+        return {"norm1": L.init_norm(cfg, dev),
+                "attn": attn_mod.init_attention(gen, cfg),
+                "norm2": L.init_norm(cfg, dev),
+                "mlp": L.init_mlp(gen, cfg)}
     raise _unported(f"block kind {kind!r}")
+
+
+def _mlp_residual(params, x, cfg: ModelConfig):
+    return x + L.apply_mlp(params["mlp"], L.apply_norm(params["norm2"], x,
+                                                       cfg), cfg)
 
 
 def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions=None,
                 collect_cache: bool = False):
-    """Full-sequence block. Returns (x, cache_or_None)."""
-    if kind != "ssm":
+    """Full-sequence block. Returns (x, cache_or_None); an attention
+    block's cache is its raw (k, v) after RoPE, which ``prefill`` turns
+    into the decode layout."""
+    if kind not in BLOCK_KINDS:
         raise _unported(f"block kind {kind!r}")
     h = L.apply_norm(params["norm1"], x, cfg)
-    if collect_cache:
-        y, cache = ssm_mod.apply_ssm(params["ssm"], h, cfg, return_state=True)
+    cache = None
+    if kind == "ssm":
+        if collect_cache:
+            y, cache = ssm_mod.apply_ssm(params["ssm"], h, cfg,
+                                         return_state=True)
+        else:
+            y = ssm_mod.apply_ssm(params["ssm"], h, cfg)
         return x + y, cache
-    return x + ssm_mod.apply_ssm(params["ssm"], h, cfg), None
+    if kind == "rec":
+        if collect_cache:
+            y, cache = rglru_mod.apply_rglru(params["rec"], h, cfg,
+                                             return_state=True)
+        else:
+            y = rglru_mod.apply_rglru(params["rec"], h, cfg)
+    else:
+        y = attn_mod.attend(params["attn"], h, cfg, positions=positions,
+                            window=_attn_window(cfg),
+                            return_kv=collect_cache)
+        if collect_cache:
+            y, (k, v) = y
+            cache = {"k": k, "v": v}
+    return _mlp_residual(params, x + y, cfg), cache
 
 
 def apply_block_decode(params, x, cfg: ModelConfig, kind: str, cache, t):
-    """One-token block step. Returns (x, new_cache)."""
-    if kind != "ssm":
+    """One-token block step (``t`` a scalar or one position per row).
+    Returns (x, new_cache)."""
+    if kind not in BLOCK_KINDS:
         raise _unported(f"block kind {kind!r}")
     h = L.apply_norm(params["norm1"], x, cfg)
-    y, new_cache = ssm_mod.apply_ssm_decode(params["ssm"], h, cfg, cache)
-    return x + y, new_cache
+    if kind == "ssm":
+        y, new_cache = ssm_mod.apply_ssm_decode(params["ssm"], h, cfg, cache)
+        return x + y, new_cache
+    if kind == "rec":
+        y, new_cache = rglru_mod.apply_rglru_decode(params["rec"], h, cfg,
+                                                    cache)
+    else:
+        y, new_cache = attn_mod.attend_decode(params["attn"], h, cfg, cache,
+                                              t, window=_attn_window(cfg))
+    return _mlp_residual(params, x + y, cfg), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -97,11 +157,28 @@ def layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _stack_layers(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                  n: int) -> dict:
+    """``n`` layers of one kind, initialised in order, their values
+    written into preallocated stacked tensors one layer at a time (peak
+    memory: the stack plus one layer, not two stacks)."""
+    first = init_block(gen, cfg, kind)
+    stacked = tree_map(
+        lambda p: Param(p.value.new_empty((n,) + p.value.shape),
+                        ("layers",) + p.axes), first, is_leaf=is_param)
+    for i in range(n):
+        blk = first if i == 0 else init_block(gen, cfg, kind)
+        tree_map(lambda dst, src: dst.value[i].copy_(src.value), stacked,
+                 blk, is_leaf=is_param)
+        del blk
+    return stacked
+
+
 def init_params(key, cfg: ModelConfig, *, device=None) -> dict:
     """Param-wrapped model parameters, fp32, on ``device`` (``cuda`` when
     None).  ``key`` is a ``torch.Generator`` or an int seed; the numbers
     differ from ``jax.random``'s — tests carry reference weights across
-    with ``repro_torch.convert.model_params``."""
+    with ``repro_torch.convert.model_tree``."""
     from repro_torch.utils.env import default_device
 
     _check_supported(cfg)
@@ -112,14 +189,8 @@ def init_params(key, cfg: ModelConfig, *, device=None) -> dict:
     p: dict = {"embed": L.init_embeddings(gen, cfg),
                "final_norm": L.init_norm(cfg, dev)}
     if n_full:
-        blocks = []
-        for kind in pattern:
-            per_layer = [init_block(gen, cfg, kind) for _ in range(n_full)]
-            values = stack_trees([param_values(b) for b in per_layer])
-            blocks.append(tree_map(
-                lambda q, v: Param(v, ("layers",) + q.axes), per_layer[0],
-                values, is_leaf=is_param))
-        p["blocks"] = tuple(blocks)
+        p["blocks"] = tuple(_stack_layers(gen, cfg, kind, n_full)
+                            for kind in pattern)
     if rem:
         p["rem"] = tuple(init_block(gen, cfg, pattern[j % len(pattern)])
                          for j in range(rem))

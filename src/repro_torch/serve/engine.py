@@ -19,8 +19,8 @@
   tokens/s and per-request p50/p99 are reported in simulated SoC time.
 
 The model runs on ``device`` (``cuda`` unless the caller asks for
-another), with the prefill's intra-chunk SSD step in the Hopper kernel
-there.  Typed frozen ``Request`` / ``StepResult`` / ``EngineStats``
+another), with the prefill's intra-chunk SSD step and its local
+attention in Hopper kernels there.  Typed frozen ``Request`` / ``StepResult`` / ``EngineStats``
 records with ``to_record()``/``from_record()`` are the journal currency.
 ``wall_s`` splits the host wall time of the run into the model
 (prefill + decode, which end in a copy of the logits to the host) and

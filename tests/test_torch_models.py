@@ -160,7 +160,7 @@ def test_params_and_caches_keep_the_reference_layout():
 def test_working_set_and_registry_match_reference():
     from repro.configs import get_config as j_get
 
-    assert ARCHS == ("mamba2-130m",)
+    assert ARCHS == ("mamba2-130m", "recurrentgemma-9b")
     for get in (lambda a: (j_get(a), get_config(a)),
                 lambda a: (j_smoke(a), t_smoke(a))):
         jcfg, tcfg = get(ARCH)
@@ -173,7 +173,8 @@ def test_working_set_and_registry_match_reference():
 
 
 def test_unported_block_kinds_raise():
-    tcfg = dataclasses.replace(t_smoke(ARCH), block_pattern=("attn",))
+    tcfg = dataclasses.replace(t_smoke(ARCH), block_pattern=("attn",),
+                               num_experts=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_models.init_params(0, tcfg, device="cpu")
     gcfg = dataclasses.replace(t_smoke(ARCH), ssm_ngroups=2)

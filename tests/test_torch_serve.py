@@ -124,6 +124,51 @@ def test_engine_matches_reference_engine_fp32():
     assert teng.wall_s["model"] > 0 and teng.wall_s["oracle"] > 0
 
 
+def test_hybrid_engine_matches_reference_engine_fp32():
+    """recurrentgemma-9b's smoke config (window 16) in fp32, temperature
+    0: prompts of 24, 12 and 30 tokens (past the window, inside it,
+    ragged), attention caches of 16 slots rolling over during decode,
+    more requests than slots — identical tokens, step log and stats."""
+    arch = "recurrentgemma-9b"
+    jcfg = dataclasses.replace(j_smoke(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    jparams = j_values(j_init(jax.random.PRNGKey(0), jcfg))
+    tparams = model_tree(jax.tree.map(np.asarray, jparams), device="cpu")
+    kw = dict(cache_len=48, max_slots=3, eos_id=-1, temperature=0.0)
+    jeng = JEngine(jcfg, jparams, **kw)
+    teng = ServeEngine(tcfg, tparams, device="cpu", **kw)
+    rng = np.random.default_rng(1)
+    for i in range(5):
+        plen = (24, 12, 30)[i % 3]
+        toks = tuple(int(t) for t in rng.integers(3, tcfg.vocab_size, plen))
+        jeng.submit(JRequest(rid=i, tokens=toks, max_new=6 + i,
+                             arrival_s=i * 2e-6))
+        teng.submit(Request(rid=i, tokens=toks, max_new=6 + i,
+                            arrival_s=i * 2e-6))
+    want, got = jeng.run(), teng.run()
+    assert got.to_record() == want.to_record()
+    assert [r.to_record() for r in teng.step_log] == \
+        [r.to_record() for r in jeng.step_log]
+    assert teng.finished == jeng.finished
+    assert {r.kind for r in teng.step_log} >= {"prefill", "decode",
+                                               "mixed"}
+
+
+def test_full_width_working_sets_match_reference():
+    """The byte model the oracle lowers, at full width, field for field
+    (recurrentgemma-9b's 19 GB weight stream is why its serving run
+    models a resident subset with ``weight_bytes=``)."""
+    for arch in ("mamba2-130m", "recurrentgemma-9b"):
+        assert dataclasses.asdict(t_ws(get_config(arch))) == \
+            dataclasses.asdict(j_ws(j_get(arch)))
+    ws = t_ws(get_config("recurrentgemma-9b"))
+    assert (ws.weight_bytes, ws.state_bytes, ws.kv_token_bytes) == \
+        (19_145_129_984, 1_064_960, 12_288)
+    assert ws.kv_entries == ((2048, 1024),) * 12
+    with pytest.raises(ValueError, match="weight_bytes="):
+        TOracle(ws, device="cpu")
+
+
 def test_engine_samples_from_a_seeded_generator():
     cfg = get_smoke_config(ARCH)
     from repro_torch.models import init_params
@@ -147,4 +192,12 @@ def test_serve_cli_runs_on_cpu(capsys):
                 "--max-new", "4"])
     out = capsys.readouterr().out
     assert "arch=mamba2-130m-smoke  device=cpu" in out
+    assert "simulated SoC:" in out
+
+
+def test_serve_cli_runs_the_hybrid_on_cpu(capsys):
+    serve_main(["--arch", "recurrentgemma-9b", "--device", "cpu",
+                "--requests", "3", "--prompt-len", "20", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "arch=recurrentgemma-9b-smoke  device=cpu" in out
     assert "simulated SoC:" in out

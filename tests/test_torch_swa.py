@@ -1,0 +1,153 @@
+"""The port's sliding-window attention op against the reference.
+
+On the CPU the op runs its plain version (``kernels/swa/ops.py``,
+query-chunked and banded); it is held to the reference's Pallas op in
+interpret mode and to the reference's pure-jnp oracle, and the port's
+own full-softmax oracle (``kernels/swa/ref.py``) to the reference's, at
+test_kernels.py's shapes and tolerances (fp32 2e-5, bf16 2e-2 — the
+reference's own for this kernel), with GQA, ragged S and softcap.  On
+a card (``gpu`` marker) the Hopper kernel is held to the plain version
+at the same tolerances.  Inputs are made with numpy and fed to both
+packages."""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.swa import swa_attention as j_swa  # noqa: E402
+from repro.kernels.swa.ref import swa_attention_ref as j_ref  # noqa: E402
+from repro_torch.kernels.swa import kernel as t_kernel  # noqa: E402
+from repro_torch.kernels.swa import ops as t_ops  # noqa: E402
+from repro_torch.kernels.swa import swa_attention  # noqa: E402
+from repro_torch.kernels.swa.ref import swa_attention_ref  # noqa: E402
+
+# test_kernels.py's (s, window) pairs: banded, window == S, ragged S
+SHAPES = [(128, 32), (128, 64), (256, 256), (96, 32)]
+DTYPES = {"float32": (np.float32, jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (None, jnp.bfloat16, torch.bfloat16, 2e-2)}
+B, HQ, HKV, D = 2, 4, 2, 32
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(b, s, hq, hkv, d, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, s, hq, d)) * scale).astype(np.float32)
+    k = (rng.standard_normal((b, s, hkv, d)) * scale).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    return q, k, v
+
+
+def _both(arrs, dtype):
+    """The same values in both packages, rounded to ``dtype`` once."""
+    _, jdt, tdt, _ = DTYPES[dtype]
+    t = [torch.from_numpy(a).to(tdt) for a in arrs]
+    j = [jnp.asarray(x.to(torch.float32).numpy()).astype(jdt) for x in t]
+    return j, t
+
+
+def _np(x):
+    return x.to(torch.float32).numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+def _bh(x, hq):
+    """(B, S, H, D) numpy, KV heads repeated to ``hq`` -> (B*hq, S, D)."""
+    b, s, h, d = x.shape
+    x = np.repeat(x, hq // h, axis=2)
+    return x.transpose(0, 2, 1, 3).reshape(b * hq, s, d)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("s,window", SHAPES)
+def test_plain_matches_reference_op_and_oracle(s, window, dtype):
+    tol = DTYPES[dtype][3]
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, s, HQ, HKV, D, s + window),
+                                       dtype)
+    got = swa_attention(tq, tk, tv, window=window, block=32)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (B, s, HQ, D)
+    want = j_swa(jq, jk, jv, window=window, block=32, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    oracle = j_ref(*(jnp.asarray(_bh(_np(x), HQ)).astype(x.dtype)
+                     for x in (jq, jk, jv)), window=window)
+    oracle = _np(oracle).reshape(B, HQ, s, D).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(got), oracle, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("block", [16, 32, 256])
+def test_plain_does_not_depend_on_its_query_chunk(block):
+    """The plain version's query chunks read only their band of keys:
+    any chunk size gives the full-softmax oracle's answer."""
+    (_, _, _), (tq, tk, tv) = _both(_inputs(1, 96, 2, 1, 16, 5), "float32")
+    got = swa_attention(tq, tk, tv, window=24, block=block)
+    want = swa_attention_ref(*(torch.from_numpy(_bh(_np(x), 2))
+                               for x in (tq, tk, tv)), window=24)
+    want = want.reshape(1, 2, 96, 16).permute(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+def test_softcap_matches_reference():
+    """test_kernels.py's softcap case: s 64, window 64, cap 30, scores
+    pushed into the cap by inputs scaled by 3."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(1, 64, 2, 2, 32, 9, 3.0),
+                                       "float32")
+    got = swa_attention(tq, tk, tv, window=64, softcap=30.0, block=32)
+    want = j_swa(jq, jk, jv, window=64, softcap=30.0, block=32,
+                 interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+    oracle = j_ref(*(jnp.asarray(_bh(_np(x), 2)) for x in (jq, jk, jv)),
+                   window=64, softcap=30.0)
+    got_ref = swa_attention_ref(*(torch.from_numpy(_bh(_np(x), 2))
+                                  for x in (tq, tk, tv)), window=64,
+                                softcap=30.0)
+    np.testing.assert_allclose(_np(got_ref), _np(oracle), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ref_matches_reference_oracle(dtype):
+    tol = DTYPES[dtype][3]
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(3, 40, 1, 1, 16, 2), dtype)
+    flat = [x[:, :, 0] for x in (tq, tk, tv)]
+    got = swa_attention_ref(*flat, window=8)
+    want = j_ref(*(x[:, :, 0] for x in (jq, jk, jv)), window=8)
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_op_checks_its_operands():
+    q = torch.zeros((1, 8, 4, 16))
+    k = torch.zeros((1, 8, 3, 16))
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        swa_attention(q, k, k, window=4)
+    with pytest.raises(ValueError, match="window"):
+        swa_attention(q, q, q, window=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_kernel.swa_attention_kernel(q, q, q, window=4, scale=0.25)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("s,window", SHAPES + [(200, 50)])
+def test_kernel_matches_plain_on_card(s, window, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tol = DTYPES[dtype][3]
+    _, ts = _both(_inputs(B, s, HQ, HKV, D, s + window), dtype)
+    tq, tk, tv = (x.cuda() for x in ts)
+    before = t_kernel.launches
+    got = swa_attention(tq, tk, tv, window=window)
+    assert t_kernel.launches == before + 1
+    want = t_ops.swa_attention_plain(tq, tk, tv, window=window)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), rtol=tol,
+                               atol=tol)
