@@ -78,11 +78,20 @@ SSD_TOL = dict(rtol=1e-4, atol=1e-4)   # the reference's own for this kernel
 # bf16 model: the reference's one-step bf16 decode-parity tolerance
 LOGITS_TOL = dict(rtol=2e-2, atol=0.08)
 
-# SWA attention: test_kernels.py's (s, window) pairs at b 2, hq 4, hkv 2,
-# d 32 and its tolerances (fp32 2e-5, bf16 2e-2); its softcap case (s 64,
-# window 64, cap 30, inputs x3); and recurrentgemma-9b's full-width
-# prefill shape (b, s, hq, hkv, d, window), bf16
-SWA_SHAPES = [(128, 32), (128, 64), (256, 256), (96, 32)]
+# SWA attention (b, s, hq, hkv, d, window, softcap, input scale), each in
+# fp32 (the FMA kernel, 2e-5) and bf16 (the tensor-core kernel, 2e-2):
+# test_kernels.py's (s, window) pairs at b 2, hq 4, hkv 2, d 32 and its
+# softcap case (s 64, window 64, cap 30, inputs x3); a ragged band at
+# every head dim the kernels are built for; recurrentgemma-9b's heads (16
+# query, 1 KV, D 256) banded, soft-capped, with window >= S and at its
+# ragged 2100-token prompt; then its full-width prefill shape, bf16
+SWA_CASES = [(2, s, 4, 2, 32, w, 0.0, 1.0)
+             for s, w in [(128, 32), (128, 64), (256, 256), (96, 32)]] \
+    + [(1, 64, 2, 2, 32, 64, 30.0, 3.0)] \
+    + [(2, 200, 4, 2, d, 50, 0.0, 1.0) for d in (16, 32, 64, 128, 256)] \
+    + [(1, 300, 16, 1, 256, 64, 0.0, 1.0), (1, 300, 16, 1, 256, 128, 30.0, 3.0),
+       (1, 300, 16, 1, 256, 4096, 0.0, 1.0),
+       (1, 2100, 16, 1, 256, 2048, 0.0, 1.0)]
 SWA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SWA_FULL = (1, 2560, 16, 1, 256, 2048)
 BF16_OPS_PER_S = 989e12
@@ -663,31 +672,36 @@ def check_swa_close(q, k, v, **kw) -> float:
 
 
 def check_swa(dev) -> float:
-    """The SWA kernel against its plain version on the card at
-    test_kernels.py's shapes (fp32 and bf16), its softcap case and the
-    serving path's full-width prefill shape."""
+    """The SWA kernels against their plain version on the card at every
+    case of ``SWA_CASES`` in both dtypes (each through the path its dtype
+    picks) and at the serving path's full-width prefill shape."""
+    from repro_torch.kernels.swa import kernel as K
+
     phase("swa against its plain version")
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
-    for s, window in SWA_SHAPES:
+    before = dict(K.launches_by_path)
+    for b, s, hq, hkv, d, window, softcap, scale in SWA_CASES:
         for dtype in DTYPES:
             err = check_swa_close(
-                *swa_inputs(2, s, 4, 2, 32, dtype, gen, dev), window=window)
+                *swa_inputs(b, s, hq, hkv, d, dtype, gen, dev, scale=scale),
+                window=window, softcap=softcap)
             worst = max(worst, err)
-            print(f"  swa b 2 s {s} window {window} hq 4 hkv 2 d 32 "
-                  f"{str(dtype)[6:]}: max abs err {err:.2e}")
-    err = check_swa_close(*swa_inputs(1, 64, 2, 2, 32, torch.float32, gen,
-                                      dev, scale=3.0), window=64,
-                          softcap=30.0)
-    worst = max(worst, err)
-    print(f"  swa s 64 window 64 softcap 30 fp32: max abs err {err:.2e}")
+            print(f"  swa b {b} s {s} hq {hq} hkv {hkv} d {d} window {window}"
+                  f" softcap {softcap:g} {str(dtype)[6:]} "
+                  f"({K.PATHS[dtype][0]}): max abs err {err:.2e}")
     b, s, hq, hkv, d, window = SWA_FULL
     err = check_swa_close(
         *swa_inputs(b, s, hq, hkv, d, torch.bfloat16, gen, dev),
         window=window)
     worst = max(worst, err)
     print(f"  swa full width b {b} s {s} hq {hq} hkv {hkv} d {d} window "
-          f"{window} bf16: max abs err {err:.2e}")
+          f"{window} bf16 (tc): max abs err {err:.2e}")
+    n = len(SWA_CASES)
+    ran = {p: K.launches_by_path[p] - before[p] for p in before}
+    if ran != {"tc": n + 1, "fma": n}:
+        raise AssertionError(f"swa paths launched {ran}, not {n + 1} bf16 "
+                             f"on tc and {n} fp32 on fma")
     return worst
 
 
@@ -740,6 +754,7 @@ def serve_rg_path(dev) -> tuple[dict, dict]:
         eng.submit(req)
     cc_kernel.launches = pp_kernel.launches = ssd_kernel.launches = 0
     swa_kernel.launches = 0
+    swa_kernel.launches_by_path.update(tc=0, fma=0)
     t0 = time.perf_counter()
     stats = eng.run()
     torch.cuda.synchronize()
@@ -747,6 +762,7 @@ def serve_rg_path(dev) -> tuple[dict, dict]:
     launches = {"convcore": cc_kernel.launches,
                 "postproc": pp_kernel.launches, "ssd": ssd_kernel.launches,
                 "swa": swa_kernel.launches}
+    by_path = dict(swa_kernel.launches_by_path)
     peak = torch.cuda.max_memory_allocated()
     print(f"EngineStats {json.dumps(stats.to_record())}")
     print(f"serve wall time {wall:.2f} s: model (prefill + decode) "
@@ -758,10 +774,14 @@ def serve_rg_path(dev) -> tuple[dict, dict]:
     groups = prefill_groups(eng, requests)
     n_attn = cfg.layer_kinds().count("attn")
     print(f"launches on the serving path: {launches} ({len(groups)} "
-          f"prefill groups x {n_attn} attention layers)")
+          f"prefill groups x {n_attn} attention layers); swa by path "
+          f"{by_path}")
     if launches["swa"] != n_attn * len(groups):
         raise AssertionError(f"swa launched {launches['swa']} times, not "
                              f"{n_attn} per prefill group")
+    if by_path != {"tc": launches["swa"], "fma": 0}:
+        raise AssertionError(f"bf16 serving launched swa by path {by_path},"
+                             " not all on the tensor-core path")
     check_engine(eng, stats, RG_STATS, RG_STEP_RUNS)
 
     kv = PagedKVCache(num_blocks=644, block_size=16,
@@ -835,7 +855,7 @@ def serve_rg_path(dev) -> tuple[dict, dict]:
              "logits_fp32_max_abs_err": worst,
              "logits_bf16_max_abs_err": bf16_worst,
              "swa_max_abs_err": swa_worst}
-    kinds = {"swa": "swa_kernel"}
+    kinds = {"swa": "swa_tc_kernel"}     # the bf16 prefill's kernel
     caches = param_values(init_caches(cfg, 4, cache_len, device=dev))
     toks = torch.zeros((4, 1), dtype=torch.int64, device=dev)
     ts = torch.full((4,), 2560, dtype=torch.int64, device=dev)
@@ -852,21 +872,73 @@ def serve_rg_path(dev) -> tuple[dict, dict]:
     return launches, split
 
 
+def ptxas_report(log: str, kernel: str) -> dict:
+    """Registers, stack and spill bytes of each instance of ``kernel``
+    in a ``ptxas -v`` log, by its first template argument."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(rf"{kernel}ILi(\d+)E", name or "")
+        if not m:
+            continue
+        rec = out.setdefault(int(m.group(1)), {})
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers")):
+            found = re.search(pat, line)
+            if found:
+                rec[key] = int(found.group(1))
+    return out
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host time of one call of ``fn`` (µs), ``n`` calls back to back
+    without a synchronise: what the caller waits before it goes on."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
 def time_swa(dev) -> dict:
     """The SWA kernel at recurrentgemma-9b's full-width prefill (1 x
     2560 tokens, 16 query heads, 1 KV head, D 256, window 2048, bf16)
     beside its plain version, scaled_dot_product_attention with the
-    boolean band mask, and its bound."""
+    boolean band mask, its bound and the fp32 FMA kernel on the same
+    operands; the host cost of a launch (the bf16 wrapper encodes three
+    TMA descriptors per call) and the tensor-core kernel's ptxas report,
+    which must show no spills."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.swa import kernel as K
     from repro_torch.kernels.swa import ops
 
     b, s, hq, hkv, d, window = SWA_FULL
     gen = torch.Generator(device=dev).manual_seed(4)
     q, k, v = swa_inputs(b, s, hq, hkv, d, torch.bfloat16, gen, dev)
-    out = {"ms": cuda_ms(lambda: K.swa_attention_kernel(
-               q, k, v, window=window, scale=d ** -0.5), 20),
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+
+    def tc():
+        return K.swa_attention_kernel(q, k, v, window=window, scale=d ** -0.5)
+
+    def fma():
+        return K.swa_attention_kernel(q32, k32, v32, window=window,
+                                      scale=d ** -0.5)
+
+    out = {"ms": cuda_ms(tc, 20),
            "plain_ms": cuda_ms(lambda: ops.swa_attention_plain(
-               q, k, v, window=window), 5)}
+               q, k, v, window=window), 5),
+           "fma_ms": cuda_ms(fma, 5)}
+    out["host_us"] = {"tc": host_us(tc), "fma": host_us(fma, 10)}
     # the library yardstick: one PyTorch call on the same function (KV
     # heads expanded and the band as a boolean mask, outside the timing)
     pos = torch.arange(s, device=dev)
@@ -893,11 +965,28 @@ def time_swa(dev) -> dict:
     out["bound_by"] = "operations" if flops / BF16_OPS_PER_S >= \
         nbytes / HBM_BYTES_PER_S else "bytes"
     print(f"swa b {b} s {s} hq {hq} hkv {hkv} d {d} window {window} bf16: "
-          f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+          f"kernel (tc) {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
           f"scaled_dot_product_attention {out['library_ms']:.4f} ms (max abs "
           f"err vs plain {lib_err:.2e}), bound {out['bound_ms']:.4f} ms "
           f"({out['bound_by']}: {flops / 1e9:.2f} GFLOP in band, "
-          f"{nbytes / 1e6:.1f} MB)")
+          f"{nbytes / 1e6:.1f} MB); the same operands in fp32 through the "
+          f"FMA kernel {out['fma_ms']:.4f} ms")
+    print(f"  host time per launch (no synchronise): tc {out['host_us']['tc']:.1f}"
+          f" µs (three TMA descriptors encoded), fma "
+          f"{out['host_us']['fma']:.1f} µs")
+    report = ptxas_report(_build.report("swa"), "swa_tc_kernel")
+    for dim, rec in sorted(report.items()):
+        print(f"  ptxas swa_tc_kernel<{dim}>: {rec.get('registers')} registers"
+              " at launch (setmaxnreg: producer 40, consumers 232), "
+              f"{K.tc_smem_bytes(dim)} bytes dynamic shared memory, "
+              f"{rec.get('stack')} bytes stack, spill stores "
+              f"{rec.get('spill_stores')}, spill loads "
+              f"{rec.get('spill_loads')}")
+    if sorted(report) != list(K.HEAD_DIMS) or any(
+            rec.get("spill_stores", 1) or rec.get("spill_loads", 1)
+            for rec in report.values()):
+        raise AssertionError(f"swa_tc_kernel ptxas report: {report}")
+    out["ptxas"] = report
     return out
 
 
@@ -1030,10 +1119,16 @@ def time_kernels(dev) -> tuple[dict, list]:
                          pp_ops / FP32_OPS_PER_S) * 1e3
     pp["bound_by"] = "bytes" if pp_bytes / HBM_BYTES_PER_S >= \
         pp_ops / FP32_OPS_PER_S else "operations"
-    print(f"postproc {n_}x{h}x{w}x{c} pool 2: kernel {pp['ms']:.4f} ms, "
-          f"plain {pp['plain_ms']:.4f} ms, max_pool2d "
-          f"{pp['library_ms']:.4f} ms, bound {pp['bound_ms']:.4f} ms "
-          f"({pp['bound_by']})")
+    # the kernel's own device time (the event time above is paced by
+    # the host's ctypes launches)
+    pp["device_ms"] = device_split(
+        lambda: [postprocess(x, ones, zeros, **kw) for _ in range(50)]
+    )["postproc"] / 50
+    print(f"postproc {n_}x{h}x{w}x{c} pool 2: kernel {pp['ms']:.4f} ms "
+          f"(events, wrapper-paced), {pp['device_ms']:.4f} ms of kernel "
+          f"device time (profiler), plain {pp['plain_ms']:.4f} ms, "
+          f"max_pool2d {pp['library_ms']:.4f} ms, bound "
+          f"{pp['bound_ms']:.4f} ms ({pp['bound_by']})")
     return {"convcore": cc, "postproc": pp}, rows
 
 
@@ -1150,6 +1245,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "convcore_layers": rows,
          "engine_wall_s": engine_times, "profiled": profiled,
+         "timed": timed,
          "serve": serve, "serve_recurrentgemma": serve_rg}, indent=1))
     print(f"\nchip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -8,35 +8,69 @@
 //   s(i, j) = softcap * tanh((q_i . k_j) * scale / softcap)   (or no cap)
 //   o_i     = sum_j softmax_j(s(i, j)) v_j     over  i - window < j <= i
 //
-// in fp32 (online softmax m, l and an fp32 accumulator), output in the
+// with an online softmax (m, l in fp32, l clamped at 1e-30), output in the
 // input's dtype.  q and o are (B, S, Hq, D), k and v (B, S, Hkv, D); query
 // head h reads KV head h / (Hq / Hkv), so GQA is never expanded in memory.
+// Two kernels, picked by dtype (the wrapper names the path):
+//
+// * bf16: swa_tc_kernel, tensor cores (wgmma) fed by TMA.
+// * fp32: swa_fma_kernel, fp32 FMA out of shared memory, so that fp32
+//   inputs hold the reference to 2e-5 (TF32 or bf16 products would not).
 //
 // What bounds it on the H100: operations.  recurrentgemma-9b's prefill
 // (S = 2560, 16 query heads, one KV head, D = 256, window 2048) needs
 // 4 * D FLOP for each in-band (i, j) pair, 51.5 GFLOP, against 44.6 MB of
 // q, k, v and o: ~1,150 FLOP per byte, far above the ~295 at which bf16
 // tensor cores (989 TFLOP/s) rather than HBM (3.35 TB/s) are the limit.
-// This first kernel computes in fp32 FMA (67 TFLOP/s) for both input
-// types, so fp32 inputs hold the reference to 2e-5; tensor cores
-// (mma.sync / wgmma on bf16), TMA and warp specialisation are later work.
+// The fp32 FMA kernel (67 TFLOP/s) cannot come near that; the bf16 path
+// is built for the tensor cores:
 //
-// Design.  The TPU kernel runs a static band of window/bk + 1 kv steps per
-// query block on a sequential grid, with out-of-band steps aliased to
-// block 0 and masked.  Here one block of 256 threads owns 64 query rows of
-// one (b, h) and loops over exactly the 64-key tiles that meet its band,
-// [max(0, row0 - window + 1), min(row0 + 64, S)).  The query tile, the key
-// and value tiles and the transposed probabilities live in shared memory
-// as fp32 (217 KB at D = 256: dynamic shared memory, opted in per launch).
-// Each thread computes a 4 x 4 patch of the score tile (rows ty*4 + i,
-// keys tx + 16 j, so that the 8 threads of a shared-memory phase read 8
-// different bank groups), the row max and sum are reduced across the 16
-// threads of a row with shuffles, and the accumulator (64 x D fp32) is
-// held in registers, 4 rows x D/16 columns per thread.  Ragged S: rows
-// and keys past S are zero-filled on load and masked, and no row past S
-// is stored.  A fully masked tile (a row whose band starts later) adds
-// exp(0) terms that the first in-band tile scales by exp(-1e30 - m) = 0,
-// as the TPU kernel's -1e30 fill does; the final divide clamps l at 1e-30.
+// * Tensor cores.  S = Q K^T is wgmma m64n64k16 (bf16 in, fp32
+//   accumulator) with Q and K read from shared memory, K-major.  O += P V
+//   is wgmma m64nDk16 with P in registers, rounded to bf16 as
+//   FlashAttention does, and V the shared-memory B operand in its natural
+//   (key, d) layout, i.e. MN-major (the transpose bit).  The 64 x D fp32
+//   accumulator stays in registers (128 a thread at D 256); scale,
+//   softcap, mask and the online softmax run in fp32 on the score
+//   fragment, which is then the A fragment of P V without a shuffle.
+// * Asynchronous copies.  One producer thread issues TMA loads of the Q
+//   tiles and of a 2-stage ring of K and V tiles, completing on mbarriers
+//   by transaction count; the consumer warpgroups wait on those and free
+//   a stage with an arrive.  setmaxnreg moves registers from the producer
+//   warpgroup (40) to the two consumer warpgroups (232).  The TMA swizzle
+//   and the wgmma descriptors' swizzle are the same (128 B rows: D is cut
+//   into 64-column chunks; 64 B at D 32, 32 B at D 16).  Shared memory at
+//   D 256: two Q tiles 64 KB + 2 stages x (K + V) 128 KB = 192 KB.
+// * GQA and packing.  A block owns 128 query rows of one (b, h): two
+//   64-row blocks, one per consumer warpgroup, that share every K/V tile
+//   of the union of their bands in shared memory (the two bands differ by
+//   one tile at each end; a warpgroup skips a tile outside its band).
+//   This packing works for every Hq / Hkv (packing two heads would need
+//   an even group).  Heads are the fastest grid axis, so the 16 query
+//   heads of one KV head run side by side and read the same tiles from L2.
+// * The band, not the square.  A block walks only the 64-key tiles its
+//   band meets; only tiles that cut the band's diagonal or its lower edge
+//   pay for the position mask.  Row blocks run last-first, so the long
+//   bands start first and the short ones near S = 0 fill the tail.
+// * Ragged S.  TMA zero-fills rows past S; keys past S fail the causal
+//   test of every stored row, and no row past S is stored.
+//
+// The fp32 kernel: one block of 256 threads owns 64 query rows of one
+// (b, h) and loops over exactly the 64-key tiles that meet its band.  The
+// query tile, the key and value tiles and the transposed probabilities
+// live in shared memory as fp32 (217 KB at D = 256).  Each thread computes
+// a 4 x 4 patch of the score tile (rows ty*4 + i, keys tx + 16 j, so that
+// the 8 threads of a shared-memory phase read 8 different bank groups),
+// the row max and sum are reduced across the 16 threads of a row with
+// shuffles, and the accumulator (64 x D fp32) is held in registers, 4
+// rows x D/16 columns per thread.  A fully masked tile (a row whose band
+// starts later) adds exp(0) terms that the first in-band tile scales by
+// exp(-1e30 - m) = 0, as the TPU kernel's -1e30 fill does.
+//
+// Built by repro_torch/kernels/_build.py with plain nvcc (no PyTorch
+// headers); the TMA descriptor encoder cuTensorMapEncodeTiled is reached
+// through cudaGetDriverEntryPoint, so nothing links libcuda.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,36 +78,21 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// fp32: FMA out of shared memory
+// ---------------------------------------------------------------------------
+namespace fma {
+
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
 constexpr int LP = BQ + 4;    // row stride of the transposed probabilities
 constexpr int THREADS = 256;  // 16 x 16: ty picks 4 rows, tx 4 keys / columns
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 v[2] = {__floats2bfloat162_rn(x.x, x.y), __floats2bfloat162_rn(x.z, x.w)};
-  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(v);
-}
-
-// rows [row0, row0 + 64) of one head of a (B, S, H, D) tensor -> fp32
-// dst[r][d] with row stride D + 4; rows past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int S,
+// rows [row0, row0 + 64) of one head of a (B, S, H, D) tensor -> dst[r][d]
+// with row stride D + 4; rows past S are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int S,
                                           int64_t row_stride, int tid) {
   constexpr int LD = D + 4;
   constexpr int V = D / 4;
@@ -81,7 +100,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, in
     const int r = idx / V, c = (idx % V) * 4;
     const int row = row0 + r;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < S) x = load4(src + row * row_stride + c);
+    if (row < S) x = *reinterpret_cast<const float4*>(src + row * row_stride + c);
     *reinterpret_cast<float4*>(dst + r * LD + c) = x;
   }
 }
@@ -98,11 +117,11 @@ __device__ __forceinline__ float row_reduce_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-swa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ o, int S, int HQ, int HKV, int window, float scale,
-           float softcap) {
+swa_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int S, int HQ, int HKV,
+               int window, float scale, float softcap) {
   constexpr int LD = D + 4;
   constexpr int DC = (D + 63) / 64;  // 64-column chunks of the accumulator
   extern __shared__ __align__(16) float smem[];
@@ -118,11 +137,11 @@ swa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int64_t b = blockIdx.z;
   const int hk = hq / (HQ / HKV);
   const int64_t qstride = (int64_t)HQ * D, kstride = (int64_t)HKV * D;
-  const T* qb = q + (b * S * HQ + hq) * D;
-  const T* kb = k + (b * S * HKV + hk) * D;
-  const T* vb = v + (b * S * HKV + hk) * D;
+  const float* qb = q + (b * S * HQ + hq) * D;
+  const float* kb = k + (b * S * HKV + hk) * D;
+  const float* vb = v + (b * S * HKV + hk) * D;
 
-  load_tile<T, D>(qs, qb, row0, S, qstride, tid);
+  load_tile<D>(qs, qb, row0, S, qstride, tid);
 
   float m[4], l[4], acc[4][DC * 4];
 #pragma unroll
@@ -137,8 +156,8 @@ swa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int key_lo = max(0, row0 - window + 1);
   for (int c0 = (key_lo / BK) * BK; c0 < row_hi; c0 += BK) {
     __syncthreads();  // q is loaded; the last tile's ks, vs, pt are read
-    load_tile<T, D>(ks, kb, c0, S, kstride, tid);
-    load_tile<T, D>(vs, vb, c0, S, kstride, tid);
+    load_tile<D>(ks, kb, c0, S, kstride, tid);
+    load_tile<D>(vs, vb, c0, S, kstride, tid);
     __syncthreads();
 
     float sc[4][4] = {};
@@ -222,61 +241,574 @@ swa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int qpos = row0 + ty * 4 + i;
     if (qpos >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* ob = o + ((b * S + qpos) * HQ + hq) * D;
+    float* ob = o + ((b * S + qpos) * HQ + hq) * D;
 #pragma unroll
     for (int jj = 0; jj < DC; ++jj) {
       const int col = jj * 64 + tx * 4;
       if (col < D)
-        store4(ob + col, make_float4(acc[i][jj * 4 + 0] / denom, acc[i][jj * 4 + 1] / denom,
-                                     acc[i][jj * 4 + 2] / denom, acc[i][jj * 4 + 3] / denom));
+        *reinterpret_cast<float4*>(ob + col) =
+            make_float4(acc[i][jj * 4 + 0] / denom, acc[i][jj * 4 + 1] / denom,
+                        acc[i][jj * 4 + 2] / denom, acc[i][jj * 4 + 3] / denom);
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int s, int hq, int hkv,
            int window, float scale, float softcap, cudaStream_t stream) {
   constexpr int LD = D + 4;
   const int smem = static_cast<int>(sizeof(float) * ((BQ + 2 * BK) * LD + BK * LP));
-  cudaError_t err = cudaFuncSetAttribute(swa_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(swa_fma_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s + BQ - 1) / BQ, hq, b);
-  swa_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s, hq, hkv, window, scale, softcap);
+  swa_fma_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), s, hq, hkv, window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, void* o, int b, int s, int hq,
-             int hkv, int window, float scale, float softcap, cudaStream_t st) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, s, hq, hkv, window, scale, softcap, st);
-    case 32: return launch<T, 32>(q, k, v, o, b, s, hq, hkv, window, scale, softcap, st);
-    case 64: return launch<T, 64>(q, k, v, o, b, s, hq, hkv, window, scale, softcap, st);
-    case 128: return launch<T, 128>(q, k, v, o, b, s, hq, hkv, window, scale, softcap, st);
-    case 256: return launch<T, 256>(q, k, v, o, b, s, hq, hkv, window, scale, softcap, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+}  // namespace fma
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BM = 64;                        // query rows per consumer warpgroup
+constexpr int BN = 64;                        // keys per tile
+constexpr int CONSUMERS = 2;                  // consumer warpgroups: 128 rows a block
+constexpr int STAGES = 2;                     // K/V ring
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + one producer warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Shape {
+  static constexpr int SW = D < 64 ? D : 64;         // columns in one swizzled row
+  static constexpr int SWB = 2 * SW;                  // its bytes: 128, 64 or 32
+  static constexpr int CHUNKS = D / SW;               // column chunks of a tile
+  static constexpr int CHUNK = BN * SWB;              // bytes of one chunk (64 rows)
+  static constexpr int TILE = CHUNKS * CHUNK;         // bytes of a 64-row tile
+  // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
+  static constexpr uint64_t LAYOUT = SWB == 128 ? 1 : SWB == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
+      SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : SWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  // Q tiles, K and V rings, barriers, and 1 KB to align the base to the
+  // swizzle atom
+  static constexpr int SMEM = (CONSUMERS + 2 * STAGES) * TILE + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
+}
+
+// One box of a 4-d tensor map (d, head, row, batch) into shared memory,
+// completing on `bar` by its byte count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d0, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle layout type.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma's registers across the
+// asynchronous instructions that write them.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The two products, with their operand lists written out (generated):
+// wgmma_ss_n64: S (64 x 64 keys, fp32) {=, +=} Q (64 x 16, shared, K-major)
+//   . K (64 keys x 16, shared, K-major)^T, accumulating when `acc` != 0;
+// wgmma_rs: O (64 x N, fp32) += P (64 x 16 keys, bf16 registers)
+//   . V (16 keys x N, shared, MN-major: the transpose bit), N = D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// One key tile for one consumer warpgroup: S = Q K^T on the tensor cores,
+// scale / softcap / mask and the online softmax in fp32 on the fragment,
+// then O = alpha O + P V with P rounded to bf16.  Thread (warp w, lane) owns
+// rows qrow = 16 w + lane / 4 and qrow + 8 of the warpgroup's 64, and in
+// each 8-column block j the columns 8 j + kc, 8 j + kc + 1; m, l are in the
+// log2 domain, l is this thread's partial sum of its columns.
+template <int D>
+__device__ __forceinline__ void tile_step(float (&o)[D / 2], float (&m)[2], float (&l)[2],
+                                          uint32_t qtile, uint32_t ktile, uint32_t vtile,
+                                          bool masked, int qrow, int c0, int kc, int window,
+                                          float scale, float softcap) {
+  using SH = Shape<D>;
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  pin(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns = 32 bytes of a swizzled row; a new chunk every SWB bytes
+    const uint32_t off = (kk * 32 / SH::SWB) * SH::CHUNK + (kk * 32) % SH::SWB;
+    wgmma_ss_n64(s, smem_desc(qtile + off, 16, 8 * SH::SWB, SH::LAYOUT),
+                 smem_desc(ktile + off, 16, 8 * SH::SWB, SH::LAYOUT), kk);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(s);
+
+  const float capped = softcap * LOG2E, inner = scale / softcap, plain = scale * LOG2E;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e];
+      x = softcap > 0.f ? capped * tanhf(x * inner) : x * plain;
+      if (masked) {
+        // keys past S fail kpos <= qpos for every row below S
+        const int kpos = c0 + 8 * j + kc + (e & 1), qpos = qrow + 8 * (e >> 1);
+        if (kpos > qpos || qpos - kpos >= window) x = -INFINITY;
+      }
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float base[2], alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    base[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+    alpha[r] = exp2f(m[r] - base[r]);
+    m[r] = m_new;
+  }
+  // P as the A fragments of four k16 steps: n-blocks 2 kk and 2 kk + 1
+  uint32_t p[4][4];
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float p0 = exp2f(s[4 * j + 0] - base[0]), p1 = exp2f(s[4 * j + 1] - base[0]);
+    const float p2 = exp2f(s[4 * j + 2] - base[1]), p3 = exp2f(s[4 * j + 3] - base[1]);
+    rs[0] += p0 + p1;
+    rs[1] += p2 + p3;
+    p[j / 2][2 * (j % 2) + 0] = pack_bf16(p0, p1);
+    p[j / 2][2 * (j % 2) + 1] = pack_bf16(p2, p3);
+  }
+  l[0] = l[0] * alpha[0] + rs[0];
+  l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j + 0] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+  pin(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs(o, p[kk], smem_desc(vtile + kk * 16 * SH::SWB, SH::CHUNK, 8 * SH::SWB, SH::LAYOUT));
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(o);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+swa_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int S,
+              int HQ, int HKV, int window, float scale, float softcap) {
+  using SH = Shape<D>;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t qs = (smem_u32(smem) + 1023) & ~1023u;  // [CONSUMERS] Q tiles
+  const uint32_t ks = qs + CONSUMERS * SH::TILE;          // [STAGES] K tiles
+  const uint32_t vs = ks + STAGES * SH::TILE;             // [STAGES] V tiles
+  const uint32_t qbar = vs + STAGES * SH::TILE;           // Q landed
+  const uint32_t full = qbar + 8;                         // [STAGES] K, V landed
+  const uint32_t empty = full + 8 * STAGES;               // [STAGES] K, V read
+
+  // heads fastest (the query heads of one KV head share its tiles in L2),
+  // row blocks last-first (long bands first)
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * (CONSUMERS * BM);
+  const int hk = h / (HQ / HKV);
+  const int t_lo = max(0, row0 - window + 1) / BN;
+  const int ntiles = (min(row0 + CONSUMERS * BM, S) - 1) / BN - t_lo + 1;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, CONSUMERS * 4);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // producer warpgroup: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      const int nq = min(CONSUMERS, (S - row0 + BM - 1) / BM);  // Q tiles with rows below S
+      mbar_expect_tx(qbar, nq * SH::TILE);
+      for (int w = 0; w < nq; ++w)
+        for (int c = 0; c < SH::CHUNKS; ++c)
+          tma_load(qs + w * SH::TILE + c * SH::CHUNK, &qmap, qbar, c * SH::SW, h,
+                   row0 + w * BM, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % STAGES;
+        mbar_wait(empty + 8 * st, ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, 2 * SH::TILE);
+        const int key0 = (t_lo + t) * BN;
+        for (int c = 0; c < SH::CHUNKS; ++c) {
+          tma_load(ks + st * SH::TILE + c * SH::CHUNK, &kmap, full + 8 * st, c * SH::SW, hk,
+                   key0, b);
+          tma_load(vs + st * SH::TILE + c * SH::CHUNK, &vmap, full + 8 * st, c * SH::SW, hk,
+                   key0, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int r0 = row0 + wg * BM;                    // this warpgroup's 64 rows
+    const int qrow = r0 + (tid / 32) * 16 + lane / 4;  // and qrow + 8
+    const int kc = 2 * (lane % 4);
+    float acc[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(qbar, 0);
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % STAGES;
+      const int c0 = (t_lo + t) * BN;
+      mbar_wait(full + 8 * st, (t / STAGES) & 1);
+      // rows [r0, r0 + 64) meet keys [c0, c0 + 64) in the band; every
+      // pair is in it (no mask) away from the diagonal and the lower edge
+      if (r0 < S && c0 <= r0 + BM - 1 && r0 - (c0 + BN - 1) < window) {
+        const bool interior = c0 + BN - 1 <= r0 && r0 + BM - 1 - c0 < window;
+        tile_step<D>(acc, m, l, qs + wg * SH::TILE, ks + st * SH::TILE, vs + st * SH::TILE,
+                     !interior, qrow, c0, kc, window, scale, softcap);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int qpos = qrow + 8 * r;
+      if (qpos >= S) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* dst = o + ((static_cast<int64_t>(b) * S + qpos) * HQ + h) * D + kc;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver already loaded by the runtime
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, H, D) bf16 tensor as 4-d TMA boxes of SW columns x 64 rows of
+// one head, swizzled as the wgmma descriptors expect; rows past S read 0.
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int h) {
+  using SH = Shape<D>;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * h, 2ull * D * h * s};  // bytes
+  const cuuint32_t box[4] = {SH::SW, 1, BN, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                   strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, SH::TMA_SWIZZLE,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int s, int hq, int hkv,
+           int window, float scale, float softcap, cudaStream_t stream) {
+  if (!encoder()) return static_cast<int>(cudaErrorNotSupported);
+  const int row_blocks = (s + CONSUMERS * BM - 1) / (CONSUMERS * BM);
+  if (row_blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qm, km, vm;
+  if (!tensor_map<D>(&qm, q, b, s, hq) || !tensor_map<D>(&km, k, b, s, hkv) ||
+      !tensor_map<D>(&vm, v, b, s, hkv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = Shape<D>::SMEM;
+  const cudaError_t err = cudaFuncSetAttribute(
+      swa_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  swa_tc_kernel<D><<<dim3(hq, row_blocks, b), THREADS, smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), s, hq, hkv, window, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+using Launch = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
+                       float, float, cudaStream_t);
+
+Launch tc_launcher(int d) {
+  switch (d) {
+    case 16: return tc::launch<16>;
+    case 32: return tc::launch<32>;
+    case 64: return tc::launch<64>;
+    case 128: return tc::launch<128>;
+    case 256: return tc::launch<256>;
+    default: return nullptr;
+  }
+}
+
+Launch fma_launcher(int d) {
+  switch (d) {
+    case 16: return fma::launch<16>;
+    case 32: return fma::launch<32>;
+    case 64: return fma::launch<64>;
+    case 128: return fma::launch<128>;
+    case 256: return fma::launch<256>;
+    default: return nullptr;
+  }
+}
+
+int checked_launch(Launch fn, const void* q, const void* k, const void* v, void* o, int b, int s,
+                   int hq, int hkv, int window, float scale, float softcap, void* stream) {
+  if (!fn || b <= 0 || s <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || window < 1 || b > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, b, s, hq, hkv, window, scale, softcap, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// q/o (B, S, Hq, D), k/v (B, S, Hkv, D), contiguous, 16-byte aligned, all of
-// one dtype (0 = fp32, 1 = bf16); D in {16, 32, 64, 128, 256}.  Launches one
-// grid on `stream` and returns its CUDA error (0 on success).
-extern "C" int swa_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                    int dtype, int b, int s, int hq, int hkv, int d,
-                                    int window, float scale, float softcap, void* stream) {
-  if (b <= 0 || s <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || window < 1 || hq > 65535 ||
-      b > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(d, q, k, v, o, b, s, hq, hkv, window, scale, softcap, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, b, s, hq, hkv, window, scale, softcap, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// q/o (B, S, Hq, D), k/v (B, S, Hkv, D), contiguous, 16-byte aligned, D in
+// {16, 32, 64, 128, 256}.  Each launches one grid on `stream` and returns
+// its CUDA error (0 on success).  bf16 tensors: the wgmma / TMA kernel.
+extern "C" int swa_tc_launch(const void* q, const void* k, const void* v, void* o, int b, int s,
+                             int hq, int hkv, int d, int window, float scale, float softcap,
+                             void* stream) {
+  return checked_launch(tc_launcher(d), q, k, v, o, b, s, hq, hkv, window, scale,
+                        softcap, stream);
+}
+
+// fp32 tensors: the FMA kernel.
+extern "C" int swa_fma_launch(const void* q, const void* k, const void* v, void* o, int b, int s,
+                              int hq, int hkv, int d, int window, float scale, float softcap,
+                              void* stream) {
+  if (hq > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return checked_launch(fma_launcher(d), q, k, v, o, b, s, hq, hkv, window, scale,
+                        softcap, stream);
+}
+
+// Dynamic shared memory of the bf16 kernel at head dim d (bytes), or -1.
+extern "C" int swa_tc_smem_bytes(int d) {
+  switch (d) {
+    case 16: return tc::Shape<16>::SMEM;
+    case 32: return tc::Shape<32>::SMEM;
+    case 64: return tc::Shape<64>::SMEM;
+    case 128: return tc::Shape<128>::SMEM;
+    case 256: return tc::Shape<256>::SMEM;
+    default: return -1;
+  }
 }
 
 extern "C" const char* swa_error_string(int err) {

@@ -6,8 +6,8 @@ PyTorch headers, so a build takes seconds.  All sources compile at
 once, one ``nvcc`` process each, at the first kernel launch of the
 process (or an explicit ``build()``).  Libraries land in
 ``build/kernels/`` at the repository root, named by a hash of their
-source and flags, so an edited source is never served stale.  A failed
-build raises.
+source and flags, so an edited source is never served stale, each
+beside its ``ptxas`` report (``report``).  A failed build raises.
 """
 from __future__ import annotations
 
@@ -66,6 +66,7 @@ def build() -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -80,6 +81,13 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build()
     return _libs[name]
+
+
+def report(name: str) -> str:
+    """The ``ptxas`` report (registers, shared memory, spills of each
+    kernel) of the library built from ``csrc/<name>.cu``."""
+    library(name)
+    return _target(CSRC / f"{name}.cu").with_suffix(".log").read_text()
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -2,9 +2,12 @@
 ``repro_torch/csrc/swa.cu`` (which says what bounds it and how it is
 built).
 
-One block owns 64 query rows of one (batch, query head) and walks only
-the 64-key tiles that meet its band; the (rows, keys) score matrix
-never leaves the SM and the softmax is online, in fp32.
+Two kernels, picked here by dtype: bf16 goes to the tensor-core kernel
+(``wgmma`` fed by TMA; a block owns 128 query rows of one (batch, query
+head) as two 64-row warpgroups sharing each key/value tile), fp32 to
+the FMA kernel (fp32 products, which the 2e-5 fp32 tolerance needs).
+Both walk only the 64-key tiles that meet a block's band; the score
+matrix never leaves the SM and the softmax is online, in fp32.
 """
 from __future__ import annotations
 
@@ -14,18 +17,45 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0     # wrapper calls that launched the kernel, in this process
+launches = 0     # wrapper calls that launched a kernel, in this process
+launches_by_path = {"tc": 0, "fma": 0}   # the same calls, by kernel
 
-HEAD_DIMS = (16, 32, 64, 128, 256)     # head_dim values the kernel is built for
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 256)     # head_dim values both kernels are built for
+# dtype -> (path, C launch function): "tc" the bf16 wgmma/TMA kernel,
+# "fma" the fp32 FMA kernel
+PATHS = {torch.bfloat16: ("tc", "swa_tc_launch"),
+         torch.float32: ("fma", "swa_fma_launch")}
+
+_lib: ctypes.CDLL | None = None
+
+
+def _library() -> ctypes.CDLL:
+    """The loaded library, its launch functions' signatures set once."""
+    global _lib
+    if _lib is None:
+        lib = _build.library("swa")
+        for _, name in PATHS.values():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        lib.swa_tc_smem_bytes.restype = ctypes.c_int
+        lib.swa_tc_smem_bytes.argtypes = [ctypes.c_int]
+        _lib = lib
+    return _lib
+
+
+def tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of the bf16 kernel at head dim ``d``."""
+    return _library().swa_tc_smem_bytes(d)
 
 
 def swa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, window: int, scale: float,
                          softcap: float = 0.0) -> torch.Tensor:
     """q (B, S, Hq, D); k/v (B, S, Hkv, D), Hq a multiple of Hkv; one
-    dtype (fp32 or bf16), contiguous, 16-byte aligned, on one CUDA
-    device; D in ``HEAD_DIMS``.
+    dtype (bf16: tensor cores, fp32: FMA), contiguous, 16-byte aligned,
+    on one CUDA device; D in ``HEAD_DIMS``.
 
     Returns o (B, S, Hq, D) in q's dtype, launched on the current
     stream: causal attention over keys ``qpos - window < kpos <= qpos``,
@@ -37,7 +67,7 @@ def swa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or t.data_ptr() % 16 for t in tensors):
         raise ValueError("swa_attention_kernel takes contiguous, 16-byte "
                          "aligned tensors on one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in PATHS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("swa_attention_kernel takes fp32 or bf16 q/k/v of "
                         f"one dtype, got {[str(t.dtype) for t in tensors]}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -55,15 +85,13 @@ def swa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.library("swa")
-    fn = lib.swa_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    lib = _library()
+    path, name = PATHS[q.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in (q, k, v, out)), _DTYPES[q.dtype],
-             b, s, hq, hkv, d, int(window), float(scale), float(softcap),
-             stream)
+    err = getattr(lib, name)(*(t.data_ptr() for t in (q, k, v, out)), b, s,
+                             hq, hkv, d, int(window), float(scale),
+                             float(softcap), stream)
     _build.check(lib, "swa", err)
     launches += 1
+    launches_by_path[path] += 1
     return out

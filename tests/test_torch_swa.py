@@ -7,8 +7,11 @@ own full-softmax oracle (``kernels/swa/ref.py``) to the reference's, at
 test_kernels.py's shapes and tolerances (fp32 2e-5, bf16 2e-2 — the
 reference's own for this kernel), with GQA, ragged S and softcap.  On
 a card (``gpu`` marker) the Hopper kernel is held to the plain version
-at the same tolerances.  Inputs are made with numpy and fed to both
-packages."""
+at the same tolerances, through the path its dtype picks (bf16: the
+tensor-core kernel, fp32: the FMA kernel).  A test-local emulation of
+the tensor-core kernel's rounding points (bf16 P in P.V, per-tile online
+rescale) is held to the reference on the CPU.  Inputs are made with
+numpy and fed to both packages."""
 from __future__ import annotations
 
 import jax.numpy as jnp
@@ -135,19 +138,103 @@ def test_op_checks_its_operands():
         t_kernel.swa_attention_kernel(q, q, q, window=4, scale=0.25)
 
 
+def _tc_emulation(q, k, v, *, window, scale, softcap=0.0, bm=64, bn=64):
+    """The bf16 tensor-core kernel's arithmetic in fp32 torch on the CPU:
+    bf16 q and k, fp32 scores, scale and softcap, the band mask, and an
+    online softmax (m, l in fp32, log2 domain) rescaled once per
+    ``bn``-key tile that meets a ``bm``-row block's band, with P rounded
+    to bf16 before P.V and the sum of P (l) taken before rounding."""
+    log2e = 1.4426950408889634
+    b, s, hq, d = q.shape
+    g = hq // k.shape[2]
+    qf = q.to(torch.float32).transpose(1, 2)                 # (b, hq, s, d)
+    kf, vf = (x.to(torch.float32).repeat_interleave(g, dim=2)
+              .transpose(1, 2) for x in (k, v))
+    out = torch.empty_like(qf)
+    pos = torch.arange(s)
+    for r0 in range(0, s, bm):
+        rows = pos[r0:r0 + bm]
+        m = torch.full((b, hq, len(rows)), -torch.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hq, len(rows), d))
+        for c0 in range(max(0, r0 - window + 1) // bn * bn,
+                        min(r0 + bm, s), bn):
+            keys = pos[c0:c0 + bn]
+            x = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
+            x = softcap * log2e * torch.tanh(x * (scale / softcap)) \
+                if softcap > 0 else x * (scale * log2e)
+            band = (keys[None] <= rows[:, None]) & \
+                (rows[:, None] - keys[None] < window)
+            x = torch.where(band, x, -torch.inf)
+            m_new = torch.maximum(m, x.amax(-1))
+            base = torch.where(m_new == -torch.inf, 0.0, m_new)
+            alpha = torch.exp2(m - base)
+            p = torch.exp2(x - base[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + \
+                p.to(torch.bfloat16).to(torch.float32) @ vf[:, :, keys]
+            m = m_new
+        out[:, :, rows] = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("s,window,softcap", [
+    (150, 64, 0.0),     # window < S, ragged S (not a multiple of 64)
+    (150, 64, 30.0),    # the same with a softcap
+    (150, 256, 0.0),    # window >= S
+])
+def test_tensor_core_rounding_fits_bf16_tolerance(s, window, softcap):
+    """P rounded to bf16 before P.V (the tensor-core kernel's rounding
+    points) stays within the bf16 tolerance of the reference's Pallas op
+    and oracle at recurrentgemma-9b's heads (16 query, 1 KV, D 256)."""
+    b, hq, hkv, d = 1, 16, 1, 256
+    scale = 3.0 if softcap else 1.0
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _inputs(b, s, hq, hkv, d, 7 + s + window, scale), "bfloat16")
+    got = _tc_emulation(tq, tk, tv, window=window, scale=d ** -0.5,
+                        softcap=softcap)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, s, hq, d)
+    want = j_swa(jq, jk, jv, window=window, softcap=softcap, block=64,
+                 interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+    oracle = j_ref(*(jnp.asarray(_bh(_np(x), hq)).astype(x.dtype)
+                     for x in (jq, jk, jv)), window=window, softcap=softcap)
+    oracle = _np(oracle).reshape(b, hq, s, d).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(got), oracle, rtol=2e-2, atol=2e-2)
+
+
+# the card's cases (b, s, hq, hkv, d, window, softcap, input scale):
+# test_kernels.py's (s, window) pairs and a ragged band at every head dim
+# the kernels are built for, recurrentgemma-9b's heads (16 query, 1 KV,
+# D 256) banded, soft-capped, with window >= S and at its ragged prompt
+# (2100 tokens against the 2048 window), and test_kernels.py's softcap case
+CARD_CASES = [(B, s, HQ, HKV, D, w, 0.0, 1.0) for s, w in SHAPES] \
+    + [(B, 200, HQ, HKV, d, 50, 0.0, 1.0) for d in t_kernel.HEAD_DIMS] \
+    + [(1, 300, 16, 1, 256, 64, 0.0, 1.0), (1, 300, 16, 1, 256, 128, 30.0, 3.0),
+       (1, 300, 16, 1, 256, 4096, 0.0, 1.0),
+       (1, 2100, 16, 1, 256, 2048, 0.0, 1.0),
+       (1, 64, 2, 2, 32, 64, 30.0, 3.0)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("s,window", SHAPES + [(200, 50)])
-def test_kernel_matches_plain_on_card(s, window, dtype):
+@pytest.mark.parametrize("case", CARD_CASES,
+                         ids=lambda c: "b{}-s{}-hq{}-hkv{}-d{}-w{}-cap{}".format(
+                             *c[:7]))
+def test_kernel_matches_plain_on_card(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, s, hq, hkv, d, window, softcap, scale = case
     tol = DTYPES[dtype][3]
-    _, ts = _both(_inputs(B, s, HQ, HKV, D, s + window), dtype)
+    _, ts = _both(_inputs(b, s, hq, hkv, d, s + window, scale), dtype)
     tq, tk, tv = (x.cuda() for x in ts)
-    before = t_kernel.launches
-    got = swa_attention(tq, tk, tv, window=window)
+    path = t_kernel.PATHS[tq.dtype][0]
+    before, before_path = t_kernel.launches, t_kernel.launches_by_path[path]
+    got = swa_attention(tq, tk, tv, window=window, softcap=softcap)
     assert t_kernel.launches == before + 1
-    want = t_ops.swa_attention_plain(tq, tk, tv, window=window)
+    assert t_kernel.launches_by_path[path] == before_path + 1
+    want = t_ops.swa_attention_plain(tq, tk, tv, window=window,
+                                     softcap=softcap)
     torch.cuda.synchronize()
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), rtol=tol,
                                atol=tol)
