@@ -13,9 +13,10 @@ port's three paths through them:
   24 layers, d_model 768, random weights from a seed): 8 requests of
   512 and 300 tokens, 32 new tokens each, 4 slots, with the engine's
   stats, step log and oracle costs held exactly to the JAX reference's
-  (anchors below, from the reference on the CPU) and each prefill
-  group's first-token logits held to the same prefill through the SSD
-  step's plain version;
+  (anchors below, from the reference on the CPU), the SSD kernel held
+  to its plain version on every layer's operands of each prefill group,
+  and each group's first-token logits through the kernel held to the
+  plain version's in an fp32 prefill;
 * serving recurrentgemma-9b at full width (38 layers, d_model 4096, 12
   local-attention layers with a 2048-token window, random weights from
   a seed): 8 requests of 2560 and 2100 tokens, 16 new tokens each, 4
@@ -24,8 +25,13 @@ port's three paths through them:
   operands of each prefill group, and each group's first-token logits
   through the kernel held to the plain version's in an fp32 prefill.
 
-Then it times every kernel beside its plain version, a PyTorch library
-call where one computes the same function, and its roofline bound.
+Before the paths it times every kernel beside its plain version, a
+PyTorch library call where one computes the same function, and its
+roofline bound: the kernels and the library calls alike by their device
+time (CUDA events around back-to-back calls queued behind a device-side
+wait, so that the host's launch pace does not show), with the sum of
+the device events of a torch.profiler window that runs only that call
+and CUDA events over calls as the host issues them beside it.
 
 Run from the repository root:   python3 chip_smoke.py
 
@@ -50,8 +56,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor cores and HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): int8 and TF32 tensor cores,
+# fp32 FMA and HBM3
 INT8_OPS_PER_S = 1979e12
+TF32_OPS_PER_S = 495e12
 FP32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -75,7 +83,13 @@ SSD_SHAPES = [(2, 64, 32, 4, 16, 32), (2, 128, 32, 8, 32, 64),
               (4, 300, 256, 24, 64, 128)]
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)   # the reference's own for this kernel
 # first-token logits, SSD step through the kernel vs its plain version,
-# bf16 model: the reference's one-step bf16 decode-parity tolerance
+# both prefills in fp32: the reference's one-step bf16 decode-parity
+# tolerance.  The kernel's 3xTF32 products agree with the plain version
+# to ~1e-4, not bit for bit, and in bf16 the 24 random-weight layers
+# amplify the bf16 rounding flips that such differences cause to logit
+# differences above 0.08 (as for recurrentgemma-9b's attention, below),
+# so bf16 is held layer by layer (each layer's own SSD operands, 1e-4)
+# and by the first tokens, and its logit difference is reported.
 LOGITS_TOL = dict(rtol=2e-2, atol=0.08)
 
 # SWA attention (b, s, hq, hkv, d, window, softcap, input scale), each in
@@ -565,10 +579,22 @@ def serve_path(dev) -> tuple[dict, dict]:
     pre_s, dec_s = check_oracle(oracle, kv, (
         ORACLE_PREFILL_CYCLES, ORACLE_DECODE_CYCLES, ORACLE_DECODE_HIT_RATE))
 
-    # first-token logits: the kernel's prefill against the plain SSD step
+    # each group's bf16 prefill through the kernel (its first tokens are
+    # the engine's; the kernel against the plain version on every layer's
+    # own operands), then the first-token logits through the kernel
+    # against the plain SSD step, in bf16 (reported) and in fp32 (held to
+    # LOGITS_TOL)
     first = {f["rid"]: f["tokens"][0] for f in eng.finished}
-    worst = ssd_worst = 0.0
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    worst = bf16_worst = ssd_worst = 0.0
     kernel_op = ssd_ops.ssd_intra_chunk
+
+    def plain_prefill(batch, c):
+        ssd_ops.ssd_intra_chunk = ssd_ops.ssd_intra_chunk_plain
+        try:
+            return prefill(params, batch, c, 552)[0]
+        finally:
+            ssd_ops.ssd_intra_chunk = kernel_op
     for rids in groups:
         batch = {"tokens": torch.as_tensor(
             [list(by_rid[r].tokens) for r in rids], device=dev)}
@@ -593,23 +619,23 @@ def serve_path(dev) -> tuple[dict, dict]:
             torch.testing.assert_close(states, want_states, **SSD_TOL)
             ssd_worst = max(ssd_worst, max_err(y, want_y),
                             max_err(states, want_states))
-        ssd_ops.ssd_intra_chunk = ssd_ops.ssd_intra_chunk_plain
-        try:
-            want, _, _ = prefill(params, batch, cfg, 552)
-        finally:
-            ssd_ops.ssd_intra_chunk = kernel_op
         got_first = got[:, :cfg.vocab_size].argmax(dim=1).tolist()
         if got_first != [first[r] for r in rids]:
             raise AssertionError(f"group {rids}: first tokens "
                                  f"{got_first} differ from the engine's")
-        torch.testing.assert_close(got, want, **LOGITS_TOL)
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"group {rids}: logits not finite")
-        worst = max(worst, max_err(got[:, :cfg.vocab_size],
-                                   want[:, :cfg.vocab_size]))
+        bf16_worst = max(bf16_worst, max_err(
+            got[:, :cfg.vocab_size],
+            plain_prefill(batch, cfg)[:, :cfg.vocab_size]))
+        got32, _, _ = prefill(params, batch, cfg32, 552)
+        want32 = plain_prefill(batch, cfg32)
+        torch.testing.assert_close(got32, want32, **LOGITS_TOL)
+        worst = max(worst, max_err(got32[:, :cfg.vocab_size],
+                                   want32[:, :cfg.vocab_size]))
     print(f"first-token logits of {len(groups)} prefill groups, kernel vs "
-          f"plain SSD step: max abs err {worst:.3e} (bf16 model; "
-          f"tolerance {LOGITS_TOL})")
+          f"plain SSD step: fp32 prefill max abs err {worst:.3e} (tolerance "
+          f"{LOGITS_TOL}); bf16 prefill {bf16_worst:.3e}")
     print(f"ssd kernel vs plain on the {cfg.num_layers} layers' operands of "
           f"each of the {len(groups)} prefill groups: max abs err "
           f"{ssd_worst:.3e} (tolerance {SSD_TOL})")
@@ -617,7 +643,9 @@ def serve_path(dev) -> tuple[dict, dict]:
     split = {"wall_s": wall, "model_s": eng.wall_s["model"],
              "oracle_s": eng.wall_s["oracle"],
              "oracle_prefill_s": pre_s, "oracle_decode_s": dec_s,
-             "logits_max_abs_err": worst, "ssd_max_abs_err": ssd_worst}
+             "logits_fp32_max_abs_err": worst,
+             "logits_bf16_max_abs_err": bf16_worst,
+             "ssd_max_abs_err": ssd_worst}
     kinds = {"ssd": "ssd_"}
     caches = param_values(init_caches(cfg, 4, 552, device=dev))
     toks = torch.zeros((4, 1), dtype=torch.int64, device=dev)
@@ -873,8 +901,8 @@ def serve_rg_path(dev) -> tuple[dict, dict]:
 
 
 def ptxas_report(log: str, kernel: str) -> dict:
-    """Registers, stack and spill bytes of each instance of ``kernel``
-    in a ``ptxas -v`` log, by its first template argument."""
+    """Registers, stack and spill bytes of every kernel whose (mangled)
+    name contains ``kernel`` in a ``ptxas -v`` log, by that name."""
     import re
 
     out, name = {}, None
@@ -884,10 +912,9 @@ def ptxas_report(log: str, kernel: str) -> dict:
         if m:
             name = m.group(1)
             continue
-        m = re.search(rf"{kernel}ILi(\d+)E", name or "")
-        if not m:
+        if not name or kernel not in name:
             continue
-        rec = out.setdefault(int(m.group(1)), {})
+        rec = out.setdefault(name, {})
         for key, pat in (("stack", r"(\d+) bytes stack frame"),
                          ("spill_stores", r"(\d+) bytes spill stores"),
                          ("spill_loads", r"(\d+) bytes spill loads"),
@@ -896,6 +923,100 @@ def ptxas_report(log: str, kernel: str) -> dict:
             if found:
                 rec[key] = int(found.group(1))
     return out
+
+
+def check_ptxas(name: str, kernels: tuple, count: int, note: str = "") -> dict:
+    """Print the ptxas report of each of ``kernels`` (name substrings) in
+    ``csrc/<name>.cu``'s build and require ``count`` instances, each with
+    no spill stores or loads."""
+    from repro_torch.kernels import _build
+
+    log = _build.report(name)
+    report = {}
+    for kernel in kernels:
+        report.update(ptxas_report(log, kernel))
+    for mangled, rec in sorted(report.items()):
+        print(f"  ptxas {mangled}: {rec.get('registers')} registers{note}, "
+              f"{rec.get('stack')} bytes stack, spill stores "
+              f"{rec.get('spill_stores')}, spill loads "
+              f"{rec.get('spill_loads')}")
+    if len(report) != count or any(
+            rec.get("spill_stores", 1) or rec.get("spill_loads", 1)
+            for rec in report.values()):
+        raise AssertionError(f"{name} ptxas report: {report}")
+    return report
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn`` (ms): CUDA events around ``reps``
+    calls enqueued behind a device-side wait (``torch.cuda._sleep``), so
+    that the card runs them back to back however slowly the host issues
+    them.  The wait is lengthened until it outlasts the host's enqueue."""
+    fn()
+    cycles = 1 << 21
+    for _ in range(6):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if ev[0].elapsed_time(ev[1]) > 1.5 * host_ms:
+            return ev[1].elapsed_time(ev[2]) / reps
+        cycles *= 4
+    raise AssertionError("the device-side wait never outlasted the host's "
+                         f"enqueue of {reps} calls")
+
+
+def device_times(fn, reps: int, match: str, expect: int | None = None):
+    """Device time of one call of ``fn`` (ms) in the kernels whose name
+    contains ``match`` and in every other device event: the events of a
+    torch.profiler window that runs ``fn`` ``reps`` times after one
+    warm-up call, summed and divided by ``reps``.  The window must hold
+    ``expect`` matching kernels (at least ``reps`` where not given); on
+    the card the tracer was seen to drop kernels, so a short trace is
+    taken again, up to three times, and then gives None (not
+    measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hit = rest = 0.0
+        count = 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                if match in e.name:
+                    hit += e.device_time_total
+                    count += 1
+                else:
+                    rest += e.device_time_total
+        if (count == expect) if expect is not None else count >= reps:
+            return hit / 1e3 / reps, rest / 1e3 / reps
+    return None
+
+
+def device_ms(fn, reps: int, match: str | None = None,
+              expect: int | None = None) -> float | None:
+    """Device time of one call of ``fn`` (ms) from the profiler: its
+    kernels whose name contains ``match`` or, with none, every device
+    event of the window; None where the trace stayed short."""
+    times = device_times(fn, reps, match or "", expect)
+    return None if times is None else times[0] if match else sum(times)
+
+
+def ms_or_not(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def host_us(fn, n: int = 50) -> float:
@@ -918,7 +1039,6 @@ def time_swa(dev) -> dict:
     operands; the host cost of a launch (the bf16 wrapper encodes three
     TMA descriptors per call) and the tensor-core kernel's ptxas report,
     which must show no spills."""
-    from repro_torch.kernels import _build
     from repro_torch.kernels.swa import kernel as K
     from repro_torch.kernels.swa import ops
 
@@ -934,7 +1054,8 @@ def time_swa(dev) -> dict:
         return K.swa_attention_kernel(q32, k32, v32, window=window,
                                       scale=d ** -0.5)
 
-    out = {"ms": cuda_ms(tc, 20),
+    out = {"event_ms": cuda_ms(tc, 20), "ms": queued_ms(tc, 20),
+           "profiled_ms": device_ms(tc, 20, "swa_tc_kernel", expect=20),
            "plain_ms": cuda_ms(lambda: ops.swa_attention_plain(
                q, k, v, window=window), 5),
            "fma_ms": cuda_ms(fma, 5)}
@@ -952,7 +1073,9 @@ def time_swa(dev) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=band)
 
-    out["library_ms"] = cuda_ms(sdpa, 20)
+    out["library_event_ms"] = cuda_ms(sdpa, 20)
+    out["library_ms"] = queued_ms(sdpa, 20)
+    out["library_profiled_ms"] = device_ms(sdpa, 20)
     lib_err = max_err(sdpa().transpose(1, 2),
                       ops.swa_attention_plain(q, k, v, window=window))
     # FLOPs of the in-band pairs only (q.k and p.v, 2 D each), bytes of
@@ -965,8 +1088,12 @@ def time_swa(dev) -> dict:
     out["bound_by"] = "operations" if flops / BF16_OPS_PER_S >= \
         nbytes / HBM_BYTES_PER_S else "bytes"
     print(f"swa b {b} s {s} hq {hq} hkv {hkv} d {d} window {window} bf16: "
-          f"kernel (tc) {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
-          f"scaled_dot_product_attention {out['library_ms']:.4f} ms (max abs "
+          f"kernel (tc) {out['ms']:.4f} ms of device time (profiler "
+          f"{ms_or_not(out['profiled_ms'])}, events {out['event_ms']:.4f}), "
+          f"plain {out['plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"{out['library_ms']:.4f} ms of device time (profiler "
+          f"{ms_or_not(out['library_profiled_ms'])}, events "
+          f"{out['library_event_ms']:.4f}) (max abs "
           f"err vs plain {lib_err:.2e}), bound {out['bound_ms']:.4f} ms "
           f"({out['bound_by']}: {flops / 1e9:.2f} GFLOP in band, "
           f"{nbytes / 1e6:.1f} MB); the same operands in fp32 through the "
@@ -974,18 +1101,10 @@ def time_swa(dev) -> dict:
     print(f"  host time per launch (no synchronise): tc {out['host_us']['tc']:.1f}"
           f" µs (three TMA descriptors encoded), fma "
           f"{out['host_us']['fma']:.1f} µs")
-    report = ptxas_report(_build.report("swa"), "swa_tc_kernel")
-    for dim, rec in sorted(report.items()):
-        print(f"  ptxas swa_tc_kernel<{dim}>: {rec.get('registers')} registers"
-              " at launch (setmaxnreg: producer 40, consumers 232), "
-              f"{K.tc_smem_bytes(dim)} bytes dynamic shared memory, "
-              f"{rec.get('stack')} bytes stack, spill stores "
-              f"{rec.get('spill_stores')}, spill loads "
-              f"{rec.get('spill_loads')}")
-    if sorted(report) != list(K.HEAD_DIMS) or any(
-            rec.get("spill_stores", 1) or rec.get("spill_loads", 1)
-            for rec in report.values()):
-        raise AssertionError(f"swa_tc_kernel ptxas report: {report}")
+    report = check_ptxas("swa", ("swa_tc_kernel",), len(K.HEAD_DIMS),
+                         " at launch (setmaxnreg: producer 40, consumers 232)")
+    print("  dynamic shared memory by D: " + ", ".join(
+        f"{dim}: {K.tc_smem_bytes(dim)}" for dim in K.HEAD_DIMS))
     out["ptxas"] = report
     return out
 
@@ -993,7 +1112,8 @@ def time_swa(dev) -> dict:
 def time_ssd(dev) -> dict:
     """The SSD kernel at the serving path's full width (4 prompts of 512
     tokens: 8 chunks of 256, 24 heads, p 64, n 128) beside its plain
-    version and its bound."""
+    version and its bound; its ptxas report, which must show no
+    spills."""
     from repro_torch.kernels.ssd import kernel as K
     from repro_torch.kernels.ssd import ops, ref
 
@@ -1002,8 +1122,14 @@ def time_ssd(dev) -> dict:
     x, dt, A, B, C = ssd_inputs(bb, l, h, p, n, gen, dev)
     xc, dtc, cum, bc, cc = ops._chunked(x, dt, A, B, C, chunk)
     nc, q = xc.shape[1], xc.shape[2]
-    out = {"ms": cuda_ms(lambda: K.ssd_intra_chunk_kernel(xc, dtc, cum, bc,
-                                                          cc), 50),
+
+    def kernel():
+        return K.ssd_intra_chunk_kernel(xc, dtc, cum, bc, cc)
+
+    out = {"event_ms": cuda_ms(kernel, 50), "ms": queued_ms(kernel, 20),
+           "profiled_ms": device_ms(kernel, 20, "ssd_", expect=40),
+           "y_ms": device_ms(kernel, 20, "ssd_y_kernel", expect=20),
+           "state_ms": device_ms(kernel, 20, "ssd_state_kernel", expect=20),
            "plain_ms": cuda_ms(lambda: ref.ssd_intra_chunk_ref(
                xc, dtc, cum, bc, cc), 20),
            "library_ms": None}
@@ -1018,23 +1144,35 @@ def time_ssd(dev) -> dict:
                                                  + 2 * q * n * p))
     nbytes = 4 * bb * nc * (2 * q * h * p + h * n * p + 2 * q * n
                             + 2 * q * h)
-    out["bound_ms"] = max(flops / FP32_OPS_PER_S,
-                          nbytes / HBM_BYTES_PER_S) * 1e3
-    out["bound_by"] = "operations" if flops / FP32_OPS_PER_S >= \
+    # fp32-accurate products at the TF32 tensor cores' rate: three TF32
+    # products for each (3xTF32)
+    rate = TF32_OPS_PER_S / 3
+    out["bound_ms"] = max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+    out["bound_by"] = "operations" if flops / rate >= \
         nbytes / HBM_BYTES_PER_S else "bytes"
+    out["fma_bound_ms"] = max(flops / FP32_OPS_PER_S,
+                              nbytes / HBM_BYTES_PER_S) * 1e3
     print(f"ssd {bb}x{nc} chunks of {q}, h {h}, p {p}, n {n}: kernel "
-          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, no library "
-          f"call computes it, bound {out['bound_ms']:.4f} ms "
-          f"({out['bound_by']}: {flops / 1e6:.0f} MFLOP causal, "
-          f"{nbytes / 1e6:.1f} MB; the TPU kernel's full q x q count "
+          f"{out['ms']:.4f} ms of device time (profiler "
+          f"{ms_or_not(out['profiled_ms'])}: y {ms_or_not(out['y_ms'])}, "
+          f"states {ms_or_not(out['state_ms'])}; events "
+          f"{out['event_ms']:.4f}), plain "
+          f"{out['plain_ms']:.4f} ms, no library call computes it, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {flops / 1e6:.0f} "
+          f"MFLOP causal at {rate / 1e12:.0f} TFLOP/s (3xTF32), "
+          f"{nbytes / 1e6:.1f} MB; at the fp32 FMA rate "
+          f"{out['fma_bound_ms']:.4f} ms; the TPU kernel's full q x q count "
           f"{full_flops / 1e6:.0f} MFLOP would give "
-          f"{full_flops / FP32_OPS_PER_S * 1e3:.4f} ms)")
+          f"{full_flops / rate * 1e3:.4f} ms)")
+    out["ptxas"] = check_ptxas("ssd", ("ssd_y_kernel", "ssd_state_kernel"), 2)
+    print(f"  dynamic shared memory: {K.smem_bytes()}")
     return out
 
 
-def int_mm_ms(patches, wmat, reps):
-    """torch._int_mm on the same GEMM (K and N padded to multiples of
-    8, as it requires), or None where it refuses the operands."""
+def int_mm_call(patches, wmat):
+    """torch._int_mm on the same GEMM (K and N padded to multiples of 8,
+    as it requires, outside the call), or None where it refuses the
+    operands."""
     k, n = wmat.shape
     kp, np_ = k + (-k) % 8, n + (-n) % 8
     a = torch.nn.functional.pad(patches, (0, kp - k)).contiguous()
@@ -1045,23 +1183,27 @@ def int_mm_ms(patches, wmat, reps):
         except RuntimeError as e:
             err = e
             continue
-        return cuda_ms(lambda: torch._int_mm(a, bb), reps)
+        return lambda: torch._int_mm(a, bb)
     print(f"  torch._int_mm refused {tuple(a.shape)} @ {tuple(b.shape)}: "
           f"{str(err).splitlines()[0]}")
     return None
 
 
 def time_kernels(dev) -> tuple[dict, list]:
-    """Per-kernel device times at the main path's shapes: convcore summed
-    over a frame's 75 convs (GEMM on prebuilt im2col patches), postproc
-    on the stage's 208 x 208 x 64 map."""
+    """Per-kernel times at the main path's shapes: convcore per layer and
+    summed over a frame's 75 convs (GEMM on prebuilt im2col patches; each
+    layer's int32 accumulation first checked exact), postproc on the
+    stage's 208 x 208 x 64 map; each beside its library call, by device
+    time and by CUDA events."""
+    from repro_torch.kernels.convcore import kernel as cc_kernel
     from repro_torch.kernels.convcore import matmul_int8
     from repro_torch.kernels.convcore.ops import im2col
     from repro_torch.kernels.convcore.ref import matmul_int8_ref
     from repro_torch.kernels.postproc import postprocess
     from repro_torch.kernels.postproc.ref import postprocess_ref
 
-    phase("timing (CUDA events, after warm-up)")
+    phase("timing (device time: CUDA events around calls queued behind a "
+          "device-side wait; torch.profiler and plain CUDA events beside)")
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, lib_missing = [], False
     for l in frame_layers():
@@ -1071,47 +1213,112 @@ def time_kernels(dev) -> tuple[dict, list]:
         wmat = w.reshape(-1, l.cout)
         m, k = patches.shape
         n = l.cout
+        exact = matmul_int8(patches, wmat, torch.ones(n, device=dev),
+                            torch.zeros(n, device=dev),
+                            out_dtype=torch.float32)
+        if not torch.equal(exact, (patches.double() @ wmat.double()).float()):
+            raise AssertionError(f"layer {l.index} {m}x{k}x{n}: int "
+                                 "accumulation not exact")
         kw = dict(relu=True, out_dtype=torch.float32)
-        ms = cuda_ms(lambda: matmul_int8(patches, wmat, scale, bias, **kw),
-                     5)
-        plain = cuda_ms(
-            lambda: matmul_int8_ref(patches, wmat, scale, bias, **kw), 2, 1)
-        lib = int_mm_ms(patches, wmat, 5)
+
+        def call():
+            return matmul_int8(patches, wmat, scale, bias, **kw)
+
+        # the kernel alone, on the operands the wrapper would give it
+        plan = cc_kernel.launch_plan(m, n, k)
+        pad = plan.kp - k
+        a_p = torch.nn.functional.pad(patches, (0, pad)).contiguous()
+        bt = torch.nn.functional.pad(wmat.t(), (0, pad)).contiguous()
+        out = torch.empty((m, n), device=dev)
+
+        def kernel_call():
+            return cc_kernel.matmul_int8_kernel(a_p, bt, scale, bias, out,
+                                                relu=True)
+
+        lib = int_mm_call(patches, wmat)
         lib_missing |= lib is None
+        ms = queued_ms(kernel_call, 5)
         ops_s = 2 * m * n * k / INT8_OPS_PER_S
         bytes_s = (m * k + k * n + 8 * n + 4 * m * n) / HBM_BYTES_PER_S
-        rows.append({"layer": l.index, "m": m, "k": k, "n": n, "ms": ms,
-                     "plain_ms": plain, "library_ms": lib,
-                     "ops_ms": ops_s * 1e3, "bytes_ms": bytes_s * 1e3})
-    cc = {"ms": sum(r["ms"] for r in rows),
-          "plain_ms": sum(r["plain_ms"] for r in rows),
-          "library_ms": None if lib_missing
-          else sum(r["library_ms"] for r in rows),
-          "bound_ms": sum(max(r["ops_ms"], r["bytes_ms"]) for r in rows)}
+        rows.append({
+            "layer": l.index, "m": m, "k": k, "n": n,
+            "plan": dataclasses.asdict(plan),
+            "ms": ms, "wrapper_ms": queued_ms(call, 5) - ms,
+            "profiled_ms": device_ms(call, 5, "convcore_",
+                                     expect=5 * (1 + (plan.splits > 1))),
+            "event_ms": cuda_ms(call, 5),
+            "plain_ms": cuda_ms(
+                lambda: matmul_int8_ref(patches, wmat, scale, bias, **kw), 2, 1),
+            "library_ms": None if lib is None else queued_ms(lib, 5),
+            "library_profiled_ms": None if lib is None else device_ms(lib, 5),
+            "library_event_ms": None if lib is None else cuda_ms(lib, 5),
+            "ops_ms": ops_s * 1e3, "bytes_ms": bytes_s * 1e3})
+    print(f"int32 accumulation exact at all {len(rows)} frame convs "
+          "(unit scale, zero bias, fp32 out)")
+    print("convcore per layer (ms of device time: kernel, wrapper copies, "
+          "torch._int_mm; the kernel by the profiler; bound; plan "
+          "bn/splits/kps/m_blocks):")
+    for r in rows:
+        p = r["plan"]
+        print(f"  layer {r['layer']:3d} {r['m']}x{r['k']}x{r['n']}: "
+              f"{r['ms']:.4f}, {r['wrapper_ms']:.4f}, "
+              f"{ms_or_not(r['library_ms'])}; {ms_or_not(r['profiled_ms'])}; "
+              f"{max(r['ops_ms'], r['bytes_ms']):.4f}; {p['bn']}/"
+              f"{p['splits']}/{p['kps']}/{p['m_blocks']}")
+
+    def total(key):
+        return None if any(r[key] is None for r in rows) \
+            else sum(r[key] for r in rows)
+
+    cc = {key: total(key) for key in (
+        "ms", "wrapper_ms", "profiled_ms", "event_ms", "plain_ms",
+        "library_ms", "library_profiled_ms", "library_event_ms")}
+    cc["bound_ms"] = sum(max(r["ops_ms"], r["bytes_ms"]) for r in rows)
     by_ops = sum(r["ops_ms"] for r in rows if r["ops_ms"] >= r["bytes_ms"])
     cc["bound_by"] = "operations" if by_ops >= cc["bound_ms"] / 2 \
         else "bytes"
     heavy = max(rows, key=lambda r: r["m"] * r["n"] * r["k"])
-    print(f"convcore per frame (75 convs): kernel {cc['ms']:.3f} ms, plain "
-          f"{cc['plain_ms']:.3f} ms, torch._int_mm {cc['library_ms']} ms, "
-          f"bound {cc['bound_ms']:.3f} ms ({cc['bound_by']})")
+    print(f"convcore per frame (75 convs): kernel {cc['ms']:.4f} ms of device"
+          f" time (profiler {ms_or_not(cc['profiled_ms'])}, events through "
+          f"the wrapper {cc['event_ms']:.3f}), the wrapper's copies "
+          f"{cc['wrapper_ms']:.4f} ms, plain {cc['plain_ms']:.3f} ms, "
+          f"torch._int_mm {ms_or_not(cc['library_ms'])} ms of device time "
+          f"(profiler {ms_or_not(cc['library_profiled_ms'])}, events "
+          f"{ms_or_not(cc['library_event_ms'])}), bound "
+          f"{cc['bound_ms']:.4f} ms ({cc['bound_by']})")
     print(f"  heaviest, layer {heavy['layer']} {heavy['m']}x{heavy['k']}x"
           f"{heavy['n']}: kernel {heavy['ms']:.4f} ms, _int_mm "
-          f"{heavy['library_ms']} ms, bound "
+          f"{ms_or_not(heavy['library_ms'])} ms, bound "
           f"{max(heavy['ops_ms'], heavy['bytes_ms']):.4f} ms")
+    cc["ptxas"] = check_ptxas("convcore", ("convcore_wgmma_kernel",
+                                           "convcore_splitk_reduce"), 6,
+                              " at launch (wgmma: setmaxnreg 40/232)")
+    print(f"  dynamic shared memory: bn 64 {cc_kernel.smem_bytes(64)}, bn 128 "
+          f"{cc_kernel.smem_bytes(128)} bytes")
 
     n_, h, w, c = 1, 208, 208, 64
     x = torch.randn((n_, h, w, c), generator=gen, device=dev)
     ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
     kw = dict(act="none", pool=2)
     xc = x.permute(0, 3, 1, 2)          # channels_last view, no copy
-    pp = {"ms": cuda_ms(lambda: postprocess(x, ones, zeros, **kw), 50),
+
+    def pp_call():
+        return postprocess(x, ones, zeros, **kw)
+
+    def pool():
+        # unit scale, zero bias, no activation: max-pool is the same
+        # function on these inputs
+        return torch.nn.functional.max_pool2d(xc, 2)
+
+    pp = {"ms": queued_ms(pp_call, 50),
+          "profiled_ms": device_ms(pp_call, 50, "postproc_kernel",
+                                   expect=50),
+          "event_ms": cuda_ms(pp_call, 50),
           "plain_ms": cuda_ms(lambda: postprocess_ref(x, ones, zeros, **kw),
                               20),
-          # unit scale, zero bias, no activation: max-pool is the same
-          # function on these inputs
-          "library_ms": cuda_ms(
-              lambda: torch.nn.functional.max_pool2d(xc, 2), 50)}
+          "library_ms": queued_ms(pool, 50),
+          "library_profiled_ms": device_ms(pool, 50),
+          "library_event_ms": cuda_ms(pool, 50)}
     out_bytes = n_ * (h // 2) * (w // 2) * c * 2        # bf16 output
     pp_bytes = n_ * h * w * c * 4 + out_bytes + 8 * c
     pp_ops = n_ * h * w * c * 3                         # mul, add, max
@@ -1119,15 +1326,12 @@ def time_kernels(dev) -> tuple[dict, list]:
                          pp_ops / FP32_OPS_PER_S) * 1e3
     pp["bound_by"] = "bytes" if pp_bytes / HBM_BYTES_PER_S >= \
         pp_ops / FP32_OPS_PER_S else "operations"
-    # the kernel's own device time (the event time above is paced by
-    # the host's ctypes launches)
-    pp["device_ms"] = device_split(
-        lambda: [postprocess(x, ones, zeros, **kw) for _ in range(50)]
-    )["postproc"] / 50
-    print(f"postproc {n_}x{h}x{w}x{c} pool 2: kernel {pp['ms']:.4f} ms "
-          f"(events, wrapper-paced), {pp['device_ms']:.4f} ms of kernel "
-          f"device time (profiler), plain {pp['plain_ms']:.4f} ms, "
-          f"max_pool2d {pp['library_ms']:.4f} ms, bound "
+    print(f"postproc {n_}x{h}x{w}x{c} pool 2: kernel {pp['ms']:.4f} ms of "
+          f"device time (profiler {ms_or_not(pp['profiled_ms'])}; events, "
+          f"wrapper-paced, {pp['event_ms']:.4f}), plain "
+          f"{pp['plain_ms']:.4f} ms, max_pool2d {pp['library_ms']:.4f} ms of "
+          f"device time (profiler {ms_or_not(pp['library_profiled_ms'])}; "
+          f"events {pp['library_event_ms']:.4f}), bound "
           f"{pp['bound_ms']:.4f} ms ({pp['bound_by']})")
     return {"convcore": cc, "postproc": pp}, rows
 
@@ -1145,7 +1349,7 @@ def device_split(fn, kinds=None) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kinds = kinds or {"convcore": "matmul_int8_kernel",
+    kinds = kinds or {"convcore": "convcore_",
                       "postproc": "postproc_kernel"}
     split = {"wall_ms": (time.perf_counter() - t0) * 1e3, "other": 0.0,
              **{k: 0.0 for k in kinds}}
@@ -1185,8 +1389,10 @@ def where_time_goes(dev) -> dict:
             continue
         print(f"{name}: wall {split['wall_ms']:.2f} ms, device busy "
               f"{busy:.3f} ms ({busy / split['wall_ms']:.1%}): convcore "
-              f"{split['convcore']:.3f}, postproc {split['postproc']:.3f}, "
-              f"other kernels {split['other']:.3f} ms")
+              f"kernels {split['convcore']:.3f}, postproc "
+              f"{split['postproc']:.3f}, other kernels (for the frame: "
+              f"conv2d_int8's im2col, padding and weight copies) "
+              f"{split['other']:.3f} ms")
     return out
 
 
@@ -1203,6 +1409,11 @@ def main() -> int:
     errs = check_kernels(dev)
     errs["ssd"] = check_ssd(dev)
     errs["swa"] = check_swa(dev)
+    # the kernels' timings first: after the serving phases' long traces,
+    # profiler windows missed kernels more often
+    timed, rows = time_kernels(dev)
+    timed["ssd"] = time_ssd(dev)
+    timed["swa"] = time_swa(dev)
     res, launches, main_errs = main_path(dev)
     engine_times = paper_chain(res, dev)
     serve_launches, serve = serve_path(dev)
@@ -1211,9 +1422,6 @@ def main() -> int:
     rg_launches, serve_rg = serve_rg_path(dev)
     launches["swa"] = rg_launches["swa"]
     main_errs["swa"] = serve_rg["swa_max_abs_err"]
-    timed, rows = time_kernels(dev)
-    timed["ssd"] = time_ssd(dev)
-    timed["swa"] = time_swa(dev)
     profiled = where_time_goes(dev)
 
     meta = {

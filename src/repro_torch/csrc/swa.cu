@@ -68,13 +68,13 @@
 // exp(-1e30 - m) = 0, as the TPU kernel's -1e30 fill does.
 //
 // Built by repro_torch/kernels/_build.py with plain nvcc (no PyTorch
-// headers); the TMA descriptor encoder cuTensorMapEncodeTiled is reached
-// through cudaGetDriverEntryPoint, so nothing links libcuda.
-#include <cuda.h>
+// headers).  The mbarrier, TMA and wgmma helpers and the tensor-map
+// encoder (reached through cudaGetDriverEntryPoint, so nothing links
+// libcuda) come from hopper.cuh, shared with convcore.cu.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -275,6 +275,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int s, i
 // ---------------------------------------------------------------------------
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BM = 64;                        // query rows per consumer warpgroup
 constexpr int BN = 64;                        // keys per tile
 constexpr int CONSUMERS = 2;                  // consumer warpgroups: 128 rows a block
@@ -298,75 +300,6 @@ struct Shape {
   // swizzle atom
   static constexpr int SMEM = (CONSUMERS + 2 * STAGES) * TILE + 8 * (1 + 2 * STAGES) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of a 4-d tensor map (d, head, row, batch) into shared memory,
-// completing on `bar` by its byte count.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int d0, int head, int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle layout type.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accesses of wgmma's registers across the
-// asynchronous instructions that write them.
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -528,7 +461,7 @@ __device__ __forceinline__ void tile_step(float (&o)[D / 2], float (&m)[2], floa
                  smem_desc(ktile + off, 16, 8 * SH::SWB, SH::LAYOUT), kk);
   }
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
   pin(s);
 
   const float capped = softcap * LOG2E, inner = scale / softcap, plain = scale * LOG2E;
@@ -584,7 +517,7 @@ __device__ __forceinline__ void tile_step(float (&o)[D / 2], float (&m)[2], floa
   for (int kk = 0; kk < BN / 16; ++kk)
     wgmma_rs(o, p[kk], smem_desc(vtile + kk * 16 * SH::SWB, SH::CHUNK, 8 * SH::SWB, SH::LAYOUT));
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
   pin(o);
 }
 
@@ -618,7 +551,7 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
       mbar_init(full + 8 * st, 1);
       mbar_init(empty + 8 * st, CONSUMERS * 4);  // one arrive per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -630,7 +563,7 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
       mbar_expect_tx(qbar, nq * SH::TILE);
       for (int w = 0; w < nq; ++w)
         for (int c = 0; c < SH::CHUNKS; ++c)
-          tma_load(qs + w * SH::TILE + c * SH::CHUNK, &qmap, qbar, c * SH::SW, h,
+          tma_load_4d(qs + w * SH::TILE + c * SH::CHUNK, &qmap, qbar, c * SH::SW, h,
                    row0 + w * BM, b);
       for (int t = 0; t < ntiles; ++t) {
         const int st = t % STAGES;
@@ -638,9 +571,9 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
         mbar_expect_tx(full + 8 * st, 2 * SH::TILE);
         const int key0 = (t_lo + t) * BN;
         for (int c = 0; c < SH::CHUNKS; ++c) {
-          tma_load(ks + st * SH::TILE + c * SH::CHUNK, &kmap, full + 8 * st, c * SH::SW, hk,
+          tma_load_4d(ks + st * SH::TILE + c * SH::CHUNK, &kmap, full + 8 * st, c * SH::SW, hk,
                    key0, b);
-          tma_load(vs + st * SH::TILE + c * SH::CHUNK, &vmap, full + 8 * st, c * SH::SW, hk,
+          tma_load_4d(vs + st * SH::TILE + c * SH::CHUNK, &vmap, full + 8 * st, c * SH::SW, hk,
                    key0, b);
         }
       }
@@ -683,30 +616,6 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
             pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver already loaded by the runtime
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // A (B, S, H, D) bf16 tensor as 4-d TMA boxes of SW columns x 64 rows of

@@ -6,7 +6,8 @@ PyTorch headers, so a build takes seconds.  All sources compile at
 once, one ``nvcc`` process each, at the first kernel launch of the
 process (or an explicit ``build()``).  Libraries land in
 ``build/kernels/`` at the repository root, named by a hash of their
-source and flags, so an edited source is never served stale, each
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header is never served stale, each
 beside its ``ptxas`` report (``report``).  A failed build raises.
 """
 from __future__ import annotations
@@ -40,9 +41,13 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
+    """The library built from ``src``: named by a hash of the source, of
+    every ``csrc/*.cuh`` header it may include, and of the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict[str, str]:

@@ -18,7 +18,7 @@ _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned (the kernel's cp.async loads)."""
+    """Contiguous and 16-byte aligned (the kernel's TMA loads)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
@@ -54,6 +54,9 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"matmul_int8 runs on cuda (kernel) or cpu "
                          f"(plain version), not {dev.type}")
+    # the copies that stay: K padded where TMA's 16-byte row stride needs
+    # it (layer 0's K = 27; nowhere else in a frame), and B transposed,
+    # since int8 wgmma reads both operands K-major
     pad = (-k) % K.K_QUANTUM
     a_p = _aligned(F.pad(a, (0, pad)) if pad else a)
     bt = _aligned(F.pad(b.t(), (0, pad)) if pad else b.t())

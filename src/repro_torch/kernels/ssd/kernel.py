@@ -6,8 +6,9 @@ The SSD decomposition splits the linear recurrence into dense
 intra-chunk products — more than 95% of the FLOPs — and a cheap
 inter-chunk state scan.  The kernel owns the first part: per (sequence,
 chunk) it computes ``y_intra`` and the chunk's end state without the
-(q, q) score matrix ever leaving the SM; the scan stays in PyTorch
-(``repro_torch.models.ssm.ssd_chunked``).
+(q, q) score matrix ever leaving the SM, every product in 3xTF32 on the
+tensor cores and each C·Bᵀ tile shared by a group of heads; the scan
+stays in PyTorch (``repro_torch.models.ssm.ssd_chunked``).
 """
 from __future__ import annotations
 
@@ -20,20 +21,30 @@ from repro_torch.kernels import _build
 launches = 0     # wrapper calls that launched the kernel, in this process
 
 
+def smem_bytes() -> dict[str, int]:
+    """Dynamic shared memory of the y and state kernels (bytes)."""
+    lib = _build.library("ssd")
+    lib.ssd_smem_bytes.restype = ctypes.c_int
+    lib.ssd_smem_bytes.argtypes = [ctypes.c_int]
+    return {"ssd_y_kernel": lib.ssd_smem_bytes(0),
+            "ssd_state_kernel": lib.ssd_smem_bytes(1)}
+
+
 def ssd_intra_chunk_kernel(x: torch.Tensor, dt: torch.Tensor,
                            cum: torch.Tensor, B: torch.Tensor,
                            C: torch.Tensor):
     """x (bb, nc, q, h, p); dt/cum (bb, nc, q, h); B/C (bb, nc, q, n);
-    all fp32, contiguous, on one CUDA device.
+    all fp32, contiguous, 16-byte aligned, on one CUDA device.
 
     Returns (y_intra (bb, nc, q, h, p), states (bb, nc, h, n, p)), fp32,
     launched on the current stream.  Single SSM group (g == 1)."""
     global launches
     tensors = (x, dt, cum, B, C)
     if x.device.type != "cuda" or any(
-            t.device != x.device or not t.is_contiguous() for t in tensors):
-        raise ValueError("ssd_intra_chunk_kernel takes contiguous tensors "
-                         "on one CUDA device")
+            t.device != x.device or not t.is_contiguous()
+            or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("ssd_intra_chunk_kernel takes contiguous, 16-byte "
+                         "aligned tensors on one CUDA device")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("ssd_intra_chunk_kernel takes fp32 tensors, got "
                         f"{[str(t.dtype) for t in tensors]}")

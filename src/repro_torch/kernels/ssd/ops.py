@@ -37,6 +37,12 @@ def _chunked(x, dt, A, B, C, chunk: int):
     return xc, dtc, cum, bc, cc
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned (the kernel's cp.async loads)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def ssd_intra_chunk_plain(x, dt, A, B, C, *, chunk: int):
     """The plain PyTorch version of ``ssd_intra_chunk``, on the
     operands' own device."""
@@ -59,5 +65,5 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"(plain version), not {dev.type}")
     xc, dtc, cum, bc, cc = _chunked(x, dt, A, B, C, chunk)
     y, states = K.ssd_intra_chunk_kernel(
-        *(t.contiguous() for t in (xc, dtc, cum, bc, cc)))
+        *(_aligned(t) for t in (xc, dtc, cum, bc, cc)))
     return y, states, cum

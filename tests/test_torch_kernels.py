@@ -20,6 +20,8 @@ from repro.kernels.convcore import matmul_int8 as j_matmul  # noqa: E402
 from repro.kernels.convcore.ref import matmul_int8_ref as j_mm_ref  # noqa: E402
 from repro.kernels.postproc import postprocess as j_post  # noqa: E402
 from repro_torch.core import quant as t_quant  # noqa: E402
+from repro_torch.core.yolov3 import LAYERS  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.convcore import kernel as t_cc_kernel  # noqa: E402
 from repro_torch.kernels.convcore import ops as t_cc  # noqa: E402
 from repro_torch.kernels.convcore.ref import conv2d_int8_ref  # noqa: E402
@@ -136,6 +138,64 @@ def test_im2col_orders_patches_like_hwio_weights():
     # output (n=1, oh=2, ow=1): rows 4..6, cols 2..4, channels innermost
     want = xp[1, 4:7, 2:5, :].reshape(-1)
     assert torch.equal(patches[1 * 9 + 2 * 3 + 1], want)
+
+
+FRAME_CONVS = [l for l in LAYERS if l.kind == "conv"]
+
+
+def _frame_gemm(layer):
+    """(M, K, N) of one frame conv's im2col GEMM."""
+    return (layer.out_h * layer.out_w, layer.ksize ** 2 * layer.cin,
+            layer.cout)
+
+
+@pytest.mark.parametrize("layer", FRAME_CONVS, ids=lambda l: f"layer{l.index}")
+def test_launch_plan_covers_every_frame_conv(layer):
+    """The wrapper pads K only where TMA's 16-byte row stride needs it,
+    and the split-K ranges cover K's 128-byte slices exactly, in order,
+    none empty, on no more blocks than the H100 has SMs."""
+    m, k, n = _frame_gemm(layer)
+    plan = t_cc_kernel.launch_plan(m, n, k)
+    assert plan.kp % 16 == 0 and 0 <= plan.kp - k < 16
+    assert plan.kp == k if k % 16 == 0 else plan.kp > k
+    ranges = plan.k_ranges()
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.k_slices
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert plan.k_slices * 128 >= plan.kp > (plan.k_slices - 1) * 128
+    n_tiles = -(-n // plan.bn)
+    m_tiles = -(-m // 128)
+    assert plan.bn in (64, 128) and 1 <= plan.m_blocks <= m_tiles
+    assert plan.m_blocks * n_tiles * plan.splits <= t_cc_kernel.H100_SMS
+    if plan.splits > 1:   # split only where the tiles leave SMs idle
+        assert m_tiles * n_tiles * plan.splits <= t_cc_kernel.H100_SMS
+        assert all(hi - lo >= t_cc_kernel.MIN_KPS // 2 for lo, hi in ranges)
+    # the plan of the padded product is the same plan
+    assert t_cc_kernel.launch_plan(m, n, plan.kp) == plan
+
+
+def test_launch_plan_pads_only_ragged_k():
+    assert [t_cc_kernel.launch_plan(128, 64, k).kp
+            for k in (27, 32, 200, 288, 4608)] == [32, 32, 208, 288, 4608]
+
+
+def test_kernel_target_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header gives every kernel source a new
+    library name, so build/kernels/ never serves a stale library."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build._target(tmp_path / "k.cu")
+    assert first == _build._target(tmp_path / "k.cu")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build._target(tmp_path / "k.cu")
+    assert second != first and second.parent == first.parent
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build._target(tmp_path / "k.cu") not in (first, second)
+    # the repository's own sources, headers included
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        assert _build._target(src).name.startswith(f"lib{src.stem}-")
+    assert (_build.CSRC / "hopper.cuh").exists()
 
 
 # --------------------------------------------------------------------------
@@ -264,7 +324,8 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(100, 200, 60), (1, 2048, 1000),
-                                   (43264, 288, 64)])
+                                   (43264, 288, 64), (173056, 27, 32),
+                                   (169, 4608, 1024), (676, 512, 255)])
 def test_matmul_kernel_matches_plain_on_card(cuda, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(m)
     a = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
@@ -298,3 +359,21 @@ def test_postprocess_kernel_matches_plain_on_card(cuda, act):
         torch.cuda.synchronize()
         _assert_close(got.cpu(), want.cpu(), "float32")
     assert t_pp_kernel.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", FRAME_CONVS, ids=lambda l: f"layer{l.index}")
+def test_matmul_kernel_exact_at_frame_shapes(cuda, layer):
+    """int32 accumulation is exact through every launch plan of a frame
+    (split-K included): unit scale and zero bias give the exact integer
+    product, rounded once to fp32."""
+    m, k, n = _frame_gemm(layer)
+    g = torch.Generator(device=cuda).manual_seed(layer.index)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    got = t_cc.matmul_int8(a, b, torch.ones(n, device=cuda),
+                           torch.zeros(n, device=cuda),
+                           out_dtype=torch.float32)
+    assert torch.equal(got, (a.double() @ b.double()).float())

@@ -120,6 +120,78 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 # --------------------------------------------------------------------------
+# the tensor-core kernel's rounding points, emulated on the CPU
+# --------------------------------------------------------------------------
+def _tf32(x):
+    """cvt.rna.tf32.f32: round to 10 mantissa bits, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a, b, passes):
+    """a @ b as the kernel's mma.sync products: per k8 step, 3xTF32
+    (lo.hi + hi.lo + hi.hi, each operand split as hi = tf32(v), lo =
+    tf32(v - hi)) or, for comparison, one TF32 product, summed in fp32;
+    the steps' partial sums added in order in fp32."""
+    pad = (-a.shape[-1]) % 8
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    ahi, bhi = _tf32(a), _tf32(b)
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    acc = None
+    for k in range(0, a.shape[-1], 8):
+        hi = ahi[..., k:k + 8] @ bhi[..., k:k + 8, :]
+        if passes == 3:
+            hi = (alo[..., k:k + 8] @ bhi[..., k:k + 8, :]
+                  + ahi[..., k:k + 8] @ blo[..., k:k + 8, :]) + hi
+        acc = hi if acc is None else acc + hi
+    return acc
+
+
+def _ssd_tensor_cores(x, dt, cum, B, C, passes):
+    """ssd.cu's arithmetic: C.B^T from tf32-split products, scores in fp32
+    (mask inside the exponent), y = scores @ x and the states B^T (w x)
+    from tf32-split products."""
+    q = x.shape[2]
+    cb = _mm(C, B.transpose(-1, -2), passes)                   # (bb,nc,l,s)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (bb,nc,l,s,h)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    seg = torch.where(causal[None, None, :, :, None], seg,
+                      torch.tensor(-1e30))
+    scores = cb[..., None] * torch.exp(seg) * dt[:, :, None, :, :]
+    y = _mm(scores.permute(0, 1, 4, 2, 3), x.permute(0, 1, 3, 2, 4), passes)
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dt                # (bb,nc,s,h)
+    wx = (x * w[..., None]).permute(0, 1, 3, 2, 4)             # (bb,nc,h,s,p)
+    states = _mm(B.transpose(-1, -2)[:, :, None], wx, passes)  # (bb,nc,h,n,p)
+    return y.permute(0, 1, 3, 2, 4), states
+
+
+@pytest.mark.parametrize("bb,l,chunk,h,p,n", [
+    (4, 512, 256, 24, 64, 128),   # mamba2-130m full width
+    (1, 300, 256, 24, 64, 128),   # a 300-token prompt: one chunk of 300
+])
+def test_tensor_core_rounding_fits_the_tolerance(bb, l, chunk, h, p, n):
+    """The spec ssd.cu keeps in step with: its 3xTF32 products hold the
+    plain version within 1e-4 at mamba2-130m's width, where one TF32
+    product (about three digits, |y| in the hundreds) does not."""
+    args = [torch.from_numpy(a) for a in _inputs(bb, l, h, p, n, seed=l)]
+    _, _, _, B, C = args
+    plain_y, plain_states, cum = ssd_intra_chunk(*args, chunk=chunk)
+    nc, q = cum.shape[1], cum.shape[2]
+    x, dt, _, _, _ = args
+    ops = (x.reshape(bb, nc, q, h, p), dt.reshape(bb, nc, q, h), cum,
+           B.reshape(bb, nc, q, n), C.reshape(bb, nc, q, n))
+    assert float(plain_y.abs().max()) > 100
+    y3, states3 = _ssd_tensor_cores(*ops, passes=3)
+    torch.testing.assert_close(y3, plain_y, **TOL)
+    torch.testing.assert_close(states3, plain_states, **TOL)
+    y1, states1 = _ssd_tensor_cores(*ops, passes=1)
+    assert not torch.allclose(y1, plain_y, **TOL)
+    assert float((y1 - plain_y).abs().max()) > \
+        10 * float((y3 - plain_y).abs().max())
+
+
+# --------------------------------------------------------------------------
 # on a card: the kernel against its plain version
 # --------------------------------------------------------------------------
 @pytest.fixture
