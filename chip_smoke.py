@@ -69,8 +69,16 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 MATMUL_SHAPES = [(128, 128, 128), (256, 512, 256), (384, 640, 128),
                  (100, 200, 60), (1, 2048, 1000), (173056, 27, 32),
                  (43264, 288, 64)]
+# postproc (N, H, W, C), each at pool 1, 2 and 3 in both input dtypes:
+# test_kernels.py's shapes; C 12 (a multiple of the fp32 vector, not of
+# the bf16 one: the ring read one channel at a time) on odd H; C 3 on odd
+# H and W, whose rows (348 B fp32, 174 B bf16) are not a multiple of 16
+# bytes (the direct path); a ragged W cut into several spans; the main
+# path's map
 POSTPROC_SHAPES = [(2, 32, 32, 16), (2, 64, 64, 8), (2, 30, 30, 8),
-                   (2, 16, 16, 128), (1, 208, 208, 64)]
+                   (2, 16, 16, 128), (2, 31, 30, 12), (2, 29, 29, 3),
+                   (2, 12, 18, 8), (1, 45, 211, 64), (1, 208, 208, 64)]
+POSTPROC_POOLS = (1, 2, 3)
 ACTS = ("none", "relu", "sigmoid", "tanh")
 DTYPES = (torch.float32, torch.bfloat16)
 FIG5 = dict(sizes_kib=(0.5, 64, 1024, 4096), blocks=(32, 64, 128))
@@ -240,6 +248,7 @@ def check_kernels(dev) -> dict:
     every activation and pool."""
     from repro_torch.kernels.convcore import matmul_int8
     from repro_torch.kernels.convcore.ref import matmul_int8_ref
+    from repro_torch.kernels.postproc import kernel as pp_kernel
     from repro_torch.kernels.postproc import postprocess
     from repro_torch.kernels.postproc.ref import postprocess_ref
 
@@ -268,15 +277,26 @@ def check_kernels(dev) -> dict:
         errs["convcore"] = max(errs["convcore"], worst)
         print(f"  convcore {m}x{k}x{n}: fp32 max err {worst:.2e}, bf16 "
               "within 1 ulp, int accumulation exact")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for shape in POSTPROC_SHAPES:
         c = shape[-1]
         worst = 0.0
+        paths = set()
         for in_dtype in DTYPES:
             x = torch.randn(shape, generator=gen, device=dev).to(in_dtype)
             scale = torch.rand(c, generator=gen, device=dev) * 4 - 2
             bias = torch.randn(c, generator=gen, device=dev)
+            for pool in POSTPROC_POOLS:
+                args = (*shape, pool, x.element_size())
+                plan = pp_kernel.launch_plan(*args, sms)
+                if pp_kernel.built_plan(*args, sms) != plan:
+                    raise AssertionError(f"postproc {args}: the kernel's plan "
+                                         f"{pp_kernel.built_plan(*args, sms)}"
+                                         f" is not launch_plan's {plan}")
+                paths.add("direct" if not plan.bulk else
+                          "ring, vector" if plan.vec > 1 else "ring, scalar")
             for act in ACTS:
-                for pool in (1, 2):
+                for pool in POSTPROC_POOLS:
                     for out_dtype in DTYPES:
                         kw = dict(act=act, pool=pool, out_dtype=out_dtype)
                         got = postprocess(x, scale, bias, **kw)
@@ -287,7 +307,8 @@ def check_kernels(dev) -> dict:
                             worst = max(worst, err)
         errs["postproc"] = max(errs["postproc"], worst)
         print(f"  postproc {shape}: fp32 max err {worst:.2e}, bf16 within "
-              "1 ulp (4 acts x 2 pools x 2 in x 2 out dtypes)")
+              f"1 ulp (4 acts x {len(POSTPROC_POOLS)} pools x 2 in x 2 out "
+              f"dtypes; {', '.join(sorted(paths))})")
     torch.cuda.synchronize()
     return errs
 
@@ -947,30 +968,68 @@ def check_ptxas(name: str, kernels: tuple, count: int, note: str = "") -> dict:
     return report
 
 
-def queued_ms(fn, reps: int) -> float:
-    """Device time of one call of ``fn`` (ms): CUDA events around ``reps``
-    calls enqueued behind a device-side wait (``torch.cuda._sleep``), so
-    that the card runs them back to back however slowly the host issues
-    them.  The wait is lengthened until it outlasts the host's enqueue."""
-    fn()
+def behind_wait(enqueue, reps: int):
+    """Run ``enqueue()`` (which queues ``reps`` timed calls) behind a
+    device-side wait (``torch.cuda._sleep``), so that the card runs the
+    calls back to back however slowly the host issues them; the wait is
+    lengthened until it outlasts the host's enqueue.  Returns what
+    ``enqueue`` returned, once the card has run it."""
     cycles = 1 << 21
     for _ in range(6):
         torch.cuda.synchronize()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
+        wait = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        wait[0].record()
         torch.cuda._sleep(cycles)
-        ev[1].record()
+        wait[1].record()
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+        result = enqueue()
         host_ms = (time.perf_counter() - t0) * 1e3
-        ev[2].record()
-        ev[2].synchronize()
-        if ev[0].elapsed_time(ev[1]) > 1.5 * host_ms:
-            return ev[1].elapsed_time(ev[2]) / reps
+        torch.cuda.synchronize()
+        if wait[0].elapsed_time(wait[1]) > 1.5 * host_ms:
+            return result
         cycles *= 4
     raise AssertionError("the device-side wait never outlasted the host's "
                          f"enqueue of {reps} calls")
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn`` (ms): CUDA events around ``reps``
+    calls queued behind a device-side wait (``behind_wait``)."""
+    fn()
+
+    def enqueue():
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        return start, end
+
+    start, end = behind_wait(enqueue, reps)
+    return start.elapsed_time(end) / reps
+
+
+def cold_queued_ms(fn, reps: int, flush) -> float:
+    """Device time of one call of ``fn`` (ms) with a cold L2: before each
+    call the card runs ``flush`` (which sweeps at least twice the 50 MB
+    L2), and CUDA events bracket the call alone; the calls are queued
+    behind a device-side wait (``behind_wait``)."""
+    fn()
+
+    def enqueue():
+        events = []
+        for _ in range(reps):
+            flush()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            events.append((start, end))
+        return events
+
+    return sum(start.elapsed_time(end)
+               for start, end in behind_wait(enqueue, reps)) / reps
 
 
 def device_times(fn, reps: int, match: str, expect: int | None = None):
@@ -1192,15 +1251,13 @@ def int_mm_call(patches, wmat):
 def time_kernels(dev) -> tuple[dict, list]:
     """Per-kernel times at the main path's shapes: convcore per layer and
     summed over a frame's 75 convs (GEMM on prebuilt im2col patches; each
-    layer's int32 accumulation first checked exact), postproc on the
-    stage's 208 x 208 x 64 map; each beside its library call, by device
-    time and by CUDA events."""
+    layer's int32 accumulation first checked exact), then postproc
+    (``time_postproc``); each beside its library call, by device time
+    and by CUDA events."""
     from repro_torch.kernels.convcore import kernel as cc_kernel
     from repro_torch.kernels.convcore import matmul_int8
     from repro_torch.kernels.convcore.ops import im2col
     from repro_torch.kernels.convcore.ref import matmul_int8_ref
-    from repro_torch.kernels.postproc import postprocess
-    from repro_torch.kernels.postproc.ref import postprocess_ref
 
     phase("timing (device time: CUDA events around calls queued behind a "
           "device-side wait; torch.profiler and plain CUDA events beside)")
@@ -1296,11 +1353,29 @@ def time_kernels(dev) -> tuple[dict, list]:
     print(f"  dynamic shared memory: bn 64 {cc_kernel.smem_bytes(64)}, bn 128 "
           f"{cc_kernel.smem_bytes(128)} bytes")
 
+    return {"convcore": cc, "postproc": time_postproc(dev)}, rows
+
+
+def time_postproc(dev) -> dict:
+    """postproc on the numeric stage's 208 x 208 x 64 fp32 map, pool 2,
+    bf16 out: the kernel beside max_pool2d (the same function at unit
+    scale, zero bias and no activation) by device time with a warm L2
+    (back-to-back calls: the 11 MB input stays in the 50 MB L2) and a
+    cold one (after a 128 MiB write sweep, whose dirty lines the call
+    then evicts; after a read sweep beside it), with what the cold method
+    costs a launch that moves nothing; the kernel's launch plan and its
+    ptxas report."""
+    from repro_torch.kernels.postproc import kernel as pp_kernel
+    from repro_torch.kernels.postproc import postprocess
+    from repro_torch.kernels.postproc.ref import postprocess_ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
     n_, h, w, c = 1, 208, 208, 64
     x = torch.randn((n_, h, w, c), generator=gen, device=dev)
     ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
     kw = dict(act="none", pool=2)
     xc = x.permute(0, 3, 1, 2)          # channels_last view, no copy
+    scratch = torch.empty(1 << 25, device=dev)       # 128 MiB
 
     def pp_call():
         return postprocess(x, ones, zeros, **kw)
@@ -1310,13 +1385,31 @@ def time_kernels(dev) -> tuple[dict, list]:
         # function on these inputs
         return torch.nn.functional.max_pool2d(xc, 2)
 
+    if not torch.equal(pp_call(), pool().permute(0, 2, 3, 1).to(
+            torch.bfloat16)):
+        raise AssertionError("postproc and max_pool2d differ on the timed "
+                             "inputs")
+
+    def write():
+        scratch.fill_(1.0)
+
+    def read():       # leaves the L2 full of clean lines
+        scratch.sum()
+
+    tiny = torch.zeros(64, device=dev)
     pp = {"ms": queued_ms(pp_call, 50),
-          "profiled_ms": device_ms(pp_call, 50, "postproc_kernel",
+          "cold_ms": cold_queued_ms(pp_call, 50, write),
+          "cold_read_ms": cold_queued_ms(pp_call, 50, read),
+          # what the cold method costs a launch that moves nothing
+          "cold_launch_ms": cold_queued_ms(lambda: tiny.add_(1.0), 50, write),
+          "profiled_ms": device_ms(pp_call, 50, "postproc_",
                                    expect=50),
           "event_ms": cuda_ms(pp_call, 50),
           "plain_ms": cuda_ms(lambda: postprocess_ref(x, ones, zeros, **kw),
                               20),
           "library_ms": queued_ms(pool, 50),
+          "library_cold_ms": cold_queued_ms(pool, 50, write),
+          "library_cold_read_ms": cold_queued_ms(pool, 50, read),
           "library_profiled_ms": device_ms(pool, 50),
           "library_event_ms": cuda_ms(pool, 50)}
     out_bytes = n_ * (h // 2) * (w // 2) * c * 2        # bf16 output
@@ -1326,14 +1419,31 @@ def time_kernels(dev) -> tuple[dict, list]:
                          pp_ops / FP32_OPS_PER_S) * 1e3
     pp["bound_by"] = "bytes" if pp_bytes / HBM_BYTES_PER_S >= \
         pp_ops / FP32_OPS_PER_S else "operations"
-    print(f"postproc {n_}x{h}x{w}x{c} pool 2: kernel {pp['ms']:.4f} ms of "
-          f"device time (profiler {ms_or_not(pp['profiled_ms'])}; events, "
-          f"wrapper-paced, {pp['event_ms']:.4f}), plain "
-          f"{pp['plain_ms']:.4f} ms, max_pool2d {pp['library_ms']:.4f} ms of "
-          f"device time (profiler {ms_or_not(pp['library_profiled_ms'])}; "
-          f"events {pp['library_event_ms']:.4f}), bound "
-          f"{pp['bound_ms']:.4f} ms ({pp['bound_by']})")
-    return {"convcore": cc, "postproc": pp}, rows
+    print(f"postproc {n_}x{h}x{w}x{c} pool 2, fp32 -> bf16: kernel "
+          f"{pp['ms']:.4f} ms of device time warm, {pp['cold_ms']:.4f} cold "
+          f"({pp['cold_read_ms']:.4f} after a read sweep) (profiler, warm: "
+          f"{ms_or_not(pp['profiled_ms'])}; events, wrapper-paced, "
+          f"{pp['event_ms']:.4f}), plain {pp['plain_ms']:.4f} ms, max_pool2d "
+          f"{pp['library_ms']:.4f} ms warm, {pp['library_cold_ms']:.4f} cold "
+          f"({pp['library_cold_read_ms']:.4f}) (profiler "
+          f"{ms_or_not(pp['library_profiled_ms'])}; events "
+          f"{pp['library_event_ms']:.4f}), bound {pp['bound_ms']:.4f} ms "
+          f"({pp['bound_by']}); a 64-element add takes "
+          f"{pp['cold_launch_ms']:.4f} ms cold")
+    share = pp["bound_ms"] / pp["cold_ms"]
+    warm = "under the HBM bound (its input is read from L2)" \
+        if pp["ms"] < pp["bound_ms"] \
+        else f"{pp['bound_ms'] / pp['ms']:.1%} of the bound"
+    print(f"  cold L2 (after a write sweep): {share:.1%} of the bound; warm "
+          f"L2: {warm}")
+    plan = pp_kernel.launch_plan(n_, h, w, c, 2, 4, torch.cuda.
+                                 get_device_properties(dev).
+                                 multi_processor_count)
+    pp["plan"] = dataclasses.asdict(plan)
+    print(f"  launch plan: {pp['plan']}")
+    pp["ptxas"] = check_ptxas("postproc", ("postproc_ring_kernel",
+                                           "postproc_direct_kernel"), 12)
+    return pp
 
 
 def device_split(fn, kinds=None) -> dict:
@@ -1350,7 +1460,7 @@ def device_split(fn, kinds=None) -> dict:
         fn()
         torch.cuda.synchronize()
     kinds = kinds or {"convcore": "convcore_",
-                      "postproc": "postproc_kernel"}
+                      "postproc": "postproc_"}
     split = {"wall_ms": (time.perf_counter() - t0) * 1e3, "other": 0.0,
              **{k: 0.0 for k in kinds}}
     for e in prof.events():

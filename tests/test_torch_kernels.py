@@ -8,6 +8,9 @@ post-processing agree within rtol = atol = 1e-5 (sigmoid/tanh are
 different libm implementations); bf16 outputs within one bf16 ulp."""
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +32,12 @@ from repro_torch.kernels.convcore.ref import matmul_int8_ref  # noqa: E402
 from repro_torch.kernels.postproc import kernel as t_pp_kernel  # noqa: E402
 from repro_torch.kernels.postproc import ops as t_pp  # noqa: E402
 from repro_torch.kernels.postproc.ref import postprocess_ref  # noqa: E402
+
+# chip_smoke.py's shape lists, so that the CPU checks the card's cases
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+SMOKE = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(SMOKE)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -201,7 +210,7 @@ def test_kernel_target_hashes_the_shared_headers(tmp_path, monkeypatch):
 # --------------------------------------------------------------------------
 # postproc
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("h,w,c,act,pool", [
+POSTPROC_CASES = [
     (32, 32, 16, "relu", 1),
     (32, 32, 16, "relu", 2),
     (64, 64, 8, "sigmoid", 2),
@@ -210,7 +219,10 @@ def test_kernel_target_hashes_the_shared_headers(tmp_path, monkeypatch):
     (16, 16, 128, "tanh", 1),
     (16, 16, 8, "sigmoid", 1),
     (12, 18, 8, "none", 3),
-])
+]
+
+
+@pytest.mark.parametrize("h,w,c,act,pool", POSTPROC_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_postprocess_matches_reference(h, w, c, act, pool, dtype):
     rng = np.random.default_rng(h + c + pool)
@@ -229,6 +241,86 @@ def test_postprocess_matches_reference(h, w, c, act, pool, dtype):
                   interpret=True)
     assert tuple(want.shape) == tuple(got.shape)
     _assert_close(got, want, dtype)
+
+
+# the launch plan at every shape above (N = 2) and chip_smoke.py's, each
+# at pool 1, 2 and 3 and both input element sizes
+PLAN_CASES = sorted({(2, h, w, c, pool, elt)
+                     for h, w, c, _, pool in POSTPROC_CASES
+                     for elt in (4, 2)}
+                    | {(*shape, pool, elt)
+                       for shape in SMOKE.POSTPROC_SHAPES
+                       for pool in SMOKE.POSTPROC_POOLS for elt in (4, 2)})
+
+
+@pytest.mark.parametrize("n,h,w,c,pool,elt", PLAN_CASES)
+def test_postproc_launch_plan_covers_every_output_once(n, h, w, c, pool, elt):
+    """Every kept output lies in exactly one item; an item's input columns
+    hold its windows; on the ring path every bulk copy of a 16-byte
+    aligned map starts 16-byte aligned and is a multiple of 16 bytes,
+    fits its stage, and the ring fits shared memory two blocks an SM; the
+    vector path only where a pixel is a multiple of 16 bytes.  Pooling
+    what the items' runs carry (as the kernel lays them out in a stage,
+    rows ``run`` bytes apart) gives the max-pool."""
+    plan = t_pp_kernel.launch_plan(n, h, w, c, pool, elt)
+    ho, wo, px = h // pool, w // pool, c * elt
+    assert 1 <= plan.grid <= min(plan.items, 2 * t_pp_kernel.H100_SMS)
+    assert plan.items == n * ho * plan.spans
+    seen = np.zeros((n * ho, wo), np.int64)
+    x = np.random.default_rng(n * h + w * c).standard_normal(
+        (n, h, w, c)).astype(np.float32)
+    flat = x.reshape(-1)
+    got = np.full((n * ho, wo, c), np.nan, np.float32)
+    for i in range(plan.items):
+        band, ow0, cnt, col0, cols = t_pp_kernel.item_extent(plan, w, pool, i)
+        assert 1 <= cnt <= plan.span and col0 == ow0 * pool
+        assert ow0 + cnt <= wo and cnt * pool <= cols and col0 + cols <= w
+        seen[band, ow0:ow0 + cnt] += 1
+        nn, oh = divmod(band, ho)
+        first = ((nn * h + oh * pool) * w + col0) * c    # elements
+        pitch = plan.run // elt if plan.bulk else w * c
+        if plan.bulk:
+            assert (first * elt) % 16 == 0 and (w * px) % 16 == 0
+            assert (cols * px) % 16 == 0 and cols * px <= plan.run
+            stage = np.zeros(pool * pitch, np.float32)
+            for r in range(pool):
+                src = first + r * w * c
+                stage[r * pitch:r * pitch + cols * c] = flat[src:src + cols * c]
+        else:
+            stage = flat[first:]
+        win = [stage[i_ * pitch + (ow * pool + j) * c:][:c]
+               for ow in range(cnt) for i_ in range(pool)
+               for j in range(pool)]
+        got[band, ow0:ow0 + cnt] = np.max(
+            np.reshape(win, (cnt, pool * pool, c)), axis=1)
+    assert (seen == 1).all()
+    want = x[:, :ho * pool, :wo * pool].reshape(n, ho, pool, wo, pool, c) \
+        .max(axis=(2, 4)).reshape(n * ho, wo, c)
+    np.testing.assert_array_equal(got, want)
+    if plan.bulk:
+        assert plan.run % 16 == 0 and plan.stage % 128 == 0
+        assert plan.stage >= pool * plan.run and 2 <= plan.stages <= 4
+        assert plan.smem == t_pp_kernel.BAR_BYTES + plan.stages * plan.stage
+        assert plan.smem <= 227 * 1024
+        assert t_pp_kernel.BLOCKS_PER_SM * (plan.smem + 1024) <= 228 * 1024
+        assert plan.vec == (16 // elt if px % 16 == 0 else 1)
+    else:
+        assert (w * px) % 16 or 2 * plan.stage > t_pp_kernel.SMEM_BUDGET
+        assert plan.vec == 1 and plan.smem == 0
+
+
+def test_postproc_launch_plan_at_the_main_path_shape():
+    """The numeric stage's 208 x 208 x 64 fp32 map at pool 2: the ring
+    with 16-byte vectors, two blocks on each of 132 SMs, every block's
+    items in flight at once."""
+    plan = t_pp_kernel.launch_plan(1, 208, 208, 64, 2, 4)
+    assert plan.bulk and plan.vec == 4 and plan.grid == 264
+    assert plan.items <= plan.grid * plan.stages
+    assert plan.stages * plan.stage >= 48 * 1024 // 2
+    # ragged rows or pixels that are not a multiple of 16 bytes
+    assert not t_pp_kernel.launch_plan(2, 29, 29, 3, 2, 4).bulk
+    assert t_pp_kernel.launch_plan(2, 31, 30, 12, 2, 2).vec == 1
+    assert t_pp_kernel.launch_plan(2, 0, 8, 8, 2, 4).items == 0
 
 
 def test_ops_validate_their_inputs():
@@ -344,21 +436,51 @@ def test_matmul_kernel_matches_plain_on_card(cuda, m, k, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 31, 30, 64)] + SMOKE.POSTPROC_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("act", ["none", "relu", "sigmoid", "tanh"])
-def test_postprocess_kernel_matches_plain_on_card(cuda, act):
+def test_postprocess_kernel_matches_plain_on_card(cuda, act, shape):
+    """Every path of the kernel (the ring with vectors or one channel at
+    a time, the direct loads), at pool 1, 2 and 3, both input and both
+    output dtypes; the kernel's own plan is launch_plan's."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randn((2, 31, 30, 64), generator=g, device=cuda)
-    scale = torch.rand(64, generator=g, device=cuda) * 4 - 2
-    bias = torch.randn(64, generator=g, device=cuda)
+    c = shape[-1]
+    scale = torch.rand(c, generator=g, device=cuda) * 4 - 2
+    bias = torch.randn(c, generator=g, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     before = t_pp_kernel.launches
-    for pool in (1, 2):
-        got = t_pp.postprocess(x, scale, bias, act=act, pool=pool,
-                               out_dtype=torch.float32)
-        want = postprocess_ref(x, scale, bias, act=act, pool=pool,
-                               out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        _assert_close(got.cpu(), want.cpu(), "float32")
-    assert t_pp_kernel.launches == before + 2
+    for td in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, generator=g, device=cuda).to(td)
+        for pool in (1, 2, 3):
+            args = (*shape, pool, x.element_size(), sms)
+            assert t_pp_kernel.built_plan(*args) == \
+                t_pp_kernel.launch_plan(*args)
+            for out in (torch.float32, torch.bfloat16):
+                got = t_pp.postprocess(x, scale, bias, act=act, pool=pool,
+                                       out_dtype=out)
+                want = postprocess_ref(x, scale, bias, act=act, pool=pool,
+                                       out_dtype=out)
+                torch.cuda.synchronize()
+                _assert_close(got.cpu(), want.cpu(), str(out).split(".")[-1])
+    assert t_pp_kernel.launches == before + 12
+
+
+@pytest.mark.gpu
+def test_postprocess_kernel_takes_an_unaligned_map(cuda):
+    """A map whose storage starts off 16-byte alignment is copied once by
+    the wrapper and still goes through the kernel."""
+    flat = torch.randn(1 + 2 * 16 * 16 * 8, device=cuda)
+    x = flat[1:].view(2, 16, 16, 8)
+    assert x.data_ptr() % 16
+    scale, bias = torch.rand(8, device=cuda), torch.randn(8, device=cuda)
+    before = t_pp_kernel.launches
+    got = t_pp.postprocess(x, scale, bias, act="relu", pool=2,
+                           out_dtype=torch.float32)
+    want = postprocess_ref(x, scale, bias, act="relu", pool=2,
+                           out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert t_pp_kernel.launches == before + 1
+    _assert_close(got.cpu(), want.cpu(), "float32")
 
 
 @pytest.mark.gpu

@@ -191,6 +191,70 @@ def test_tensor_core_rounding_fits_the_tolerance(bb, l, chunk, h, p, n):
         10 * float((y3 - plain_y).abs().max())
 
 
+def test_bf16_logit_gap_is_amplification_through_the_layers():
+    """Why the card's bf16 first-token logits through the kernel differ
+    from the plain SSD step's by more than LOGITS_TOL (0.151-0.463 in
+    chip_smoke.py's serving phase): mamba2-130m at full width (24 layers,
+    random weights from seed 0), one bf16 prefill of chip_smoke.py's
+    300-token prompt, with the SSD step replaced by the kernel's own
+    rounding spec (3xTF32, above).  The spec differs from the plain step
+    by about 1e-4 a layer, and so does Gaussian noise of 1.5e-4 on y; both
+    move the bf16 logits by the card's order (above 0.05), while in an
+    fp32 prefill the spec stays within LOGITS_TOL.  So the gap is the 24
+    bf16 layers amplifying the kernel's agreed difference, not a
+    departure of the kernel from its spec."""
+    import dataclasses
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import init_params, prefill
+    from repro_torch.types import param_values
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = get_config("mamba2-130m")
+    params = param_values(init_params(torch.Generator().manual_seed(0), cfg))
+    prompt = smoke.serve_requests(cfg.vocab_size)[1].tokens
+    assert len(prompt) == 300
+    batch = {"tokens": torch.as_tensor([list(prompt)])}
+    plain = ssd_ops.ssd_intra_chunk
+    noise = np.random.default_rng(0)
+
+    def spec_step(x, dt, A, B, C, *, chunk):
+        xc, dtc, cum, bc, cc = ssd_ops._chunked(x, dt, A, B, C, chunk)
+        y, states = _ssd_tensor_cores(xc, dtc, cum, bc, cc, passes=3)
+        return y, states, cum
+
+    def noisy_step(*args, chunk):
+        y, states, cum = plain(*args, chunk=chunk)
+        return y + torch.from_numpy(1.5e-4 * noise.standard_normal(
+            y.shape).astype(np.float32)), states, cum
+
+    def logits(step, c):
+        ssd_ops.ssd_intra_chunk = step
+        try:
+            return prefill(params, batch, c, 552)[0][:, :cfg.vocab_size] \
+                .float()
+        finally:
+            ssd_ops.ssd_intra_chunk = plain
+
+    base = logits(plain, cfg)
+    spec_gap = float((logits(spec_step, cfg) - base).abs().max())
+    noise_gap = float((logits(noisy_step, cfg) - base).abs().max())
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    got32, want32 = logits(spec_step, cfg32), logits(plain, cfg32)
+    print(f"mamba2-130m first-token logits, 300-token prefill: bf16 "
+          f"spec vs plain {spec_gap:.4g}, noise vs plain {noise_gap:.4g}; "
+          f"fp32 spec vs plain {float((got32 - want32).abs().max()):.4g}")
+    assert spec_gap > 0.05 and noise_gap > 0.05
+    assert 0.1 < spec_gap / noise_gap < 10
+    torch.testing.assert_close(got32, want32, **smoke.LOGITS_TOL)
+
+
 # --------------------------------------------------------------------------
 # on a card: the kernel against its plain version
 # --------------------------------------------------------------------------

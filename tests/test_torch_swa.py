@@ -203,6 +203,59 @@ def test_tensor_core_rounding_fits_bf16_tolerance(s, window, softcap):
     np.testing.assert_allclose(_np(got), oracle, rtol=2e-2, atol=2e-2)
 
 
+def test_bf16_logit_gap_is_amplification_through_the_layers():
+    """Why the card's bf16 first-token logits of recurrentgemma-9b through
+    the tensor-core kernel differ from the plain version's by 0.125-0.141
+    (more than RG_LOGITS_TOL): the model at its published depth (38
+    layers, 12 of them local attention), heads (16 query, 1 KV, D 256)
+    and window, at a width the CPU holds (d_model 512, d_ff 1536, vocab
+    4096; random weights from seed 0), one bf16 prefill of 300 tokens,
+    with attention replaced by the kernel's rounding spec (above).  The
+    spec moves the logits by the card's order (above 0.05), and so does
+    perturbing each attention output by half a bf16 ulp (relative
+    Gaussian noise of 2^-9) before it is rounded: the gap is the bf16
+    layers amplifying one-ulp differences, not a departure of the kernel
+    from its spec."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    from repro_torch.types import param_values
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), d_model=512,
+                              rglru_width=512, d_ff=1536, vocab_size=4096)
+    params = param_values(init_params(torch.Generator().manual_seed(0), cfg))
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.as_tensor([rng.integers(3, 4096, 300).tolist()])}
+    plain = t_ops.swa_attention
+    noise = np.random.default_rng(0)
+
+    def spec(q, k, v, *, window, scale, softcap):
+        return _tc_emulation(q, k, v, window=window, scale=scale,
+                             softcap=softcap)
+
+    def noisy(q, k, v, **kw):
+        y = plain(q, k, v, **kw)
+        e = torch.from_numpy(noise.standard_normal(y.shape).astype(np.float32))
+        return (y.float() * (1 + 2.0 ** -9 * e)).to(y.dtype)
+
+    def logits(attend):
+        t_ops.swa_attention = attend
+        try:
+            return prefill(params, batch, cfg, 316)[0][:, :4096].float()
+        finally:
+            t_ops.swa_attention = plain
+
+    base = logits(plain)
+    spec_gap = float((logits(spec) - base).abs().max())
+    noise_gap = float((logits(noisy) - base).abs().max())
+    print(f"recurrentgemma-9b (d_model 512) first-token logits, 300-token "
+          f"bf16 prefill: spec vs plain {spec_gap:.4g}, half-ulp noise vs "
+          f"plain {noise_gap:.4g}")
+    assert spec_gap > 0.05 and noise_gap > 0.05
+    assert 0.1 < spec_gap / noise_gap < 10
+
+
 # the card's cases (b, s, hq, hkv, d, window, softcap, input scale):
 # test_kernels.py's (s, window) pairs and a ragged band at every head dim
 # the kernels are built for, recurrentgemma-9b's heads (16 query, 1 KV,
