@@ -9,6 +9,13 @@ port's three paths through them:
   416 x 416 width plus all 75 conv layers of a frame, and the paper
   chain (model-mode anchors exactly, simulated mode on the card bit for
   bit against the CPU);
+* the paper's simulator at its own sizes (``repro_torch.core.sweep`` and
+  ``socsim``): the Fig. 5 sweep over the whole 6,155,982-burst frame,
+  the Fig. 6 sweep, 24 way-partitioned and unpartitioned interference
+  lanes batched and one by one, one lane's per-chunk latencies and the
+  FAME-1 LLC -> DRAM pipeline under random host stalls, every result
+  held bit for bit to the JAX reference's (anchors below, from the
+  reference on the CPU);
 * serving mamba2-130m at full width (``repro_torch.serve.ServeEngine``,
   24 layers, d_model 768, random weights from a seed): 8 requests of
   512 and 300 tokens, 32 new tokens each, 4 slots, with the engine's
@@ -44,6 +51,7 @@ non-zero and the last line is not printed.  Per-layer timings also go to
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import subprocess
@@ -51,6 +59,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -167,6 +176,95 @@ SERVE_STEP_RUNS = [("prefill", 221081060, 1), ("mixed", 458566932, 1),
 ORACLE_PREFILL_CYCLES = 221_082_288     # prefill_step(kv, [0, 1])
 ORACLE_DECODE_CYCLES = 286_698_068      # decode_step(kv, [0, 1, 2, 3])
 ORACLE_DECODE_HIT_RATE = 0.5
+
+# Simulator path anchors (sim_path): the JAX reference on the CPU, with
+# repro.core.sweep / socsim on the same inputs —
+#   SIM_FIG5_RECORD  sweep_llc(window_bursts=None).to_record()
+#   SIM_FIG6_RECORD  sweep_interference().to_record()
+#   SIM_LANES_SHA256 sha256 of json.dumps([r.to_record() for r in
+#       interference_lane_metrics_batch(window, llcs=[SIM_LLC] * 24,
+#       drams=[DRAMConfig()] * 24, mixes=..., way_masks=...)],
+#       sort_keys=True) over SIM_LANES in order, window =
+#       default_dbb_window(max_bursts=4096) * 2
+#   SIM_LATENCIES    lane_request_latencies(window, llc=SIM_LLC,
+#       dram=DRAMConfig(), mix=MixConfig(2, "llc"), way_mask=0x0F):
+#       victim chunks, their sum and the sha256 of json.dumps(list)
+#   SIM_STREAM       simulate_dbb_stream(expand(default_dbb_window(
+#       max_bursts=4096)), llc=LLCConfig(), dram=DRAMConfig(),
+#       host_stalls=SIM_STALLS): sha256 of the latencies' list, total,
+#       host_cycles; simulate_dbb_segments' total on the compressed window
+# SIM_LLC is 256 KiB, 8 ways, 64 B: the doubled 4096-burst window reuses
+# 128 KiB, which the victim's 4-way half holds while >= 256 KiB of
+# co-runner lines between the two copies evict it unpartitioned (at the
+# default 2 MiB, or 64 KiB, no mask changes any lane).
+SIM_FIG5_RECORD = {
+    "kind": "llc", "window_bursts": 6155982, "no_llc_s": 0.0934517554498488,
+    "sim_hit_rates": [
+        [0.5, 32, 0.0], [2, 32, 0.0], [8, 32, 0.0], [64, 32, 0.0],
+        [512, 32, 0.041836054751297196], [1024, 32, 0.16306902781717036],
+        [4096, 32, 0.481063947230515], [0.5, 64, 0.4999834307507722],
+        [2, 64, 0.4999834307507722], [8, 64, 0.4999834307507722],
+        [64, 64, 0.4999834307507722], [512, 64, 0.5208986965848827],
+        [1024, 64, 0.5815242799605327], [4096, 64, 0.740529943070009],
+        [0.5, 128, 0.7499831870853424], [2, 128, 0.7499831870853424],
+        [8, 128, 0.7499831870853424], [64, 128, 0.7499831870853424],
+        [512, 128, 0.7604393580098188], [1024, 128, 0.7907570230062401],
+        [4096, 128, 0.870264240538715],
+    ],
+    "speedups": [
+        [0.5, 32, 1.00002699412898], [2, 32, 1.0001079852608248],
+        [8, 32, 1.0004391289112313], [64, 32, 1.004217238002297],
+        [512, 32, 1.0390503543445695], [1024, 32, 1.0610833277481284],
+        [4096, 32, 1.0827722224951344], [0.5, 64, 1.1964833832675663],
+        [2, 64, 1.2602104511481946], [8, 64, 1.2834159234713975],
+        [64, 64, 1.2940321554748335], [512, 64, 1.3236107824875993],
+        [1024, 64, 1.3414224820146357], [4096, 64, 1.3586754824630043],
+        [0.5, 128, 1.2399826582634006], [2, 128, 1.3990507177345188],
+        [8, 128, 1.4784663046819253], [64, 128, 1.5100228870339019],
+        [512, 128, 1.5333458187887368], [1024, 128, 1.545467289098712],
+        [4096, 128, 1.5570221359749303],
+    ],
+}
+SIM_FIG6_RECORD = {
+    "kind": "interference", "window_bursts": 4096,
+    "sim_hit_rates": [
+        ["l1", 0, 0.5], ["l1", 1, 0.5], ["l1", 2, 0.5], ["l1", 3, 0.5],
+        ["l1", 4, 0.5], ["llc", 0, 0.5], ["llc", 1, 0.5], ["llc", 2, 0.5],
+        ["llc", 3, 0.5], ["llc", 4, 0.5], ["dram", 0, 0.5], ["dram", 1, 0.5],
+        ["dram", 2, 0.5], ["dram", 3, 0.5], ["dram", 4, 0.5],
+    ],
+    "slowdowns": [
+        ["l1", 0, 1.0], ["l1", 1, 1.0], ["l1", 2, 1.0], ["l1", 3, 1.0],
+        ["l1", 4, 1.0], ["llc", 0, 1.0], ["llc", 1, 1.2681895702912687],
+        ["llc", 2, 1.5363791405825373], ["llc", 3, 1.8045687108738058],
+        ["llc", 4, 2.072758281165074], ["dram", 0, 1.0],
+        ["dram", 1, 1.3300114536967595], ["dram", 2, 1.6809722603072477],
+        ["dram", 3, 2.0528824198314646], ["dram", 4, 2.445741932269411],
+    ],
+    "sim_row_hit_rates": [
+        ["l1", 0, 0.96875], ["l1", 1, 0.96875], ["l1", 2, 0.96875],
+        ["l1", 3, 0.96875], ["l1", 4, 0.96875], ["llc", 0, 0.96875],
+        ["llc", 1, 0.96435546875], ["llc", 2, 0.9599609375],
+        ["llc", 3, 0.95556640625], ["llc", 4, 0.951171875],
+        ["dram", 0, 0.96875], ["dram", 1, 0.96435546875],
+        ["dram", 2, 0.9599609375], ["dram", 3, 0.95556640625],
+        ["dram", 4, 0.951171875],
+    ],
+}
+SIM_LLC_BYTES = 256 * 1024
+SIM_LANES = [(wss, n, mask) for wss in ("llc", "dram") for n in (1, 2, 4)
+             for mask in (None, 0x0F, 0x03, 0xFF)]
+SIM_LANES_SHA256 = \
+    "eca53b59ceff9225688c9d42a56aa9809478c3811b1775cb4952c71fcfe42292"
+SIM_LATENCIES = {
+    "n": 512, "sum": 194808, "total": 766424,
+    "sha256": ("aa1e540e8e9aa5ee8d8642f72e23318d"
+               "18407e685efeda32d24da342439ef50b")}
+SIM_STREAM = {
+    "t": 4096, "total": 112384, "host_cycles": 7552,
+    "sha256": ("0fe674bb960265a15d5109b0a7d3e56c"
+               "e5cae85bcb68c1b8b12a957c332d0fd8")}
+SIM_STALL_SEED, SIM_STALL_P = 17, 0.35   # (3 T, 2) schedule, numpy PCG64
 
 
 def phase(name: str) -> None:
@@ -474,6 +572,163 @@ def paper_chain(res: dict, dev) -> dict:
     print("segment-lane engine wall time: " + ", ".join(
         f"{k} {v:.2f}" for k, v in times.items()))
     return times
+
+
+def sha256_json(obj) -> str:
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()
+                          ).hexdigest()
+
+
+def sim_stalls(t: int):
+    """The seeded random host-stall schedule of (e): (3 T, 2) bool."""
+    rng = np.random.default_rng(SIM_STALL_SEED)
+    return rng.random((3 * t, 2)) < SIM_STALL_P
+
+
+def sim_path(dev) -> dict:
+    """The paper's simulator on the card at its own sizes, every result
+    held bit for bit to the JAX reference's (anchors above):
+    (a) Fig. 5 over the whole frame, (b) Fig. 6 at 4096 bursts, (c) 24
+    way-partitioned and unpartitioned interference lanes batched and
+    one by one, (d) one partitioned lane's per-chunk latencies, (e) the
+    FAME-1 LLC -> DRAM pipeline under random host stalls."""
+    from repro_torch.core import traces
+    from repro_torch.core.cache import LLCConfig
+    from repro_torch.core.dram import DRAMConfig
+    from repro_torch.core.socsim import (simulate_dbb_segments,
+                                         simulate_dbb_stream)
+    from repro_torch.core.sweep import (
+        MixConfig, interference_lane_metrics, interference_lane_metrics_batch,
+        lane_request_latencies, sweep_interference, sweep_llc)
+
+    phase("sim path (Fig. 5/6 sweeps, partitioned lanes, FAME-1 pipeline)")
+    wall = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        print(f"{name}: {wall[name]:.3f} s wall on {dev}", flush=True)
+        return out
+
+    def same(got, want, what):
+        if json.loads(json.dumps(got)) != want:
+            raise AssertionError(f"{what}: {got!r} != the reference's")
+
+    # (a) Fig. 5, 21 geometries over all 6,155,982 bursts
+    grid = timed("sweep_llc_full_frame",
+                 lambda: sweep_llc(window_bursts=None, device=dev))
+    same(grid.to_record(), SIM_FIG5_RECORD, "sweep_llc(window_bursts=None)")
+    # (b) Fig. 6 at 4096 bursts
+    grid6 = timed("sweep_interference",
+                  lambda: sweep_interference(device=dev))
+    same(grid6.to_record(), SIM_FIG6_RECORD, "sweep_interference()")
+    print("(a) Fig. 5 (21 geometries, 6,155,982 bursts) and (b) Fig. 6 "
+          "(15 keys, 4096 bursts): to_record() == the reference's")
+
+    # (c) partitioned and unpartitioned lanes, batched and sequential
+    llc = LLCConfig(SIM_LLC_BYTES, 8, 64)
+    dram = DRAMConfig()
+    window = traces.default_dbb_window(max_bursts=4096) * 2
+    mixes = [MixConfig(n, wss) for wss, n, _ in SIM_LANES]
+    masks = [m for *_, m in SIM_LANES]
+    batch = timed("interference_lane_metrics_batch_24", lambda:
+                  interference_lane_metrics_batch(
+                      window, llcs=[llc] * len(mixes),
+                      drams=[dram] * len(mixes), mixes=mixes,
+                      way_masks=masks, device=dev))
+    recs = [m.to_record() for m in batch]
+    if sha256_json(recs) != SIM_LANES_SHA256:
+        raise AssertionError("batched lane records differ from the "
+                             f"reference's: {recs!r}")
+    seq = timed("interference_lane_metrics_x24", lambda: [
+        interference_lane_metrics(window, llc=llc, dram=dram, mix=mix,
+                                  way_mask=mask, device=dev)
+        for mix, mask in zip(mixes, masks)])
+    if [m.to_record() for m in seq] != recs:
+        raise AssertionError("sequential lanes differ from the batch")
+    moved = 0
+    for i in range(0, len(recs), 4):
+        plain, full = recs[i], recs[i + 3]
+        if full != plain:
+            raise AssertionError(f"full mask != unmasked: {SIM_LANES[i]}")
+        moved += sum(recs[i + k]["nvdla_hits"] != plain["nvdla_hits"]
+                     for k in (1, 2))
+        print(f"  {SIM_LANES[i][0]} x{SIM_LANES[i][1]}: NVDLA hit rate "
+              f"unmasked {plain['nvdla_hit_rate']}, 0x0F "
+              f"{recs[i + 1]['nvdla_hit_rate']}, 0x03 "
+              f"{recs[i + 2]['nvdla_hit_rate']}; total cycles "
+              f"{plain['total_cycles']} / {recs[i + 1]['total_cycles']} / "
+              f"{recs[i + 2]['total_cycles']}")
+    if not moved:
+        raise AssertionError("no partitioned lane differs from its "
+                             "unmasked lane: the check proves nothing")
+    print(f"(c) 24 lanes: batch == sequential == the reference's; full mask "
+          f"== unmasked; {moved} of 12 partitioned lanes differ from "
+          "their unmasked lane")
+
+    # (d) one partitioned lane's per-chunk latencies
+    lat, metrics = timed("lane_request_latencies", lambda:
+                         lane_request_latencies(
+                             window, llc=llc, dram=dram,
+                             mix=MixConfig(2, "llc"), way_mask=0x0F,
+                             device=dev))
+    got = {"n": int(lat.shape[0]), "sum": int(lat.sum()),
+           "total": metrics.total_cycles,
+           "sha256": sha256_json(lat.tolist())}
+    lane = recs[SIM_LANES.index(("llc", 2, 0x0F))]
+    if got != SIM_LATENCIES or metrics.to_record() != lane:
+        raise AssertionError(f"lane_request_latencies: {got} != "
+                             f"{SIM_LATENCIES}")
+    print(f"(d) {got['n']} victim-chunk latencies == the reference's "
+          f"(sum {got['sum']} of the lane's {got['total']} cycles; the "
+          "per-segment latencies sum to the total, checked inside)")
+
+    # (e) the FAME-1 pipeline under a seeded random stall schedule
+    segs = traces.default_dbb_window(max_bursts=4096)
+    addrs = traces.expand(segs)
+    res = timed("simulate_dbb_stream", lambda: simulate_dbb_stream(
+        addrs, llc=LLCConfig(), dram=DRAMConfig(),
+        host_stalls=sim_stalls(addrs.shape[0]), device=dev))
+    seg_res = timed("simulate_dbb_segments", lambda: simulate_dbb_segments(
+        segs, llc=LLCConfig(), dram=DRAMConfig(), device=dev))
+    got = {"t": int(res.latencies.shape[0]),
+           "total": int(res.total_cycles), "host_cycles": res.host_cycles,
+           "sha256": sha256_json(res.latencies.tolist())}
+    if got != SIM_STREAM or seg_res.total_cycles != SIM_STREAM["total"]:
+        raise AssertionError(f"simulate_dbb_stream: {got}, segments "
+                             f"{seg_res.total_cycles}; want {SIM_STREAM}")
+    print(f"(e) {got['t']} accesses under {SIM_STALL_P} random stalls: "
+          f"latencies == the reference's, total {got['total']} cycles == "
+          f"simulate_dbb_segments', last_host_cycles {got['host_cycles']}")
+
+    # device time of two of the calls, run again under the profiler; its
+    # share is taken of the unprofiled wall above (the profiled wall
+    # carries the profiler's own cost)
+    busy = {}
+    for name, fn in (
+            ("interference_lane_metrics_batch_24", lambda:
+             interference_lane_metrics_batch(
+                 window, llcs=[llc] * len(mixes), drams=[dram] * len(mixes),
+                 mixes=mixes, way_masks=masks, device=dev)),
+            ("simulate_dbb_stream", lambda: simulate_dbb_stream(
+                addrs, llc=LLCConfig(), dram=DRAMConfig(),
+                host_stalls=sim_stalls(addrs.shape[0]), device=dev))):
+        split = device_split(fn)
+        dev_ms = sum(v for k, v in split.items() if k != "wall_ms")
+        busy[name] = {"profiled_wall_ms": split["wall_ms"],
+                      "device_ms": dev_ms}
+        if dev_ms == 0.0:
+            print(f"{name} (profiled): device time not measured (no "
+                  "device events in the trace)")
+            continue
+        print(f"{name} (profiled): device busy {dev_ms:.2f} ms, "
+              f"{dev_ms / (wall[name] * 1e3):.1%} of its "
+              f"{wall[name]:.3f} s wall (profiled wall "
+              f"{split['wall_ms'] / 1e3:.3f} s)")
+    return {"wall_s": wall, "profiled": busy}
 
 
 def serve_requests(vocab: int, lengths=(512, 300), max_new: int = 32
@@ -1526,6 +1781,7 @@ def main() -> int:
     timed["swa"] = time_swa(dev)
     res, launches, main_errs = main_path(dev)
     engine_times = paper_chain(res, dev)
+    sim = sim_path(dev)
     serve_launches, serve = serve_path(dev)
     launches["ssd"] = serve_launches["ssd"]
     main_errs["ssd"] = serve["ssd_max_abs_err"]
@@ -1562,7 +1818,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "convcore_layers": rows,
-         "engine_wall_s": engine_times, "profiled": profiled,
+         "engine_wall_s": engine_times, "sim_path": sim,
+         "profiled": profiled,
          "timed": timed,
          "serve": serve, "serve_recurrentgemma": serve_rg}, indent=1))
     print(f"\nchip_smoke finished in {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,6 @@
 """The paper's primary contribution: NVDLA integrated into an SoC with a
-configurable shared memory hierarchy — the PyTorch port of ``repro.core``
-on the case study's path.
+configurable shared memory hierarchy under FAME-1 token simulation — the
+PyTorch port of ``repro.core``'s main path.
 
 Subsystems:
 * ``yolov3``       — the benchmark network descriptor (66 GOP / frame);
@@ -8,11 +8,18 @@ Subsystems:
 * ``quant``        — int8 calibration for the accelerated path;
 * ``accelerator``  — NVDLA nv_large timing model behind the shared LLC;
 * ``cache``        — exact set-associative LLC simulator (runtime-config)
-                     with the lane-batched segment engine;
+                     with the lane-batched segment engine (way-masked,
+                     miss-bit collecting lanes);
 * ``traces``       — compressed (base, stride, count) DBB trace
                      generation from the command stream;
-* ``sweep``        — lane-batched multi-geometry LLC sweeps;
-* ``dram``         — the DRAM configuration;
+* ``sweep``        — lane-batched multi-geometry LLC sweeps, the
+                     interference and way-partition lanes, per-request
+                     latencies and the Fig. 5/6 sweeps;
+* ``dram``         — bank/row DRAM timing model;
+* ``fame1``        — token-based target-clock decoupling combinators
+                     (chunked early-exit host scheduler);
+* ``socsim``       — the FAME-1 LLC -> DRAM pipeline (paper Fig. 2) and
+                     its segment-native totals;
 * ``interference`` — BwWrite co-runner perturbations;
 * ``soc``          — composition + the paper's three experiments.
 """

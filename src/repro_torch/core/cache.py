@@ -6,7 +6,8 @@ execution paths, bit-identical in hit counts:
 
 * **exact per-access scan** (``simulate_trace``): a Python loop, one
   true-LRU update per access — the reference semantics, used on
-  unit-test traces as the parity oracle;
+  unit-test traces as the parity oracle (``hit_rate`` replays the same
+  per-access trace on the device through the segment engine);
 * **segment engine** (``simulate_segments``): one geometry, per-set
   rounds over block arrivals, with per-segment hits, exact miss runs
   for the DRAM row model, and warm-state continuation — what the
@@ -72,6 +73,32 @@ def simulate_trace(block_addrs, *, sets: int, ways: int) -> np.ndarray:
     return np.asarray(hits, bool)
 
 
+def hit_rate(block_addrs, cfg: LLCConfig, *, device=None) -> float:
+    """Exact LLC hit rate of a per-access block-address trace, replayed
+    on ``device`` (``cuda`` when None): every access is one arrival of
+    the per-set round engine (``simulate_segments``), so the hits are
+    ``simulate_trace``'s.  The rate is float32 as the reference's mean
+    computes it: the hit count times the float32 reciprocal of the
+    access count."""
+    bb = cfg.block_bytes
+    blocks = np.asarray(block_addrs, np.int64).reshape(-1)
+    res = simulate_segments([(b * bb, bb, 1) for b in blocks.tolist()],
+                            cfg, device=device)
+    return float(np.float32(res.hits)
+                 * (np.float32(1) / np.float32(blocks.shape[0])))
+
+
+def sequential_burst_trace(n_bursts: int, burst_bytes: int,
+                           block_bytes: int, base: int = 0, *,
+                           device=None) -> torch.Tensor:
+    """Byte-sequential stream of `burst_bytes` bursts -> block addresses
+    (the NVDLA weight/ifmap streaming pattern), an int64 tensor on
+    ``device`` (``cuda`` when None)."""
+    dev = default_device(device)
+    byte_addrs = base + torch.arange(n_bursts, device=dev) * burst_bytes
+    return block_address(byte_addrs, block_bytes)
+
+
 class _TouchedBlocks:
     """Host-side conservative residency tracker: the union of block
     intervals any earlier segment touched.  A segment disjoint from
@@ -118,8 +145,10 @@ def _last_access(blocks, base, stride, count, block_bytes):
 
 
 def segment_lane_scan(bases, strides, counts, r_needed, cold,
-                      sets, ways, block_bytes, *, max_sets: int,
-                      max_ways: int, r_pad: int, device=None) -> np.ndarray:
+                      sets, ways, block_bytes, way_sels=None, *,
+                      max_sets: int, max_ways: int, r_pad: int,
+                      collect: bool = False, suffix: str = "full",
+                      return_state: bool = False, device=None):
     """Exact segment replay of L lanes, each with its own geometry.
 
     ``bases/strides/counts`` are (L, S) or (1, S) int segment streams
@@ -128,35 +157,61 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
     ``max_sets``/``max_ways``.  ``r_needed`` ((L, S) or (S,)) and
     ``cold`` ((L, S) or (S,)) are the host-side execution plan
     (``repro_torch.core.sweep._lane_plan``): the round-scan rounds each
-    segment needs (extra rounds are masked no-ops, missing rounds would
-    be wrong) and whether its byte range is provably disjoint from
-    everything replayed before it.
+    segment needs in each lane (capped at ``r_pad``; extra rounds are
+    masked no-ops, missing rounds would be wrong) and whether its byte
+    range is provably disjoint from everything replayed before it.
 
     Per segment the update is an exact decomposition:
 
     * a per-set round scan retires the first min(n_blocks, ways*sets)
       blocks (one block per set per round, all intra-block burst repeats
-      folded into one LRU touch) in at most ``r_pad`` rounds — zero for
-      a ``cold`` segment, whose arrivals provably all miss;
+      folded into one LRU touch) — zero for a ``cold`` segment, whose
+      arrivals provably all miss;
     * the rest of the segment finishes with a closed-form suffix: after
       `ways` arrivals in every set the cache provably holds exactly
       those arrivals, so every suffix block misses and victims cycle
       through the ways oldest-first.  The final occupants and their
       last-touch timestamps are written directly.
 
+    ``suffix`` specializes the closed-form suffix from the host plan:
+    ``"full"`` is the general oldest-first rank insert; ``"one"`` (every
+    suffix leaves at most one block per set) a plain oldest-way
+    eviction, O(ways) per set instead of O(ways^2); ``"none"`` (every
+    segment retires entirely in the round scan) drops the suffix.
+
+    ``way_sels`` ((L, S) or (S,) int, optional) adds LLC **way-masking
+    partitioning** (Intel CAT semantics): a per-segment bitmask of the
+    ways the segment's master may *allocate* into on a miss.  Hits are
+    unrestricted — only victim selection is confined to the mask.  A
+    zero mask means "unpartitioned" (the full-mask behaviour, bit
+    -exactly), so one batch mixes masked and unmasked lanes.  Masked
+    segments retire entirely in the round scan (the suffix assumes
+    unrestricted victim cycling), so the plan must give them
+    ``ceil(n_blocks / sets)`` rounds, and their ``cold`` flag is
+    ignored.
+
     LRU is tracked as a global last-touch timestamp (int32, as are the
     tags): recency order, and so every victim choice including
     first-index tie-breaks, is the per-set age order of
     ``simulate_trace``.  State is (L, max_ways, max_sets).  Everything
     that depends only on the trace and the geometry — block ranges,
-    prefix/suffix split, suffix hits and the timestamp counter (a prefix
-    sum of counts) — is planned on the host; the device runs the round
-    scans and the suffix inserts, and the hit counts come back once, at
-    the end.  Requires stride <= block_bytes and int32-range addresses
-    (the caller checks).  Returns (L, S) int64 per-segment hit counts,
-    bit-identical to expanding the trace and running the per-access
-    scan at each lane's geometry.
+    prefix/suffix split, suffix hits, allocation masks and the timestamp
+    counter (a prefix sum of counts) — is planned on the host; the
+    device runs the round scans and the suffix inserts, and the results
+    come back once, at the end.  Requires stride <= block_bytes and
+    int32-range addresses (the caller checks).
+
+    Returns (L, S) int64 per-segment hit counts, bit-identical to
+    expanding the trace and running the per-access scan at each lane's
+    geometry; with ``collect`` also the round-scan miss bits, (L, S,
+    r_pad, max_sets) bool — entry [l, j, k, s] is set iff round k of
+    segment j missed in set s of lane l; with ``return_state`` also the
+    final ``(tags, ts)``, (L, max_ways, max_sets) int32 each — the
+    reference's per-lane layout.
     """
+    if suffix not in ("full", "one", "none"):
+        raise ValueError(f"suffix must be 'full', 'one' or 'none', got "
+                         f"{suffix!r}")
     dev = default_device(device)
     sets_h = np.asarray(sets, np.int64)[:, None]
     ways_h = np.asarray(ways, np.int64)[:, None]
@@ -167,6 +222,7 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
                            for a in (bases, strides, counts))
     cold = np.broadcast_to(np.asarray(cold, bool), shape)
     rounds = np.minimum(np.broadcast_to(r_needed, shape).max(axis=0), r_pad)
+    masked = way_sels is not None
 
     # host plan, (L, S) each
     live = count > 0
@@ -174,9 +230,14 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
     b_last = (base + (count - 1) * stride) // bb_h
     n_blocks = np.where(live, b_last - b_first + 1, 0)
     n_pre = np.where(cold, 0, np.minimum(n_blocks, ways_h * sets_h))
+    if masked:
+        wsel = np.broadcast_to(np.asarray(way_sels, np.int64), shape)
+        # a partitioned segment cannot use the suffix closed form
+        # (victims cycle within its mask, not all ways)
+        n_pre = np.where(wsel != 0, n_blocks, n_pre)
     sb_first = b_first + n_pre
     n_suf = np.maximum(n_blocks - n_pre, 0)
-    has_suf = n_suf > 0
+    has_suf = (n_suf > 0) & (suffix != "none")
     lo = sb_first * bb_h - base
     first_suf = np.where(lo <= 0, 0, (lo + stride - 1) // stride)
     j_split = np.where(has_suf, first_suf, count)
@@ -185,12 +246,15 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
     counter = np.cumsum(live_count, axis=1) - live_count
 
     def per_segment(a, what=None):
-        """(L, S) host table -> (S, L, 1) device tensor: row j is
-        segment j's per-lane column, a view."""
-        a = np.array(a.T)[:, :, None]
+        """(L, S, ...) host table -> (S, L, ...) device tensor, a
+        trailing unit axis added to 2-d tables: row j is segment j's
+        per-lane column, a view."""
+        a = np.array(np.swapaxes(a, 0, 1))
+        if a.ndim == 2:
+            a = a[:, :, None]
         if what is not None:
             return as_address_tensor(a, device=dev, what=what)
-        return torch.as_tensor(a, dtype=torch.int64, device=dev)
+        return torch.as_tensor(a, device=dev)
 
     base_d = per_segment(base, "segment base")
     b_first_d = per_segment(b_first, "segment first block")
@@ -205,11 +269,20 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
     bb_d = torch.as_tensor(bb_h, device=dev)
     set_mask = s_idx[None, :] < sets_d                        # (L, MS)
     way_mask = (q_idx[None, :] < ways_d[:, :, 0])[:, :, None]  # (L, MW, 1)
+    if masked:
+        # per-segment allocation masks: the mask's bits limited to real
+        # ways; the zero sentinel allocates anywhere real
+        bits = (wsel[:, :, None] >> np.arange(max_ways)) & 1
+        alloc = (np.arange(max_ways) < ways_h[:, :, None]) & (
+            (wsel[:, :, None] == 0) | (bits != 0))
+        alloc_d = per_segment(alloc)[:, :, :, None]            # (S, L, MW, 1)
     # [a, b]: way b precedes way a in a tie (stable oldest-first rank)
     earlier_way = (q_idx[None, :] < q_idx[:, None])[None, :, :, None]
     tags = torch.full((n_lane, max_ways, max_sets), -1, dtype=torch.int32,
                       device=dev)
     ts = torch.zeros_like(tags)
+    miss = (torch.zeros((n_lane, shape[1], r_pad, max_sets),
+                        dtype=torch.bool, device=dev) if collect else None)
 
     hit_segs, hit_rows = [], []
     for j in range(shape[1]):
@@ -219,6 +292,7 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
         counter_j = counter_d[j]
         if rounds[j] > 0:
             b_first_j, n_pre_j = b_first_d[j], n_pre_d[j]
+            alloc_j = alloc_d[j] if masked else way_mask
             off = torch.where(set_mask,
                               torch.remainder(s_idx - b_first_j, sets_d), 0)
             hits = torch.zeros(n_lane, dtype=torch.int64, device=dev)
@@ -230,10 +304,11 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
                 j_lo = _first_access(blocks, base_j, stride_j, bb_d)
                 j_hi = _last_access(blocks, base_j, stride_j, count_j, bb_d)
                 # the touched way: a matching tag wins outright (key -1,
-                # unique per set), else the oldest real way; the cumsum
-                # first-min mask is argmin's first-index tie-break
+                # unique per set), else the oldest way it may allocate
+                # into; the cumsum first-min mask is argmin's first-index
+                # tie-break
                 key = torch.where(tags == t[:, None, :], -1,
-                                  torch.where(way_mask, ts, _IMAX))
+                                  torch.where(alloc_j, ts, _IMAX))
                 kmin = key.amin(dim=1)
                 hit = kmin == -1
                 is_min = key == kmin[:, None, :]
@@ -243,6 +318,8 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
                 stamp = (counter_j + j_hi + 1).to(torch.int32)
                 ts = torch.where(touched, stamp[:, None, :], ts)
                 hits = hits + torch.where(v, j_hi - j_lo + hit, 0).sum(dim=1)
+                if collect:
+                    miss[:, j, k] = v & ~hit
             hit_segs.append(j)
             hit_rows.append(hits)
         if not has_suf[:, j].any():
@@ -253,6 +330,20 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
         off_suf = torch.where(set_mask,
                               torch.remainder(s_idx - sb_first_j, sets_d), 0)
         victim_ts = torch.where(way_mask, ts, _IMAX)
+        if suffix == "one":
+            # at most one suffix block per set: it evicts the oldest way
+            # (min ts, first-index tie-break)
+            ins = set_mask & (off_suf < n_suf_j)
+            is_old = victim_ts == victim_ts.amin(dim=1, keepdim=True)
+            oldest = (is_old.cumsum(dim=1) == 1) & is_old
+            blk1 = sb_first_j + off_suf
+            t1 = _fdiv(blk1, sets_d).to(torch.int32)
+            ts1 = (counter_j + _last_access(blk1, base_j, stride_j, count_j,
+                                            bb_d) + 1).to(torch.int32)
+            wr = oldest & ins[:, None, :]
+            tags = torch.where(wr, t1[:, None, :], tags)
+            ts = torch.where(wr, ts1[:, None, :], ts)
+            continue
         m_s = torch.where(off_suf < n_suf_j,
                           _fdiv(n_suf_j - off_suf + sets_d - 1, sets_d), 0)
         # each way's rank in oldest-first recency order (stable: ties
@@ -272,10 +363,15 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
         tags = torch.where(valid_q, t_star, tags)
         ts = torch.where(valid_q, ts_star, ts)
 
-    out = suf_hits.astype(np.int64)
+    hits_out = suf_hits.astype(np.int64)
     if hit_rows:
-        out[:, hit_segs] += torch.stack(hit_rows, dim=1).cpu().numpy()
-    return out
+        hits_out[:, hit_segs] += torch.stack(hit_rows, dim=1).cpu().numpy()
+    out = (hits_out,)
+    if collect:
+        out += (miss.cpu().numpy(),)
+    if return_state:
+        out += ((tags.cpu().numpy(), ts.cpu().numpy()),)
+    return out if len(out) > 1 else out[0]
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,9 @@
-"""DRAM configuration: banks, open rows, FR-FCFS-style row-hit priority.
+"""DRAM timing model: banks, open rows, FR-FCFS-style row-hit priority.
 
 Matches the FireSim memory-model knobs the paper uses (DDR3, 4 ranks x 8
 banks, FR-FCFS).  The accelerator timing model reads the peak bandwidth
-from here.  For stride-run segment streams (the compressed DBB traces of
+from here.  ``access_latencies`` is the exact per-access open-row model
+on the device; for stride-run segment streams (the compressed DBB traces of
 ``repro_torch.core.traces`` and the LLC miss runs of
 ``repro_torch.core.cache.simulate_segments``) ``segment_row_hits``
 counts row hits in closed form: rows touched per segment, per-bank
@@ -15,6 +16,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch.utils.env import as_address_tensor, default_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +34,43 @@ class DRAMConfig:
     @property
     def peak_bw(self) -> float:
         return self.clock_hz * self.bus_bytes_per_cycle
+
+
+def access_latencies(byte_addrs, *, banks: int, row_bytes: int,
+                     t_cas: int, t_rcd: int, t_rp: int,
+                     device=None) -> torch.Tensor:
+    """byte_addrs (T,) -> per-access latency in memory cycles (exact
+    open-row bookkeeping; no queueing), on ``device`` (``cuda`` when
+    None).  Banks start closed; an access hits iff the previous access
+    to its bank opened the same row, so the serial open-row scan is a
+    stable sort by bank and a neighbour compare — bit-identical to the
+    reference's per-access scan."""
+    dev = default_device(device)
+    row = torch.div(as_address_tensor(byte_addrs, device=dev,
+                                      what="DRAM byte address"),
+                    row_bytes, rounding_mode="floor")
+    bank = torch.remainder(row, banks)
+    row_of_bank = torch.div(row, banks, rounding_mode="floor")
+    order = torch.sort(bank, stable=True).indices
+    b_s, r_s = bank[order], row_of_bank[order]
+    hit_s = torch.zeros_like(b_s, dtype=torch.bool)
+    hit_s[1:] = (b_s[1:] == b_s[:-1]) & (r_s[1:] == r_s[:-1])
+    hit = torch.empty_like(hit_s)
+    hit[order] = hit_s
+    return torch.where(hit, t_cas, t_rp + t_rcd + t_cas)
+
+
+def row_hit_rate(byte_addrs, cfg: DRAMConfig, *, device=None) -> float:
+    """Fraction of accesses served from an open row, in float32 as the
+    reference's mean computes it: the row-hit count times the float32
+    reciprocal of the access count."""
+    lats = access_latencies(byte_addrs, banks=cfg.banks,
+                            row_bytes=cfg.row_bytes, t_cas=cfg.t_cas_cycles,
+                            t_rcd=cfg.t_rcd_cycles, t_rp=cfg.t_rp_cycles,
+                            device=device)
+    hits = int((lats == cfg.t_cas_cycles).sum())
+    return float(np.float32(hits)
+                 * (np.float32(1) / np.float32(lats.shape[0])))
 
 
 # --------------------------------------------------------------------------

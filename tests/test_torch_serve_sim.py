@@ -149,8 +149,15 @@ def test_step_lane_metrics_cold_and_warm_prefix(corunners, wss):
 
 
 def test_way_mask_lanes_wait_for_their_slice():
-    with pytest.raises(NotImplementedError, match="way_mask"):
-        t_sweep.interference_lane_metrics(
+    """The partition slice has landed: a way_mask lane runs and equals
+    the reference's record exactly (it raised before the slice)."""
+    for mix in (t_sweep.MixConfig(), t_sweep.MixConfig(2, "llc")):
+        got = t_sweep.interference_lane_metrics(
             t_traces.default_dbb_window(max_bursts=64),
             llc=t_cache.LLCConfig(4096, 4, 64), dram=t_dram.DRAMConfig(),
-            mix=t_sweep.MixConfig(), way_mask=0b11, device="cpu")
+            mix=mix, way_mask=0b11, device="cpu")
+        want = j_sweep.interference_lane_metrics(
+            j_traces.default_dbb_window(max_bursts=64),
+            llc=j_cache.LLCConfig(4096, 4, 64), dram=j_dram.DRAMConfig(),
+            mix=j_sweep.MixConfig(mix.corunners, mix.wss), way_mask=0b11)
+        assert got.to_record() == want.to_record()
