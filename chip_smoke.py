@@ -3,7 +3,7 @@
 
 Builds the port's Hopper kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, and drives the
-port's three paths through them:
+port's paths through them:
 
 * the YOLOv3 case study (``repro_torch.case_study``) at the model's full
   416 x 416 width plus all 75 conv layers of a frame, and the paper
@@ -16,6 +16,14 @@ port's three paths through them:
   FAME-1 LLC -> DRAM pipeline under random host stalls, every result
   held bit for bit to the JAX reference's (anchors below, from the
   reference on the CPU);
+* the campaign run farm and the NPU backend (``repro_torch.campaign``,
+  ``repro_torch.core.npu``) at the campaign benchmark's own sizes: the
+  64-point acceptance campaign sequential, batched and over a mesh of
+  the card(s); an NVDLA + NPU campaign through injected crashes, hangs,
+  NaNs, torn writes and corruptions and the resumes after them; the
+  NPU timing model over the four zoo workloads; the mamba2-130m serving
+  oracle on the NPU's weight stream; the campaign CLI — every manifest
+  byte-identical to the reference's (sha256 anchors below);
 * serving mamba2-130m at full width (``repro_torch.serve.ServeEngine``,
   24 layers, d_model 768, random weights from a seed): 8 requests of
   512 and 300 tokens, 32 new tokens each, 4 slots, with the engine's
@@ -265,6 +273,45 @@ SIM_STREAM = {
     "sha256": ("0fe674bb960265a15d5109b0a7d3e56c"
                "e5cae85bcb68c1b8b12a957c332d0fd8")}
 SIM_STALL_SEED, SIM_STALL_P = 17, 0.35   # (3 T, 2) schedule, numpy PCG64
+
+# Campaign path anchors (campaign_path): the JAX reference on the CPU —
+#   CAMPAIGN_ACCEPTANCE_SHA256  sha256 of the manifest.json bytes that
+#       repro.campaign.run_campaign writes for benchmarks/campaign_bench.py
+#       :_acceptance_spec(64, 16384) (acceptance_spec below is its copy)
+#   CAMPAIGN_MIXED_SHA256       the same for repro.campaign.spec.
+#       mixed_backend_spec(16, window_bursts=16384)
+#   NPU_MODEL_SECONDS  repro.core.npu.npu_time_s(workload(name),
+#       mode="model")["seconds"]
+#   NPU_SIM            mode="simulated": (seconds, sha256_json of
+#       [list(p["hit_rates"]) for p in per_layer], segments of
+#       workload_op_segments(workload(name)))
+#   NPU_ORACLE_*       SoCLatencyOracle(decode_working_set(get_config(
+#       "mamba2-130m")), backend="npu") over the ORACLE_* requests
+CAMPAIGN_ACCEPTANCE_SHA256 = \
+    "f45a3ff85dec714ce2eb78557bd6723a09d710920e9495fe3a649630f3a45936"
+CAMPAIGN_MIXED_SHA256 = \
+    "e1a5dd31dfae93d04c7711bebff60cbdadcf439a0f4c675dc02d8256fa27a38f"
+NPU_MODEL_SECONDS = {
+    "mamba2_decode": 0.03343465677393762,
+    "transformer_decode": 0.1824968530420287,
+    "whisper_encoder": 0.2526680433778488,
+    "yolov3": 0.7901767061679608}
+NPU_SIM = {
+    "yolov3": (0.662880579032258, "a44ba70f3db656e4d441465cf687da7f"
+               "3a2b0a83409daaa1048b0d5e9e1f871b", 13576),
+    "mamba2_decode": (0.033383433064516126, "098c98e20d565cbee86cd7f0c225f9da"
+                      "25e26ac01bd0ec7f85962aa65ec512a2", 12432)}
+NPU_ORACLE_PREFILL_CYCLES = 221_082_828   # prefill_step(kv, [0, 1])
+NPU_ORACLE_DECODE_CYCLES = 286_698_608    # decode_step(kv, [0, 1, 2, 3])
+NPU_ORACLE_DECODE_HIT_RATE = 0.5
+# (b)'s fault plan over mixed_backend_spec(16)'s spec order (points 0-7
+# NVDLA, 8-15 NPU, ways 1 << i): the corrupt point's ways-1 sibling runs
+# just before it, so the monotone-ways guardrail catches the deflation
+CAMPAIGN_FAULTS = ((1, "corrupt"), (3, "hang"), (6, "torn"),
+                   (10, "crash"), (12, "nan"))
+# a point's attempt takes well under a second on the card; the hang
+# outlasts the timeout by as much again
+CAMPAIGN_TIMEOUT_S, CAMPAIGN_HANG_S = 5.0, 10.0
 
 
 def phase(name: str) -> None:
@@ -729,6 +776,211 @@ def sim_path(dev) -> dict:
               f"{wall[name]:.3f} s wall (profiled wall "
               f"{split['wall_ms'] / 1e3:.3f} s)")
     return {"wall_s": wall, "profiled": busy}
+
+def acceptance_spec(points: int, window_bursts: int):
+    """The campaign benchmark's acceptance spec (a copy of
+    benchmarks/campaign_bench.py:_acceptance_spec): 16 sets, blocks
+    128/256/512/1024 x ways 1..points/16, four co-runner mixes, one
+    windowed YOLOv3 trace."""
+    from repro_torch.campaign import (CampaignSpec, GeometrySpec, MixSpec,
+                                      ModelSpec)
+
+    n_geoms = points // 4
+    sets, blocks = 16, (128, 256, 512, 1024)
+    ways = range(1, n_geoms // len(blocks) + 1)
+    geoms = tuple(GeometrySpec(size_kib=sets * w * b / 1024, block=b, ways=w)
+                  for b in blocks for w in ways)
+    mixes = (MixSpec(0, "l1"), MixSpec(1, "llc"), MixSpec(2, "llc"),
+             MixSpec(2, "dram"))
+    return CampaignSpec(name=f"bench-{points}pt",
+                        models=(ModelSpec(window_bursts=window_bursts),),
+                        geometries=geoms, mixes=mixes)
+
+
+def sha256_file(path) -> str:
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def campaign_path(dev) -> dict:
+    """The campaign run farm and the NPU backend on the card, every
+    result held to the JAX reference's (anchors above): (a) the
+    acceptance campaign sequential, batched and over a mesh of the
+    card(s), (b) the NVDLA + NPU campaign through a crash, a hang, a
+    NaN, a torn write and a consistent corruption and the resumes after
+    them, (c) the NPU timing model in both modes, (d) the mamba2-130m
+    serving oracle with backend="npu", (e) the campaign CLI."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.campaign import (FaultInjector, InjectedCrash,
+                                      RetryPolicy, example_spec,
+                                      mixed_backend_spec, plan_from_indices,
+                                      run_campaign)
+    from repro_torch.campaign import cli
+    from repro_torch.configs import get_config
+    from repro_torch.core import npu
+    from repro_torch.launch.mesh import make_sweep_mesh
+    from repro_torch.models import decode_working_set
+    from repro_torch.serve import PagedKVCache, SoCLatencyOracle
+
+    phase("campaign path (run farm, faults, NPU backend, NPU oracle, CLI)")
+    wall: dict = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        print(f"{name}: {wall[name]:.3f} s wall on {dev}", flush=True)
+        return out
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_campaign_"))
+    try:
+        # (a) 64 points, one 16,384-burst window: sequential, batched, mesh
+        spec = acceptance_spec(64, 16384)
+        spec.models[0].trace()          # memoized window, kept out of the
+        rates, manifests = {}, {}       # timed runs
+        mesh = make_sweep_mesh()
+        for name, kw in (("sequential", dict(batch_points=1, device=dev)),
+                         ("batched", dict(batch_points=64, device=dev)),
+                         ("mesh", dict(batch_points=64, mesh=mesh))):
+            notes: list = []
+            res = timed(f"acceptance_{name}", lambda: run_campaign(
+                spec, str(work / name), progress=notes.append, **kw))
+            fell = [n for n in notes if "fell back to sequential" in n]
+            if fell or res.completed != 64 or res.failed:
+                raise AssertionError(f"acceptance {name}: "
+                                     f"{res.manifest['counts']}, {fell}")
+            manifests[name] = Path(res.manifest_path).read_bytes()
+            rates[name] = 64 / wall[f"acceptance_{name}"]
+        if len(set(manifests.values())) != 1:
+            raise AssertionError("acceptance manifests differ between "
+                                 "sequential, batched and mesh runs")
+        got = hashlib.sha256(manifests["batched"]).hexdigest()
+        if got != CAMPAIGN_ACCEPTANCE_SHA256:
+            raise AssertionError(f"acceptance manifest sha256 {got} != "
+                                 "the reference's")
+        print(f"(a) 64 points x 16,384 bursts: manifests byte-identical "
+              f"(sequential, batched, mesh of {len(mesh.devices)} card(s)) "
+              f"and == the reference's; points/s sequential "
+              f"{rates['sequential']:.2f}, batched {rates['batched']:.2f}, "
+              f"mesh {rates['mesh']:.2f}; no batch fell back to sequential")
+
+        # (b) NVDLA + 8x8 NPU through every fault kind, resumed to the end
+        mixed = mixed_backend_spec(16, window_bursts=16384)
+        points = mixed.expand()
+        bad = CAMPAIGN_FAULTS[0][0]
+        if (points[bad - 1].model != points[bad].model
+                or points[bad - 1].geometry.ways >= points[bad].geometry.ways):
+            raise AssertionError("the corrupt point has no lower-ways "
+                                 "sibling before it")
+        clean = timed("mixed_clean", lambda: run_campaign(
+            mixed, str(work / "mixed_clean"), device=dev))
+        if sha256_file(clean.manifest_path) != CAMPAIGN_MIXED_SHA256:
+            raise AssertionError("mixed-backend manifest sha256 != the "
+                                 "reference's")
+        plan = plan_from_indices(mixed, [
+            {"point": i, "kind": k, "hang_s": CAMPAIGN_HANG_S}
+            for i, k in CAMPAIGN_FAULTS])
+        policy = RetryPolicy(max_retries=2, timeout_s=CAMPAIGN_TIMEOUT_S,
+                             backoff_s=0.01)
+        out, notes, runs = work / "mixed_faulted", [], 0
+
+        def until_done():
+            nonlocal runs
+            while True:
+                runs += 1
+                if runs > 8:
+                    raise AssertionError("faulted campaign did not converge")
+                try:
+                    return run_campaign(
+                        mixed, str(out), resume=runs > 1, policy=policy,
+                        hooks=FaultInjector(plan, str(out)), device=dev,
+                        progress=notes.append)
+                except InjectedCrash:
+                    continue
+        res = timed("mixed_faulted", until_done)
+        fired = (out / "faults_consumed.jsonl").read_text().splitlines()
+        caught = {k: any(k in n for n in notes)
+                  for k in ("monotone", "PointTimeout", "finite")}
+        if (res.failed or runs != 3 or len(fired) != len(CAMPAIGN_FAULTS)
+                or not all(caught.values())
+                or Path(res.manifest_path).read_bytes()
+                != Path(clean.manifest_path).read_bytes()):
+            raise AssertionError(f"faulted campaign: runs {runs}, failed "
+                                 f"{res.failed}, fired {fired}, caught "
+                                 f"{caught}")
+        print(f"(b) mixed_backend_spec(16, 16,384 bursts): {len(fired)} "
+              f"faults ({', '.join(k for _, k in CAMPAIGN_FAULTS)}) fired "
+              f"over {runs} processes, the guardrails caught {caught}; "
+              "manifest byte-identical to the clean run's == the "
+              "reference's")
+
+        # (c) the NPU timing model
+        for name in sorted(npu.WORKLOADS):
+            got = npu.npu_time_s(npu.workload(name), mode="model",
+                                 device=dev)["seconds"]
+            if got != NPU_MODEL_SECONDS[name]:
+                raise AssertionError(f"npu_time_s({name}, model) = {got!r}")
+        for name, (want_s, want_sha, want_segs) in NPU_SIM.items():
+            ops = npu.workload(name)
+            segs = sum(len(s) for s in npu.workload_op_segments(ops))
+            r = timed(f"npu_simulated_{name}", lambda: npu.npu_time_s(
+                ops, mode="simulated", device=dev))
+            got = (r["seconds"], sha256_json(
+                [list(p["hit_rates"]) for p in r["per_layer"]]), segs)
+            if got != (want_s, want_sha, want_segs):
+                raise AssertionError(f"npu_time_s({name}, simulated): "
+                                     f"{got} != {NPU_SIM[name]}")
+            print(f"  {name}: {segs} segments, {r['seconds']!r} s, "
+                  f"{r['compute_bound_layers']} compute-bound layers")
+        split = device_split(lambda: npu.npu_time_s(
+            npu.workload("mamba2_decode"), mode="simulated", device=dev))
+        dev_ms = sum(v for k, v in split.items() if k != "wall_ms")
+        busy = {"profiled_wall_ms": split["wall_ms"], "device_ms": dev_ms}
+        share = (f"device busy {dev_ms:.2f} ms, "
+                 f"{dev_ms / (wall['npu_simulated_mamba2_decode'] * 1e3):.1%}"
+                 " of its unprofiled wall" if dev_ms else
+                 "device time not measured (no device events in the trace)")
+        print(f"(c) npu_time_s: 4 workloads in model mode and yolov3 / "
+              f"mamba2_decode simulated == the reference's; mamba2_decode "
+              f"simulated (profiled): {share}")
+
+        # (d) the full-width mamba2-130m oracle on the NPU's weight stream
+        oracle = SoCLatencyOracle(decode_working_set(get_config(
+            "mamba2-130m")), backend="npu", device=dev)
+        kv = PagedKVCache(num_blocks=140, block_size=16, token_bytes=1)
+        for rid in range(4):
+            kv.admit(rid, 512, 32)
+        print("(d) ", end="")
+        pre_s, dec_s = check_oracle(oracle, kv, (
+            NPU_ORACLE_PREFILL_CYCLES, NPU_ORACLE_DECODE_CYCLES,
+            NPU_ORACLE_DECODE_HIT_RATE))
+        wall["npu_oracle_prefill"], wall["npu_oracle_decode"] = pre_s, dec_s
+
+        # (e) the CLI in this process: an injected crash, the resume, show
+        spec_path, faults_path = work / "cli_spec.json", work / "faults.json"
+        example_spec(4, window_bursts=256).save(str(spec_path))
+        faults_path.write_text(json.dumps([{"point": 1, "kind": "crash"}]))
+        run = ["run", str(spec_path), "--out", str(work / "cli"),
+               "--inject", str(faults_path)]
+        shown = io.StringIO()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rcs = (cli.main(run), cli.main(run + ["--resume"]))
+            with contextlib.redirect_stdout(shown):
+                rcs += (cli.main(["show", str(work / "cli")]),)
+        want = "counts {'completed': 4, 'failed': 0, 'total': 4}"
+        if rcs != (42, 0, 0) or want not in shown.getvalue():
+            raise AssertionError(f"campaign CLI: exit codes {rcs}, show "
+                                 f"{shown.getvalue()!r}")
+        print(f"(e) python -m repro_torch.campaign: run --inject exits 42, "
+              f"run --resume 0, show reads {want}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"wall_s": wall, "points_per_s": rates, "profiled": busy}
 
 
 def serve_requests(vocab: int, lengths=(512, 300), max_new: int = 32
@@ -1782,6 +2034,7 @@ def main() -> int:
     res, launches, main_errs = main_path(dev)
     engine_times = paper_chain(res, dev)
     sim = sim_path(dev)
+    campaign = campaign_path(dev)
     serve_launches, serve = serve_path(dev)
     launches["ssd"] = serve_launches["ssd"]
     main_errs["ssd"] = serve["ssd_max_abs_err"]
@@ -1819,6 +2072,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "convcore_layers": rows,
          "engine_wall_s": engine_times, "sim_path": sim,
+         "campaign_path": campaign,
          "profiled": profiled,
          "timed": timed,
          "serve": serve, "serve_recurrentgemma": serve_rg}, indent=1))

@@ -1,9 +1,12 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
-Lists the architectures whose block kinds the port runs — so far the
-SSM family (``mamba2-130m``) and the Griffin hybrid of RG-LRU and local
-attention (``recurrentgemma-9b``).  The other archs of the reference's
-registry arrive with their block kinds (ROADMAP, port queue).
+``ARCHS`` lists the architectures whose block kinds the port runs — so
+far the SSM family (``mamba2-130m``) and the Griffin hybrid of RG-LRU
+and local attention (``recurrentgemma-9b``).  The registry also holds
+the configs that only size workloads: ``qwen2-0.5b`` and
+``whisper-tiny`` feed the NPU's GEMM workloads (``core.npu``).  The
+other archs of the reference's registry arrive with their block kinds
+(ROADMAP, port queue).
 """
 from __future__ import annotations
 
@@ -20,9 +23,11 @@ from repro_torch.configs.base import (  # noqa: F401
 _ARCH_MODULES = {
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
-ARCHS = tuple(_ARCH_MODULES)
+ARCHS = ("mamba2-130m", "recurrentgemma-9b")
 
 
 def get_config(arch: str) -> ModelConfig:

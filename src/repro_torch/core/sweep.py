@@ -25,7 +25,8 @@ Public API:
 * ``interference_lane_metrics_batch`` — many lanes as lane-batched
                                  replays, one per set-count bucket,
                                  optionally per-lane way-partitioned
-                                 (``way_masks=``);
+                                 (``way_masks=``) or sharded over a
+                                 device mesh (``mesh=``);
 * ``partition_way_sels``       — victim/co-runner allocation masks for an
                                  Intel-CAT-style two-class way partition;
 * ``lane_request_latencies``   — per-victim-chunk memory latencies;
@@ -47,6 +48,7 @@ serialize on burst count (or replay one geometry at a time).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import warnings
 
@@ -970,6 +972,37 @@ def _lane_miss_runs(base, stride, count, llc: LLCConfig, cold: np.ndarray,
     return b_first[run_seg] + run_ord, run_len.astype(np.int64), run_seg
 
 
+def _mesh_lane_metrics(nvdla_segs: list, *, llcs, drams, mixes,
+                       chunk_bursts: int, t_llc_hit: int,
+                       mesh) -> list[LaneMetrics]:
+    """``interference_lane_metrics_batch`` over a ``SweepMesh``: lane
+    slice ``d`` (contiguous; the first ``lanes % n_dev`` slices one lane
+    longer) replays on ``mesh.devices[d]``.  No lane is padded: every
+    lane's result is independent of its batchmates, so the slices need
+    not be equal.  Every future's result is read, so a slice's error
+    propagates."""
+    n_dev = len(mesh.devices)
+    per, extra = divmod(len(llcs), n_dev)
+    bounds, lo = [], 0
+    for d in range(n_dev):
+        hi = lo + per + (d < extra)
+        if hi > lo:
+            bounds.append((mesh.devices[d], lo, hi))
+        lo = hi
+
+    def run(dev, lo, hi):
+        return interference_lane_metrics_batch(
+            nvdla_segs, llcs=llcs[lo:hi], drams=drams[lo:hi],
+            mixes=mixes[lo:hi], chunk_bursts=chunk_bursts,
+            t_llc_hit=t_llc_hit, device=dev)
+
+    with concurrent.futures.ThreadPoolExecutor(
+            max_workers=max(1, len(bounds)),
+            thread_name_prefix="sweep-mesh") as pool:
+        futures = [pool.submit(run, *b) for b in bounds]
+        return [m for f in futures for m in f.result()]
+
+
 def interference_lane_metrics_batch(nvdla_segs: list, *, llcs, drams,
                                     mixes, chunk_bursts: int = 16,
                                     t_llc_hit: int = 20,
@@ -988,8 +1021,12 @@ def interference_lane_metrics_batch(nvdla_segs: list, *, llcs, drams,
     sequential path, so every ``LaneMetrics`` is bit-identical to
     ``interference_lane_metrics`` for that lane.
 
-    ``mesh`` must be None: sharding lanes over several devices comes
-    with the campaign slice's ``launch/mesh``.
+    ``mesh`` (a 1-D ``SweepMesh``, see
+    ``repro_torch.launch.mesh.make_sweep_mesh``) splits the lane axis
+    into contiguous, near-equal slices, one per mesh device; each slice
+    replays on its own device (one host thread per slice, so the
+    devices' work overlaps) and the results concatenate in lane order,
+    bit-identical to ``mesh=None``.  ``device`` is then unused.
 
     Raises ``ValueError`` if any lane's trace falls outside the segment
     engine's support (stride > block_bytes) — callers fall back to the
@@ -999,12 +1036,6 @@ def interference_lane_metrics_batch(nvdla_segs: list, *, llcs, drams,
     partitions (``int`` victim masks, or ``None`` for unpartitioned
     lanes) — masked and unmasked lanes mix freely in one replay via the
     engine's zero-mask sentinel."""
-    if mesh is not None:
-        raise ValueError(
-            "mesh lane sharding is not ported: it comes with the campaign "
-            "slice's launch/mesh — pass mesh=None (lanes are batched on "
-            "one device)")
-    dev = default_device(device)
     lanes_n = len(llcs)
     if not (len(drams) == len(mixes) == lanes_n):
         raise ValueError(
@@ -1013,6 +1044,14 @@ def interference_lane_metrics_batch(nvdla_segs: list, *, llcs, drams,
     if way_masks is not None and len(way_masks) != lanes_n:
         raise ValueError(
             f"way_masks length {len(way_masks)} != lanes {lanes_n}")
+    if mesh is not None:
+        if way_masks is not None:
+            raise ValueError("way-masked batches do not support mesh "
+                             "sharding yet — pass mesh=None")
+        return _mesh_lane_metrics(nvdla_segs, llcs=llcs, drams=drams,
+                                  mixes=mixes, chunk_bursts=chunk_bursts,
+                                  t_llc_hit=t_llc_hit, mesh=mesh)
+    dev = default_device(device)
     if lanes_n == 0:
         return []
     chunks = nvdla_chunks(nvdla_segs, chunk_bursts)

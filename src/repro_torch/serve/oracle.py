@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core import npu as npu_mod
 from repro_torch.core import traces
 from repro_torch.core.cache import LLCConfig
 from repro_torch.core.dram import DRAMConfig
@@ -35,9 +36,8 @@ from repro_torch.utils.env import default_device
 
 SOC_FREQ_HZ = 3.2e9      # shared CPU/NVDLA clock in the paper's config
 
-# the accelerator backends whose weight stream the oracle lowers; the
-# reference's "npu" backend waits for the port of core/npu (ROADMAP)
-SUPPORTED_BACKENDS = ("nvdla",)
+# the accelerator backends whose weight stream the oracle lowers
+SUPPORTED_BACKENDS = ("nvdla", "npu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +56,15 @@ class SoCLatencyOracle:
     DBB arbiter granularity between the weight stream, each slot's KV
     stream, and co-runner lanes), ``weight_bytes=`` overriding the
     model-derived stream footprint, ``device=`` for the LLC replay.
+
+    ``backend="npu"`` swaps the weight stream's shape: instead of
+    NVDLA's single sequential parameter read, the step fetches weights
+    the way the systolic array's weight-stationary schedule would —
+    per-stripe segments from ``repro_torch.core.npu.
+    decode_weight_segments``, re-streamed when a stripe outgrows the
+    weight SRAM while the decode batch spans multiple m tiles (``npu=``
+    sizes the array).  KV/state streams and all costing are
+    backend-independent.
     """
 
     def __init__(self, working_set, *, llc: LLCConfig | None = None,
@@ -64,14 +73,12 @@ class SoCLatencyOracle:
                  chunk_bursts: int = 256, t_llc_hit: int = 20,
                  freq_hz: float = SOC_FREQ_HZ,
                  weight_bytes: int | None = None,
-                 backend: str = "nvdla", device=None):
-        if backend == "npu":
-            raise NotImplementedError(
-                "backend='npu' needs core/npu, not ported yet — ROADMAP, "
-                "port queue")
+                 backend: str = "nvdla", npu=None, device=None):
         if backend not in SUPPORTED_BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; the oracle "
                              f"speaks {', '.join(SUPPORTED_BACKENDS)}")
+        if npu is not None and backend != "npu":
+            raise ValueError("npu= only applies to backend='npu'")
         self.ws = working_set
         self.llc = llc or LLCConfig()
         self.dram = dram or DRAMConfig()
@@ -80,6 +87,7 @@ class SoCLatencyOracle:
         self.t_llc_hit = int(t_llc_hit)
         self.freq_hz = float(freq_hz)
         self.backend = backend
+        self.npu = (npu or npu_mod.NPUConfig()) if backend == "npu" else None
         self.device = default_device(device)
         self.weight_bytes = int(weight_bytes if weight_bytes is not None
                                 else working_set.weight_bytes)
@@ -90,11 +98,33 @@ class SoCLatencyOracle:
                 f"region at {KV_REGION:#x}; pass weight_bytes= to model "
                 "a resident subset")
         self._memo: dict = {}
-        self._weight_segs = [traces.Segment(
-            traces.WEIGHT_REGION, traces.BURST_BYTES,
-            -(-self.weight_bytes // traces.BURST_BYTES), "weight")]
+        self._wseg_memo: dict = {}
 
     # -- trace construction ------------------------------------------------
+    def _weight_segments(self, slots: int = 1) -> list:
+        """The step's parameter-read stream (all segments labeled
+        ``weight``, so the arbiter treats them as one lane).  NVDLA
+        reads the heap as one sequential burst run; the NPU fetches
+        per-stripe under its weight-stationary schedule, which depends
+        on the decode batch width (``slots``) — memoized per width."""
+        segs = self._wseg_memo.get(slots)
+        if segs is None:
+            if self.backend == "npu":
+                segs = npu_mod.decode_weight_segments(
+                    self.weight_bytes, self.npu, m=max(1, slots))
+                end = max(s.base + s.stride * s.count for s in segs)
+                if end > KV_REGION:
+                    raise ValueError(
+                        f"NPU weight stripes (padded to {end:#x}) overlap "
+                        f"the paged-KV region at {KV_REGION:#x}; pass a "
+                        "smaller weight_bytes=")
+            else:
+                segs = [traces.Segment(
+                    traces.WEIGHT_REGION, traces.BURST_BYTES,
+                    -(-self.weight_bytes // traces.BURST_BYTES), "weight")]
+            self._wseg_memo[slots] = segs
+        return segs
+
     def _state_segment(self, slot: int) -> traces.Segment | None:
         if not self.ws.state_bytes:
             return None
@@ -113,7 +143,7 @@ class SoCLatencyOracle:
         """One decode step's interleaved read trace at the current
         occupancy: the weight stream round-robined against each active
         request's live KV + state reads at arbiter-chunk granularity."""
-        streams: list = list(self._weight_segs)
+        streams: list = list(self._weight_segments(len(rids)))
         for slot, rid in enumerate(rids):
             live = self.ws.kv_bytes(kv.table(rid).tokens)
             tokens_live = (live // max(1, self.ws.kv_token_bytes)
@@ -127,7 +157,7 @@ class SoCLatencyOracle:
     def prefill_trace(self, kv: PagedKVCache, rids: list[int]) -> list:
         """Prefill writes the admitted prompts' blocks once (plus one
         weight stream for the prompt pass)."""
-        streams: list = list(self._weight_segs)
+        streams: list = list(self._weight_segments(len(rids)))
         for rid in rids:
             streams.extend(kv.read_segments(rid))
         return traces.interleave(streams, chunk_bursts=self.chunk_bursts)

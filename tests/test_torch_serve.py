@@ -77,9 +77,17 @@ def test_oracle_prefill_decode_and_mixed_steps_match_reference():
 
 
 def test_oracle_backends():
+    from repro_torch.core import npu as t_npu
+
     ws = t_ws(get_config(ARCH))
-    with pytest.raises(NotImplementedError, match="core/npu"):
-        TOracle(ws, backend="npu", device="cpu")
+    o = TOracle(ws, backend="npu", device="cpu")
+    assert o.backend == "npu" and o.npu == t_npu.NPUConfig()
+    jo = JOracle(j_ws(j_get(ARCH)), backend="npu")
+    for slots in (1, 4):
+        assert [dataclasses.astuple(s) for s in o._weight_segments(slots)] \
+            == [dataclasses.astuple(s) for s in jo._weight_segments(slots)]
+    with pytest.raises(ValueError, match="only applies"):
+        TOracle(ws, npu=t_npu.NPUConfig(), device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         TOracle(ws, backend="tpu", device="cpu")
 

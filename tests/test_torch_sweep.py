@@ -29,6 +29,7 @@ from repro_torch.core import traces as t_tr  # noqa: E402
 from repro_torch.core.cache import LLCConfig  # noqa: E402
 from repro_torch.core.dram import DRAMConfig  # noqa: E402
 from repro_torch.core.sweep import MixConfig  # noqa: E402
+from repro_torch.launch.mesh import make_sweep_mesh  # noqa: E402
 
 CPU = "cpu"
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -344,10 +345,13 @@ def test_batch_empty_length_and_mesh_checks():
         t_sweep.interference_lane_metrics_batch(
             nv, llcs=[LLC], drams=[DRAMConfig()], mixes=[MixConfig()],
             way_masks=[None, 1], device=CPU)
-    with pytest.raises(ValueError, match="launch/mesh"):
+    mesh = make_sweep_mesh([CPU] * 2)
+    assert t_sweep.interference_lane_metrics_batch(
+        nv, llcs=[], drams=[], mixes=[], mesh=mesh) == []
+    with pytest.raises(ValueError, match="way-masked"):
         t_sweep.interference_lane_metrics_batch(
             nv, llcs=[LLC], drams=[DRAMConfig()], mixes=[MixConfig()],
-            mesh=object(), device=CPU)
+            way_masks=[0x0F], mesh=mesh)
     with pytest.raises(ValueError, match="stride"):
         t_sweep.interference_lane_metrics_batch(
             nv, llcs=[LLCConfig(4096, 4, 16)], drams=[DRAMConfig()],
