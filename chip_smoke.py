@@ -38,7 +38,21 @@ port's paths through them:
   slots, held the same way to the reference's anchors, with the SWA
   kernel held to its plain version on every attention layer's own
   operands of each prefill group, and each group's first-token logits
-  through the kernel held to the plain version's in an fp32 prefill.
+  through the kernel held to the plain version's in an fp32 prefill;
+* the SoC farm (``repro_torch.core.farm`` and ``noc``) at
+  benchmarks/fig6_tail.py's full sizes: nodes 0, 1, 2 and 4, 2048
+  bursts, a 256 KiB LLC, unpartitioned and way-partitioned, every
+  summary held exactly to the reference's, and the token-bundle switch
+  held bit for bit to the per-cycle scheduler at bundles 1, 7 and 64;
+* the dense transformer family through the SWA kernel's full causal
+  band (window = S): serving qwen2-0.5b at full width (24 layers, 14
+  query heads over 2 KV heads of 64): 8 requests of 2048 and 1200
+  tokens, 32 new tokens each, 4 slots, held the same way to the
+  reference's anchors; and granite-3-8b at full width (40 layers, 32
+  query heads over 8 KV heads of 128, 8.4 G fp32 parameters): one
+  2048-token prefill and 8 greedy decode steps, the kernel held to its
+  plain version on every layer's operands and, in fp32, the logits and
+  the greedy tokens of kernel and plain held together.
 
 Before the paths it times every kernel beside its plain version, a
 PyTorch library call where one computes the same function, and its
@@ -123,16 +137,26 @@ LOGITS_TOL = dict(rtol=2e-2, atol=0.08)
 # softcap case (s 64, window 64, cap 30, inputs x3); a ragged band at
 # every head dim the kernels are built for; recurrentgemma-9b's heads (16
 # query, 1 KV, D 256) banded, soft-capped, with window >= S and at its
-# ragged 2100-token prompt; then its full-width prefill shape, bf16
+# ragged 2100-token prompt; the dense archs' full causal bands (window =
+# S) at qwen2-0.5b's heads (14 query over 2 KV, a group of 7, D 64) at
+# its 2048- and ragged 1200-token prompts and granite-3-8b's (32 over 8,
+# D 128); then recurrentgemma-9b's full-width prefill shape, bf16
 SWA_CASES = [(2, s, 4, 2, 32, w, 0.0, 1.0)
              for s, w in [(128, 32), (128, 64), (256, 256), (96, 32)]] \
     + [(1, 64, 2, 2, 32, 64, 30.0, 3.0)] \
     + [(2, 200, 4, 2, d, 50, 0.0, 1.0) for d in (16, 32, 64, 128, 256)] \
     + [(1, 300, 16, 1, 256, 64, 0.0, 1.0), (1, 300, 16, 1, 256, 128, 30.0, 3.0),
        (1, 300, 16, 1, 256, 4096, 0.0, 1.0),
-       (1, 2100, 16, 1, 256, 2048, 0.0, 1.0)]
+       (1, 2100, 16, 1, 256, 2048, 0.0, 1.0)] \
+    + [(1, 2048, 14, 2, 64, 2048, 0.0, 1.0),
+       (3, 1200, 14, 2, 64, 1200, 0.0, 1.0),
+       (2, 2048, 32, 8, 128, 2048, 0.0, 1.0)]
 SWA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SWA_FULL = (1, 2560, 16, 1, 256, 2048)
+# the dense archs' full-width prefill shapes, full causal (window = S):
+# qwen2-0.5b and granite-3-8b, 1 x 2048 tokens, bf16
+SWA_DENSE = {"qwen2-0.5b": (1, 2048, 14, 2, 64, 2048),
+             "granite-3-8b": (1, 2048, 32, 8, 128, 2048)}
 BF16_OPS_PER_S = 989e12
 # first-token logits through the SWA kernel vs the plain version, both
 # prefills in fp32: the reference's one-step decode-parity tolerance for
@@ -165,6 +189,39 @@ RG_STEP_RUNS = [("prefill", 257134592, 1), ("mixed", 554039072, 1),
 RG_ORACLE_PREFILL_CYCLES = 284_106_752   # prefill_step(kv, [0, 1])
 RG_ORACLE_DECODE_CYCLES = 320_125_824    # decode_step(kv, [0, 1, 2, 3])
 RG_ORACLE_DECODE_HIT_RATE = 0.5
+
+# Full-width qwen2-0.5b serving anchors (dense_path (a)): the JAX
+# reference's ServeEngine on the CPU as for recurrentgemma-9b above (stub
+# model calls, eos_id=-1), cache_len 2080, 8 requests of 2048 and 1200
+# tokens, 32 new tokens, 4 slots.  The model's bf16 weight stream of
+# 988,008,448 bytes does not fit below the paged-KV region either, so
+# the oracle models the same 256 MiB resident subset; oracle costs for
+# 4 requests of (2048, 32) in PagedKVCache(num_blocks=520, block_size=16,
+# token_bytes=12288).
+QWEN_WEIGHT_BYTES = 268_435_456
+QWEN_STATS = {
+    "requests": 8, "tokens": 256, "steps": 65, "prefill_steps": 4,
+    "decode_steps": 64, "idle_steps": 0, "sim_time_s": 6.27285344,
+    "tokens_per_s": 40.81077335038135, "latency_p50_s": 3.21499552,
+    "latency_p99_s": 6.27235344, "mean_occupancy": 3.9384615384615387,
+    "max_occupancy": 4}
+# with full context every decode step reads one more token of each
+# slot's KV: 42,144 more cycles a step through each run of 30 decodes
+QWEN_STEP_RUNS = [("prefill", 251740160, 1), ("mixed", 528777256, 1)] \
+    + [("decode", 298656968 + 42144 * i, 1) for i in range(30)] \
+    + [("mixed", 529746568, 1), ("mixed", 528777256, 1)] \
+    + [("decode", 298656968 + 42144 * i, 1) for i in range(30)] \
+    + [("decode", 278006408, 1)]
+QWEN_ORACLE_PREFILL_CYCLES = 273_317_888    # prefill_step(kv, [0, 1])
+QWEN_ORACLE_DECODE_CYCLES = 316_473_344     # decode_step(kv, [0, 1, 2, 3])
+QWEN_ORACLE_DECODE_HIT_RATE = 0.5
+# first-token logits through the SWA kernel vs the plain version in fp32
+# prefills of the dense archs: the reference's one-step decode-parity
+# tolerance (tests/test_decode_parity.py, rtol = atol = 2e-2)
+DENSE_LOGITS_TOL = dict(rtol=2e-2, atol=2e-2)
+# dense_path (b): granite-3-8b, one prompt of 2048 tokens (numpy
+# default_rng(1)), 8 greedy decode steps
+GRANITE_PROMPT, GRANITE_DECODE = 2048, 8
 
 # Full-width mamba2-130m serving anchors: the JAX reference's
 # ServeEngine on the same traffic (CPU), EngineStats.to_record() and the
@@ -312,6 +369,36 @@ CAMPAIGN_FAULTS = ((1, "corrupt"), (3, "hang"), (6, "torn"),
 # a point's attempt takes well under a second on the card; the hang
 # outlasts the timeout by as much again
 CAMPAIGN_TIMEOUT_S, CAMPAIGN_HANG_S = 5.0, 10.0
+
+# Farm path anchors (farm_path): the JAX reference's
+# benchmarks/fig6_tail.py run(smoke=False) on the CPU (BENCH_NOC_JSON
+# pointed into a scratch copy), its per-node summaries of the steady
+# victim pass — latency_summary(res.steady()) plus noc_mean, mem_mean
+# and the switch's host_steps — unpartitioned (None) and with the
+# victim in ways 0x0F, at 2048 bursts over 256 KiB / 8 ways / 64 B
+FARM_LLC_BYTES, FARM_BURSTS, FARM_MASK = 256 * 1024, 2048, 0x0F
+FARM_NODES = (0, 1, 2, 4)
+FARM_PARITY_NODES, FARM_PARITY_BURSTS = (0, 4), 1024
+FARM_ANCHORS = {
+    None: {
+        0: dict(p50=324.0, p99=324.0, wcet=324.0, mean=324.0, n=128,
+                noc_mean=4.0, mem_mean=379.5, host_steps=9),
+        1: dict(p50=324.0, p99=324.0, wcet=324.0, mean=324.0, n=128,
+                noc_mean=4.0, mem_mean=379.9375, host_steps=13),
+        2: dict(p50=635.0, p99=712.0, wcet=713.0, mean=636.46875, n=128,
+                noc_mean=131.5, mem_mean=440.96875, host_steps=21),
+        4: dict(p50=1019.0, p99=1208.0, wcet=1211.0, mean=1021.21875, n=128,
+                noc_mean=386.5, mem_mean=442.71875, host_steps=37)},
+    FARM_MASK: {
+        0: dict(p50=324.0, p99=324.0, wcet=324.0, mean=324.0, n=128,
+                noc_mean=4.0, mem_mean=379.5, host_steps=9),
+        1: dict(p50=324.0, p99=324.0, wcet=324.0, mean=324.0, n=128,
+                noc_mean=4.0, mem_mean=379.9375, host_steps=13),
+        2: dict(p50=515.0, p99=578.0, wcet=579.0, mean=515.5, n=128,
+                noc_mean=131.5, mem_mean=380.484375, host_steps=21),
+        4: dict(p50=897.0, p99=1086.0, wcet=1089.0, mean=898.5, n=128,
+                noc_mean=386.5, mem_mean=381.359375, host_steps=37)},
+}
 
 
 def phase(name: str) -> None:
@@ -1261,19 +1348,106 @@ def check_swa(dev) -> float:
     return worst
 
 
-def serve_rg_path(dev) -> tuple[dict, dict]:
-    """The second serving main path, with every launch counter at 0
-    before it: recurrentgemma-9b at full width through ServeEngine,
-    held to the JAX reference's anchors; then each prefill group's
-    first-token logits through the SWA kernel against the plain
-    version, and the kernel against its plain version on every
-    attention layer's operands of those prefills."""
+def check_swa_groups(params, cfg, cache_len, groups, first, dev, tol
+                     ) -> tuple[float, float, float]:
+    """Each prefill group's bf16 prefill through the SWA kernel (its
+    first tokens are the engine's, ``first`` by rid; the kernel against
+    its plain version on every attention layer's own operands), then
+    the first-token logits through the kernel against the plain
+    version's, in bf16 (reported) and in fp32 (held to ``tol``).
+    ``groups`` holds lists of requests.  Returns the worst absolute
+    errors: kernel vs plain per layer, fp32 logits, bf16 logits."""
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.models import prefill
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    worst = bf16_worst = swa_worst = 0.0
+    kernel_op = swa_ops.swa_attention
+    n_attn = cfg.layer_kinds().count("attn")
+
+    def plain_prefill(batch, c):
+        swa_ops.swa_attention = swa_ops.swa_attention_plain
+        try:
+            return prefill(params, batch, c, cache_len)[0]
+        finally:
+            swa_ops.swa_attention = kernel_op
+
+    for reqs in groups:
+        batch = {"tokens": torch.as_tensor([list(r.tokens) for r in reqs],
+                                           device=dev)}
+        operands = []
+
+        def capture(*args, **kw):
+            operands.append((args, kw))
+            return kernel_op(*args, **kw)
+
+        swa_ops.swa_attention = capture
+        try:
+            got, _, _ = prefill(params, batch, cfg, cache_len)
+        finally:
+            swa_ops.swa_attention = kernel_op
+        if len(operands) != n_attn:
+            raise AssertionError(f"{len(operands)} swa calls in a prefill "
+                                 f"of {n_attn} attention layers")
+        for args, kw in operands:
+            swa_worst = max(swa_worst, check_swa_close(*args, **kw))
+        del operands
+        got_first = got[:, :cfg.vocab_size].argmax(dim=1).tolist()
+        if got_first != [first[r.rid] for r in reqs]:
+            raise AssertionError(f"group {[r.rid for r in reqs]}: first "
+                                 f"tokens {got_first} differ from the "
+                                 "engine's")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"group {[r.rid for r in reqs]}: logits "
+                                 "not finite")
+        bf16_worst = max(bf16_worst, max_err(
+            got[:, :cfg.vocab_size],
+            plain_prefill(batch, cfg)[:, :cfg.vocab_size]))
+        got32, _, _ = prefill(params, batch, cfg32, cache_len)
+        want32 = plain_prefill(batch, cfg32)
+        torch.testing.assert_close(got32, want32, **tol)
+        worst = max(worst, max_err(got32[:, :cfg.vocab_size],
+                                   want32[:, :cfg.vocab_size]))
+    print(f"swa kernel vs plain on the {n_attn} attention layers' operands "
+          f"of each of the {len(groups)} prefill groups: max abs err "
+          f"{swa_worst:.3e} (tolerance {SWA_TOL[torch.bfloat16]})")
+    print(f"first-token logits of {len(groups)} prefill groups, kernel vs "
+          f"plain SWA: fp32 prefill max abs err {worst:.3e} (tolerance "
+          f"{tol}); bf16 prefill {bf16_worst:.3e}")
+    return swa_worst, worst, bf16_worst
+
+
+def swa_serve_runs() -> dict:
+    """The serving paths through the SWA kernel, by arch: traffic,
+    oracle and the JAX reference's anchors (above)."""
+    return {
+        "recurrentgemma-9b": dict(
+            cache_len=2576, lengths=(2560, 2100), max_new=16,
+            weight_bytes=RG_WEIGHT_BYTES, stats=RG_STATS,
+            runs=RG_STEP_RUNS, kv_blocks=644, tol=RG_LOGITS_TOL,
+            oracle=(RG_ORACLE_PREFILL_CYCLES, RG_ORACLE_DECODE_CYCLES,
+                    RG_ORACLE_DECODE_HIT_RATE)),
+        "qwen2-0.5b": dict(
+            cache_len=2080, lengths=(2048, 1200), max_new=32,
+            weight_bytes=QWEN_WEIGHT_BYTES, stats=QWEN_STATS,
+            runs=QWEN_STEP_RUNS, kv_blocks=520, tol=DENSE_LOGITS_TOL,
+            oracle=(QWEN_ORACLE_PREFILL_CYCLES, QWEN_ORACLE_DECODE_CYCLES,
+                    QWEN_ORACLE_DECODE_HIT_RATE))}
+
+
+def serve_swa_path(dev, arch: str) -> tuple[dict, dict]:
+    """A serving main path through the SWA kernel, with every launch
+    counter at 0 before it: ``arch`` at full width through ServeEngine
+    (``swa_serve_runs``), held to the JAX reference's anchors; then each
+    prefill group's first-token logits through the SWA kernel against
+    the plain version, and the kernel against its plain version on
+    every attention layer's operands of those prefills
+    (``check_swa_groups``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.convcore import kernel as cc_kernel
     from repro_torch.kernels.postproc import kernel as pp_kernel
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.swa import kernel as swa_kernel
-    from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.models import (
         decode_working_set,
         init_caches,
@@ -1284,10 +1458,10 @@ def serve_rg_path(dev) -> tuple[dict, dict]:
     from repro_torch.serve import PagedKVCache, ServeEngine, SoCLatencyOracle
     from repro_torch.types import param_values, tree_map
 
-    phase("serving path: recurrentgemma-9b at full width through "
-          "ServeEngine")
-    cfg = get_config("recurrentgemma-9b")
-    cache_len = 2576
+    run = swa_serve_runs()[arch]
+    cache_len, plen = run["cache_len"], run["lengths"][0]
+    phase(f"serving path: {arch} at full width through ServeEngine")
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = param_values(init_params(
@@ -1303,9 +1477,9 @@ def serve_rg_path(dev) -> tuple[dict, dict]:
     eng = ServeEngine(cfg, params, cache_len=cache_len, max_slots=4,
                       temperature=0.0, eos_id=-1, device=dev,
                       oracle=SoCLatencyOracle(
-                          ws, weight_bytes=RG_WEIGHT_BYTES, device=dev))
-    requests = serve_requests(cfg.vocab_size, lengths=(2560, 2100),
-                              max_new=16)
+                          ws, weight_bytes=run["weight_bytes"], device=dev))
+    requests = serve_requests(cfg.vocab_size, lengths=run["lengths"],
+                              max_new=run["max_new"])
     for req in requests:
         eng.submit(req)
     cc_kernel.launches = pp_kernel.launches = ssd_kernel.launches = 0
@@ -1338,71 +1512,20 @@ def serve_rg_path(dev) -> tuple[dict, dict]:
     if by_path != {"tc": launches["swa"], "fma": 0}:
         raise AssertionError(f"bf16 serving launched swa by path {by_path},"
                              " not all on the tensor-core path")
-    check_engine(eng, stats, RG_STATS, RG_STEP_RUNS)
+    check_engine(eng, stats, run["stats"], run["runs"])
 
-    kv = PagedKVCache(num_blocks=644, block_size=16,
+    kv = PagedKVCache(num_blocks=run["kv_blocks"], block_size=16,
                       token_bytes=ws.kv_token_bytes)
     for rid in range(4):
-        kv.admit(rid, 2560, 16)
+        kv.admit(rid, plen, run["max_new"])
     pre_s, dec_s = check_oracle(
-        SoCLatencyOracle(ws, weight_bytes=RG_WEIGHT_BYTES, device=dev), kv,
-        (RG_ORACLE_PREFILL_CYCLES, RG_ORACLE_DECODE_CYCLES,
-         RG_ORACLE_DECODE_HIT_RATE))
+        SoCLatencyOracle(ws, weight_bytes=run["weight_bytes"], device=dev),
+        kv, run["oracle"])
 
-    # each group's bf16 prefill through the kernel (its first tokens are
-    # the engine's; the kernel against the plain version on every
-    # attention layer's own operands), then the first-token logits
-    # through the kernel against the plain SWA, in bf16 (reported) and
-    # in fp32 (held to RG_LOGITS_TOL)
     first = {f["rid"]: f["tokens"][0] for f in eng.finished}
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    worst = bf16_worst = swa_worst = 0.0
-    kernel_op = swa_ops.swa_attention
-
-    def plain_prefill(batch, c):
-        swa_ops.swa_attention = swa_ops.swa_attention_plain
-        try:
-            return prefill(params, batch, c, cache_len)[0]
-        finally:
-            swa_ops.swa_attention = kernel_op
-
-    for rids in groups:
-        batch = {"tokens": torch.as_tensor(
-            [list(by_rid[r].tokens) for r in rids], device=dev)}
-        operands = []
-
-        def capture(*args, **kw):
-            operands.append((args, kw))
-            return kernel_op(*args, **kw)
-
-        swa_ops.swa_attention = capture
-        try:
-            got, _, _ = prefill(params, batch, cfg, cache_len)
-        finally:
-            swa_ops.swa_attention = kernel_op
-        for args, kw in operands:
-            swa_worst = max(swa_worst, check_swa_close(*args, **kw))
-        del operands
-        got_first = got[:, :cfg.vocab_size].argmax(dim=1).tolist()
-        if got_first != [first[r] for r in rids]:
-            raise AssertionError(f"group {rids}: first tokens "
-                                 f"{got_first} differ from the engine's")
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"group {rids}: logits not finite")
-        bf16_worst = max(bf16_worst, max_err(
-            got[:, :cfg.vocab_size],
-            plain_prefill(batch, cfg)[:, :cfg.vocab_size]))
-        got32, _, _ = prefill(params, batch, cfg32, cache_len)
-        want32 = plain_prefill(batch, cfg32)
-        torch.testing.assert_close(got32, want32, **RG_LOGITS_TOL)
-        worst = max(worst, max_err(got32[:, :cfg.vocab_size],
-                                   want32[:, :cfg.vocab_size]))
-    print(f"swa kernel vs plain on the {n_attn} attention layers' operands "
-          f"of each of the {len(groups)} prefill groups: max abs err "
-          f"{swa_worst:.3e} (tolerance {SWA_TOL[torch.bfloat16]})")
-    print(f"first-token logits of {len(groups)} prefill groups, kernel vs "
-          f"plain SWA: fp32 prefill max abs err {worst:.3e} (tolerance "
-          f"{RG_LOGITS_TOL}); bf16 prefill {bf16_worst:.3e}")
+    swa_worst, worst, bf16_worst = check_swa_groups(
+        params, cfg, cache_len, [[by_rid[r] for r in rids] for rids in groups],
+        first, dev, run["tol"])
 
     split = {"wall_s": wall, "model_s": eng.wall_s["model"],
              "oracle_s": eng.wall_s["oracle"],
@@ -1414,11 +1537,11 @@ def serve_rg_path(dev) -> tuple[dict, dict]:
     kinds = {"swa": "swa_tc_kernel"}     # the bf16 prefill's kernel
     caches = param_values(init_caches(cfg, 4, cache_len, device=dev))
     toks = torch.zeros((4, 1), dtype=torch.int64, device=dev)
-    ts = torch.full((4,), 2560, dtype=torch.int64, device=dev)
+    ts = torch.full((4,), plen, dtype=torch.int64, device=dev)
     one = {"tokens": torch.as_tensor([list(requests[0].tokens)],
                                      device=dev)}
     split["profiled"] = {
-        "prefill_1x2560": device_split(
+        f"prefill_1x{plen}": device_split(
             lambda: prefill(params, one, cfg, cache_len), kinds),
         "decode_step_4_slots": device_split(
             lambda: slot_decode_step(params, caches, toks, ts, cfg), kinds)}
@@ -1426,6 +1549,234 @@ def serve_rg_path(dev) -> tuple[dict, dict]:
     del params, eng, caches
     torch.cuda.empty_cache()
     return launches, split
+
+
+def granite_path(dev) -> tuple[int, dict]:
+    """The dense path's second part, with the SWA launch counter at 0
+    before it: granite-3-8b at full width (40 layers, d_model 4096, 32
+    query heads over 8 KV heads of 128, 8.4 G fp32 parameters from seed
+    0), one bf16 prefill of 2048 tokens through the kernel and 8 greedy
+    decode steps on the dense cache; then the kernel against its plain
+    version on every layer's own operands of that prefill, and in fp32
+    the prefill's logits through the kernel against the plain
+    version's, and the 9 greedy tokens of both equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.swa import kernel as swa_kernel
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.types import param_values, tree_map
+
+    phase(f"dense path (b): granite-3-8b at full width, one "
+          f"{GRANITE_PROMPT}-token prefill and {GRANITE_DECODE} decode steps")
+    cfg = get_config("granite-3-8b")
+    s, n_dec = GRANITE_PROMPT, GRANITE_DECODE
+    cache_len = s + n_dec
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = param_values(init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg))
+    torch.cuda.synchronize()
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    n_params = sum(sizes)
+    init_s = time.perf_counter() - t0
+    print(f"{n_params:,} fp32 parameters in {init_s:.1f} s; peak device "
+          f"memory {torch.cuda.max_memory_allocated():,} bytes")
+    batch = {"tokens": torch.as_tensor([np.random.default_rng(1).integers(
+        3, cfg.vocab_size, s).tolist()], device=dev)}
+    kernel_op = swa_ops.swa_attention
+
+    def greedy(c, op, wall=None):
+        """Prefill through ``op``, then ``n_dec`` greedy decode steps:
+        (first-token logits, the n_dec + 1 tokens)."""
+        swa_ops.swa_attention = op
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches, t = prefill(params, batch, c, cache_len)
+            tok = logits[:, :cfg.vocab_size].argmax(dim=1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = [int(tok)]
+            for i in range(n_dec):
+                step, caches = decode_step(params, caches, tok[:, None],
+                                           t + i, c)
+                tok = step[:, :cfg.vocab_size].argmax(dim=1)
+                out.append(int(tok))
+            t2 = time.perf_counter()
+        finally:
+            swa_ops.swa_attention = kernel_op
+        if wall is not None:
+            wall.update(prefill_s=t1 - t0, decode_step_s=(t2 - t1) / n_dec)
+        return logits, out
+
+    operands, wall = [], {}
+
+    def capture(*args, **kw):
+        operands.append((args, kw))
+        return kernel_op(*args, **kw)
+
+    swa_kernel.launches = 0
+    swa_kernel.launches_by_path.update(tc=0, fma=0)
+    logits, tokens = greedy(cfg, capture, wall)
+    launches = swa_kernel.launches
+    by_path = dict(swa_kernel.launches_by_path)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"bf16: prefill 1 x {s} {wall['prefill_s']:.3f} s wall, decode "
+          f"{wall['decode_step_s'] * 1e3:.1f} ms a step; tokens {tokens}; "
+          f"swa launches {launches} by path {by_path}; peak device memory "
+          f"{peak:,} bytes")
+    if launches != cfg.num_layers or by_path != {"tc": launches, "fma": 0}:
+        raise AssertionError(f"swa launched {by_path}, not once a layer "
+                             "on the tensor-core path")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("granite-3-8b bf16 logits not finite")
+    swa_worst = max(check_swa_close(*args, **kw) for args, kw in operands)
+    del operands
+    bf16_gap = max_err(logits[:, :cfg.vocab_size], greedy(
+        cfg, swa_ops.swa_attention_plain)[0][:, :cfg.vocab_size])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    got32, got_tokens = greedy(cfg32, kernel_op)
+    want32, want_tokens = greedy(cfg32, swa_ops.swa_attention_plain)
+    torch.testing.assert_close(got32, want32, **DENSE_LOGITS_TOL)
+    worst = max_err(got32[:, :cfg.vocab_size], want32[:, :cfg.vocab_size])
+    if got_tokens != want_tokens:
+        raise AssertionError(f"fp32 greedy tokens through the kernel "
+                             f"{got_tokens} != the plain version's "
+                             f"{want_tokens}")
+    print(f"swa kernel vs plain on the {cfg.num_layers} layers' operands: "
+          f"max abs err {swa_worst:.3e} (tolerance "
+          f"{SWA_TOL[torch.bfloat16]}); fp32 first-token logits kernel vs "
+          f"plain {worst:.3e} (tolerance {DENSE_LOGITS_TOL}), the "
+          f"{n_dec + 1} greedy tokens equal ({got_tokens}); bf16 logit gap "
+          f"{bf16_gap:.3e}")
+    kinds = {"swa": "swa_tc_kernel"}
+    _, caches, t = prefill(params, batch, cfg, cache_len)
+    tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    profiled = {
+        f"prefill_1x{s}": device_split(
+            lambda: prefill(params, batch, cfg, cache_len), kinds),
+        "decode_step_1_slot": device_split(
+            lambda: decode_step(params, caches, tok, t, cfg), kinds)}
+    print_splits(profiled, "swa")
+    del params, caches
+    torch.cuda.empty_cache()
+    return launches, {"init_s": init_s, **wall, "n_params": n_params,
+                      "peak_memory_bytes": peak, "tokens": tokens,
+                      "swa_max_abs_err": swa_worst,
+                      "logits_fp32_max_abs_err": worst,
+                      "logits_bf16_max_abs_err": bf16_gap,
+                      "profiled": profiled}
+
+
+def dense_path(dev) -> tuple[int, dict]:
+    """The dense transformer family's path: (a) serving qwen2-0.5b at
+    full width, (b) granite-3-8b at full width; the SWA launches of
+    both (full causal bands, D 64 and D 128)."""
+    serve_launches, serve = serve_swa_path(dev, "qwen2-0.5b")
+    granite_launches, granite = granite_path(dev)
+    return serve_launches["swa"] + granite_launches, {
+        "qwen2-0.5b": serve, "granite-3-8b": granite,
+        "swa_max_abs_err": max(serve["swa_max_abs_err"],
+                               granite["swa_max_abs_err"])}
+
+
+def farm_path(dev) -> dict:
+    """benchmarks/fig6_tail.py's full sizes through the port's farm
+    (``repro_torch.core.farm``, the NoC switch and the interference lane
+    on the card): nodes 0, 1, 2 and 4, 2048 bursts, 256 KiB / 8-way /
+    64 B LLC, unpartitioned and with the victim in ways 0x0F, every
+    summary held exactly to the reference's (``FARM_ANCHORS``); the
+    suite's own acceptance properties; the token-bundle switch at
+    bundles 1, 7 and 64 against the per-cycle scheduler on nodes 0 and
+    4 at 1024 bursts; walls and the device's busy share."""
+    from repro_torch.core.cache import LLCConfig
+    from repro_torch.core.dram import DRAMConfig
+    from repro_torch.core.farm import (FarmConfig, farm_schedule,
+                                       simulate_farm, victim_window)
+    from repro_torch.core.noc import NoCConfig, NoCSwitch, simulate_reference
+    from repro_torch.core.sweep import MixConfig, interference_lane_metrics
+    from repro_torch.utils.stats import latency_summary
+
+    phase("farm path (Fig. 6 tail: victim and co-runner nodes through the "
+          "NoC switch and the shared LLC/DRAM)")
+    llc, dram = LLCConfig(FARM_LLC_BYTES, 8, 64), DRAMConfig()
+    wall, summaries, solo = {}, {}, None
+    for mask in (None, FARM_MASK):
+        for n in FARM_NODES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = simulate_farm(llc=llc, dram=dram,
+                                farm=FarmConfig(nodes=n, way_mask=mask),
+                                max_bursts=FARM_BURSTS, device=dev)
+            torch.cuda.synchronize()
+            key = f"{'part_' if mask else ''}x{n}"
+            wall[key] = time.perf_counter() - t0
+            got = {**latency_summary(res.steady()),
+                   "noc_mean": float(res.noc_latency.mean()),
+                   "mem_mean": float(res.mem_latency.mean()),
+                   "host_steps": res.noc.host_steps}
+            if got != FARM_ANCHORS[mask][n]:
+                raise AssertionError(f"farm {key}: {got} != the "
+                                     f"reference's {FARM_ANCHORS[mask][n]}")
+            summaries[key] = got
+            if n == 0 and mask is None:
+                solo = res
+            print(f"  {key}: p50 {got['p50']} p99 {got['p99']} wcet "
+                  f"{got['wcet']} noc_mean {got['noc_mean']} mem_mean "
+                  f"{got['mem_mean']} host_steps {got['host_steps']}; "
+                  f"{wall[key]:.3f} s wall on {dev}", flush=True)
+    print(f"{len(summaries)} farm summaries == the reference's "
+          "fig6_tail run(smoke=False)")
+    # the suite's acceptance: superlinear p99, partitioning recovers it,
+    # the solo farm's lane is the Fig. 6 solo lane
+    p99 = {n: summaries[f"x{n}"]["p99"] for n in FARM_NODES}
+    lo, hi = FARM_NODES[0], FARM_NODES[-1]
+    mid = FARM_NODES[len(FARM_NODES) // 2]
+    if not (p99[hi] - p99[mid] > p99[mid] - p99[lo]
+            and summaries[f"part_x{hi}"]["p99"] < p99[hi]):
+        raise AssertionError(f"farm QoS shape broken: {summaries}")
+    ref = interference_lane_metrics(
+        victim_window("nvdla", max_bursts=FARM_BURSTS) * 2, llc=llc,
+        dram=dram, mix=MixConfig(0, "l1"), device=dev)
+    if solo.metrics != ref:
+        raise AssertionError("solo farm lane != interference_lane_metrics")
+    # the token-bundle switch against the per-cycle scheduler
+    requests = 2 * FARM_PARITY_BURSTS // 16
+    for n in FARM_PARITY_NODES:
+        farm = FarmConfig(nodes=n)
+        sched = farm_schedule(requests, farm)
+        cfg = NoCConfig(ports=n + 2, link_latency=farm.link_latency)
+        want = simulate_reference(sched, cfg)
+        for bundle in (1, 7, 64):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = NoCSwitch(cfg, device=dev).simulate(sched,
+                                                      bundle_cycles=bundle)
+            wall[f"switch_x{n}_bundle{bundle}"] = time.perf_counter() - t0
+            for f in ("deliver_cycle", "egress", "src", "latency"):
+                if not np.array_equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(
+                        f"switch n={n} bundle={bundle}: {f} differs from "
+                        "the per-cycle scheduler")
+            print(f"  switch x{n} bundle {bundle}: {want.cycles_run} cycles "
+                  f"in {got.host_steps} host steps, "
+                  f"{wall[f'switch_x{n}_bundle{bundle}']:.3f} s wall; "
+                  "== simulate_reference", flush=True)
+    # device time of the heaviest farm, profiled again
+    key = f"part_x{hi}"
+    split = device_split(lambda: simulate_farm(
+        llc=llc, dram=dram, farm=FarmConfig(nodes=hi, way_mask=FARM_MASK),
+        max_bursts=FARM_BURSTS, device=dev))
+    dev_ms = sum(v for k, v in split.items() if k != "wall_ms")
+    print(f"{key} (profiled): device busy {dev_ms:.2f} ms, "
+          f"{dev_ms / (wall[key] * 1e3):.1%} of its {wall[key]:.3f} s wall "
+          f"(profiled wall {split['wall_ms'] / 1e3:.3f} s)" if dev_ms else
+          f"{key} (profiled): device time not measured (no device events "
+          "in the trace)")
+    return {"wall_s": wall, "summaries": summaries,
+            "profiled": {key: {"profiled_wall_ms": split["wall_ms"],
+                               "device_ms": dev_ms}}}
 
 
 def ptxas_report(log: str, kernel: str) -> dict:
@@ -1597,6 +1948,21 @@ def host_us(fn, n: int = 50) -> float:
     return (t1 - t0) / n * 1e6
 
 
+def swa_bound(out: dict, b, s, hq, hkv, d, window) -> tuple[int, int]:
+    """The bf16 SWA call's least time into ``out`` (``bound_ms``,
+    ``bound_by``): the FLOPs of the in-band pairs only (q.k and p.v, 2 D
+    each) over the bf16 tensor-core peak, or the bytes of q, o and the
+    un-expanded k, v over HBM.  Returns (FLOPs, bytes)."""
+    pairs = sum(min(i + 1, window) for i in range(s))
+    flops = 4 * d * pairs * hq * b
+    nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+    out["bound_ms"] = max(flops / BF16_OPS_PER_S,
+                          nbytes / HBM_BYTES_PER_S) * 1e3
+    out["bound_by"] = "operations" if flops / BF16_OPS_PER_S >= \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    return flops, nbytes
+
+
 def time_swa(dev) -> dict:
     """The SWA kernel at recurrentgemma-9b's full-width prefill (1 x
     2560 tokens, 16 query heads, 1 KV head, D 256, window 2048, bf16)
@@ -1644,15 +2010,7 @@ def time_swa(dev) -> dict:
     out["library_profiled_ms"] = device_ms(sdpa, 20)
     lib_err = max_err(sdpa().transpose(1, 2),
                       ops.swa_attention_plain(q, k, v, window=window))
-    # FLOPs of the in-band pairs only (q.k and p.v, 2 D each), bytes of
-    # q, o and the un-expanded k, v
-    pairs = sum(min(i + 1, window) for i in range(s))
-    flops = 4 * d * pairs * hq * b
-    nbytes = q.element_size() * (2 * b * s * hq * d + 2 * b * s * hkv * d)
-    out["bound_ms"] = max(flops / BF16_OPS_PER_S,
-                          nbytes / HBM_BYTES_PER_S) * 1e3
-    out["bound_by"] = "operations" if flops / BF16_OPS_PER_S >= \
-        nbytes / HBM_BYTES_PER_S else "bytes"
+    flops, nbytes = swa_bound(out, b, s, hq, hkv, d, window)
     print(f"swa b {b} s {s} hq {hq} hkv {hkv} d {d} window {window} bf16: "
           f"kernel (tc) {out['ms']:.4f} ms of device time (profiler "
           f"{ms_or_not(out['profiled_ms'])}, events {out['event_ms']:.4f}), "
@@ -1672,6 +2030,59 @@ def time_swa(dev) -> dict:
     print("  dynamic shared memory by D: " + ", ".join(
         f"{dim}: {K.tc_smem_bytes(dim)}" for dim in K.HEAD_DIMS))
     out["ptxas"] = report
+    return out
+
+
+def time_swa_dense(dev) -> dict:
+    """The SWA kernel at the dense archs' full-width prefill shapes
+    (``SWA_DENSE``: full causal, window = S, bf16) beside its plain
+    version, scaled_dot_product_attention(is_causal=True) on the KV
+    heads expanded outside the timing, and its bound (the causal pairs'
+    FLOPs over the bf16 tensor-core peak, or the bytes over HBM)."""
+    from repro_torch.kernels.swa import kernel as K
+    from repro_torch.kernels.swa import ops
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for arch, (b, s, hq, hkv, d, window) in SWA_DENSE.items():
+        q, k, v = swa_inputs(b, s, hq, hkv, d, torch.bfloat16, gen, dev)
+
+        def tc():
+            return K.swa_attention_kernel(q, k, v, window=window,
+                                          scale=d ** -0.5)
+
+        qh = q.transpose(1, 2)
+        kh, vh = (x.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+                  .contiguous() for x in (k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True)
+
+        tm = {"ms": queued_ms(tc, 20), "event_ms": cuda_ms(tc, 20),
+              "plain_ms": cuda_ms(lambda: ops.swa_attention_plain(
+                  q, k, v, window=window), 5),
+              "library_ms": queued_ms(sdpa, 20),
+              "library_event_ms": cuda_ms(sdpa, 20)}
+        want = ops.swa_attention_plain(q, k, v, window=window)
+        tm["max_abs_err"] = max_err(tc(), want)
+        lib_err = max_err(sdpa().transpose(1, 2), want)
+        flops, nbytes = swa_bound(tm, b, s, hq, hkv, d, window)
+        if tm["max_abs_err"] > SWA_TOL[torch.bfloat16]:
+            raise AssertionError(f"swa at {arch}'s shape: max abs err "
+                                 f"{tm['max_abs_err']:.3e} vs plain")
+        print(f"swa {arch} b {b} s {s} hq {hq} hkv {hkv} d {d} full causal "
+              f"bf16: kernel (tc) {tm['ms']:.4f} ms of device time (events "
+              f"{tm['event_ms']:.4f}), plain {tm['plain_ms']:.4f} ms, "
+              f"scaled_dot_product_attention(is_causal=True) "
+              f"{tm['library_ms']:.4f} ms (events "
+              f"{tm['library_event_ms']:.4f}; max abs err vs plain "
+              f"{lib_err:.2e}), bound {tm['bound_ms']:.4f} ms "
+              f"({tm['bound_by']}: {flops / 1e9:.2f} GFLOP causal, "
+              f"{nbytes / 1e6:.1f} MB); kernel vs plain max abs err "
+              f"{tm['max_abs_err']:.2e}")
+        out[arch] = tm
+        del q, k, v, qh, kh, vh, want
     return out
 
 
@@ -2031,6 +2442,7 @@ def main() -> int:
     timed, rows = time_kernels(dev)
     timed["ssd"] = time_ssd(dev)
     timed["swa"] = time_swa(dev)
+    timed["swa_dense"] = time_swa_dense(dev)
     res, launches, main_errs = main_path(dev)
     engine_times = paper_chain(res, dev)
     sim = sim_path(dev)
@@ -2038,9 +2450,12 @@ def main() -> int:
     serve_launches, serve = serve_path(dev)
     launches["ssd"] = serve_launches["ssd"]
     main_errs["ssd"] = serve["ssd_max_abs_err"]
-    rg_launches, serve_rg = serve_rg_path(dev)
-    launches["swa"] = rg_launches["swa"]
-    main_errs["swa"] = serve_rg["swa_max_abs_err"]
+    rg_launches, serve_rg = serve_swa_path(dev, "recurrentgemma-9b")
+    farm = farm_path(dev)
+    dense_launches, dense = dense_path(dev)
+    launches["swa"] = rg_launches["swa"] + dense_launches
+    main_errs["swa"] = max(serve_rg["swa_max_abs_err"],
+                           dense["swa_max_abs_err"])
     profiled = where_time_goes(dev)
 
     meta = {
@@ -2072,7 +2487,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "convcore_layers": rows,
          "engine_wall_s": engine_times, "sim_path": sim,
-         "campaign_path": campaign,
+         "campaign_path": campaign, "farm_path": farm,
+         "dense_path": dense,
          "profiled": profiled,
          "timed": timed,
          "serve": serve, "serve_recurrentgemma": serve_rg}, indent=1))

@@ -1,11 +1,13 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
-``ARCHS`` lists the architectures whose block kinds the port runs — so
-far the SSM family (``mamba2-130m``) and the Griffin hybrid of RG-LRU
-and local attention (``recurrentgemma-9b``).  The registry also holds
-the configs that only size workloads: ``qwen2-0.5b`` and
-``whisper-tiny`` feed the NPU's GEMM workloads (``core.npu``).  The
-other archs of the reference's registry arrive with their block kinds
+``ARCHS`` lists the architectures whose block kinds the port runs: the
+SSM family (``mamba2-130m``), the Griffin hybrid of RG-LRU and local
+attention (``recurrentgemma-9b``) and the dense transformer family with
+full-context attention (``qwen2-0.5b``, ``deepseek-7b``,
+``granite-3-8b``, ``chatglm3-6b``).  The registry also holds
+``whisper-tiny``, which only sizes the NPU's GEMM workloads
+(``core.npu``) until the encoder-decoder stack is ported.  The other
+archs of the reference's registry arrive with their block kinds
 (ROADMAP, port queue).
 """
 from __future__ import annotations
@@ -24,10 +26,14 @@ _ARCH_MODULES = {
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
-ARCHS = ("mamba2-130m", "recurrentgemma-9b")
+ARCHS = ("mamba2-130m", "recurrentgemma-9b", "qwen2-0.5b", "deepseek-7b",
+         "granite-3-8b", "chatglm3-6b")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -21,6 +21,14 @@ Subsystems:
 * ``socsim``       — the FAME-1 LLC -> DRAM pipeline (paper Fig. 2) and
                      its segment-native totals;
 * ``interference`` — BwWrite co-runner perturbations;
+* ``npu``          — second backend: weight-stationary systolic GEMM
+                     array compiling model-zoo workloads to the same
+                     DBB segments;
+* ``noc``          — cycle-token NoC switch (per-cycle reference and
+                     FAME-1 token-bundle implementation, bit-identical);
+* ``farm``         — N SoC nodes behind one switch and one shared
+                     LLC/DRAM: per-request victim latency, interconnect
+                     plus memory (the Fig. 6 tail);
 * ``soc``          — composition + the paper's three experiments.
 """
 from repro_torch.core.soc import (  # noqa: F401

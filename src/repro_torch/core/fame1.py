@@ -70,7 +70,9 @@ def chunked_scan(step_fn, init_carry, xs, *, cont_fn,
     Returns ``(carry, ys, bundles_run)`` where ``ys`` leaves are
     (n_bundles * chunk_len, ...) — entries past the executed bundles
     hold zeros, so per-cycle outputs must carry their own validity bit.
-    ``cont_fn`` is read once per bundle (one device sync per bundle)."""
+    ``cont_fn`` is read once per bundle (one device sync per bundle);
+    the padded schedule and the per-cycle ``active`` bits are made on
+    the device once, so a cycle only takes views of them."""
     if chunk_len < 1:
         raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
     xs = tree_map(torch.as_tensor, xs)
@@ -80,23 +82,28 @@ def chunked_scan(step_fn, init_carry, xs, *, cont_fn,
     if pow2_bucket:
         n_chunks = 1 << (n_chunks - 1).bit_length()
     n_cycles = n_chunks * chunk_len
+    xs = tree_map(lambda a: torch.cat([a, a.new_zeros(
+        (n_cycles - h_total,) + tuple(a.shape[1:]))]), xs)
+    active = torch.arange(n_cycles, device=dev) < h_total
 
     def x_at(t):
-        return tree_map(lambda a: a[t] if t < h_total else torch.zeros(
-            a.shape[1:], dtype=a.dtype, device=a.device), xs)
+        return tree_map(lambda a: a[t], xs)
 
     # output layout from an inactive (no-op) cycle, as eval_shape gives
-    _, y0 = step_fn(init_carry, x_at(0), torch.tensor(False, device=dev))
+    _, y0 = step_fn(init_carry, x_at(0), torch.zeros((), dtype=torch.bool,
+                                                      device=dev))
     ys = tree_map(lambda y: torch.zeros((n_cycles,) + tuple(y.shape),
                                         dtype=y.dtype, device=y.device), y0)
     ys_leaves = _leaves(ys)
     carry, ci = init_carry, 0
     while ci < n_chunks and bool(cont_fn(carry)):
-        for t in range(ci * chunk_len, (ci + 1) * chunk_len):
-            active = torch.tensor(t < h_total, device=dev)
-            carry, y = step_fn(carry, x_at(t), active)
-            for buf, v in zip(ys_leaves, _leaves(y)):
-                buf[t] = v
+        t0 = ci * chunk_len
+        outs = []
+        for t in range(t0, t0 + chunk_len):
+            carry, y = step_fn(carry, x_at(t), active[t])
+            outs.append(_leaves(y))
+        for buf, col in zip(ys_leaves, zip(*outs)):
+            buf[t0:t0 + chunk_len] = torch.stack(col).to(buf.dtype)
         ci += 1
     return carry, ys, ci
 

@@ -1,19 +1,26 @@
-"""Attention: GQA/MQA self-attention, sliding-window (banded), KV caches.
+"""Attention: GQA/MQA self-attention, full-context or sliding-window
+(banded), KV caches.
 
-* Prefill is causal attention over a band of ``window`` keys through
-  ``kernels.swa`` — the Hopper kernel on the card, its plain version on
-  the CPU.  The reference computes the same function with a
+* Prefill is causal attention through ``kernels.swa`` — the Hopper
+  kernel on the card, its plain version on the CPU — over a band of
+  ``window`` keys, or over every earlier key when ``window`` is 0 (the
+  dense archs): full causal attention is the band ``window = S``, the
+  key length.  The reference computes the same function with a
   query-chunked, banded jnp path (``repro.models.attention.attend``) and
   keeps the Pallas SWA kernel as its TPU-native form; the port runs the
   kernel.  GQA is never expanded in memory: query head ``h`` reads KV
   head ``h // group``.
-* Decode reads a rolling-buffer cache of ``min(window, cache_len)`` slots
-  (slot = position mod length), with RoPE applied at insert time
-  (absolute positions).  It is plain torch, as in the reference (no
-  kernel there either).  Each batch row may sit at its own position.
+* Decode reads a dense cache of ``cache_len`` slots written at absolute
+  positions (``window`` 0) or a rolling buffer of ``min(window,
+  cache_len)`` slots (slot = position mod length), with RoPE applied at
+  insert time (absolute positions).  It is plain torch, as in the
+  reference (no kernel there either).  Each batch row may sit at its
+  own position.  Its probabilities and P.V are fp32 with one rounding
+  of the output, as in the plain prefill, so decode reproduces the
+  prefill's logits (the reference rounds the probabilities to the
+  compute dtype instead, in both of its paths).
 
-Full-context attention (``window`` 0, the dense archs' dense caches),
-cross-attention, int8 KV caches and split-K decode raise
+Cross-attention, int8 KV caches and split-K decode raise
 ``NotImplementedError`` until their slices land (ROADMAP, port queue).
 """
 from __future__ import annotations
@@ -30,15 +37,9 @@ NEG_INF = -1e30
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet — ROADMAP, port queue (the "
-        "recurrentgemma-9b slice runs local causal self-attention with a "
-        "bf16 or fp32 KV cache)")
-
-
-def _windowed(window: int) -> int:
-    if window < 1:
-        raise _unported("full-context attention (window 0, the dense archs)")
-    return window
+        f"{what} is not ported yet — ROADMAP, port queue (the port runs "
+        "causal self-attention, full-context or local, with a bf16 or "
+        "fp32 KV cache)")
 
 
 # --------------------------------------------------------------------------
@@ -106,11 +107,11 @@ def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
 def attend(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
            positions: torch.Tensor, causal: bool = True, window: int = 0,
            kv_src: torch.Tensor | None = None, return_kv: bool = False):
-    """Full-sequence local causal self-attention (prefill).
+    """Full-sequence causal self-attention (prefill).
 
     x: (B, S, d); positions: (S,) query positions; each query sees the
-    ``window`` positions up to its own.  Returns (B, S, d) [, (k, v)
-    after RoPE, at n_kv heads]."""
+    ``window`` positions up to its own, or all of them when ``window``
+    is 0.  Returns (B, S, d) [, (k, v) after RoPE, at n_kv heads]."""
     if kv_src is not None or not causal:
         raise _unported("cross-attention and non-causal attention "
                         "(encoder stacks)")
@@ -119,7 +120,9 @@ def attend(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.rope_fraction > 0:
         q = apply_rope(q, positions, cfg)
         k = apply_rope(k, positions, cfg)
-    out = swa_ops.swa_attention(q, k, v, window=_windowed(window),
+    # full context is the band as wide as the keys: the kernel computes
+    # row0 - window + 1 in int, so no sentinel width
+    out = swa_ops.swa_attention(q, k, v, window=window or k.shape[1],
                                 scale=cfg.head_dim ** -0.5,
                                 softcap=cfg.attn_logit_softcap)
     y = _out(params, out)
@@ -133,11 +136,11 @@ def attend(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 # --------------------------------------------------------------------------
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                     window: int = 0, device) -> dict:
-    """Rolling-buffer cache of length ``min(window, max_len)``, in the
-    compute dtype."""
+    """Dense cache of ``max_len`` slots (``window`` 0) or rolling-buffer
+    cache of ``min(window, max_len)``, in the compute dtype."""
     if cfg.kv_cache_dtype == "int8":
         raise _unported(f"kv_cache_dtype='int8' ({cfg.name})")
-    length = min(_windowed(window), max_len)
+    length = min(window, max_len) if window else max_len
     shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
     dt = compute_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -157,7 +160,6 @@ def attend_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     not written in place."""
     if cross_cache is not None:
         raise _unported("cross-attention decode")
-    window = _windowed(window)
     b = x.shape[0]
     ts = torch.as_tensor(t, device=x.device).to(torch.int64).reshape(-1) \
         .expand(b)
@@ -167,17 +169,23 @@ def attend_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
         q = apply_rope(q, ts[:, None], cfg)
         k_new = apply_rope(k_new, ts[:, None], cfg)
     length = cache["k"].shape[1]
-    slot = ts % length
+    # a dense cache writes at the position itself, clamped into the
+    # cache as the reference's dynamic_update_slice clamps it
+    slot = ts % length if window else ts.clamp(max=length - 1)
     rows = torch.arange(b, device=x.device)
     new_cache = {}
     for name, val in (("k", k_new), ("v", v_new)):
         buf = cache[name].clone()
         buf[rows, slot] = val[:, 0].to(buf.dtype)
         new_cache[name] = buf
-    # slot i holds absolute position p_i = t - ((t - i) mod length)
     idx = torch.arange(length, device=x.device)
-    kpos = ts[:, None] - torch.remainder(ts[:, None] - idx[None, :], length)
-    valid = (kpos >= 0) & (ts[:, None] - kpos < window)
+    if window:
+        # slot i holds absolute position p_i = t - ((t - i) mod length)
+        kpos = ts[:, None] - torch.remainder(ts[:, None] - idx[None, :],
+                                             length)
+        valid = (kpos >= 0) & (ts[:, None] - kpos < window)
+    else:
+        valid = idx[None, :] <= ts[:, None]
     # GQA by grouping the query heads (the reference broadcasts each KV
     # head over its group; the products are the same)
     nkv, hd = cfg.num_kv_heads, cfg.head_dim
@@ -186,6 +194,10 @@ def attend_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
                           new_cache["k"].to(torch.float32)) * hd ** -0.5
     scores = _softcap(scores, cfg.attn_logit_softcap)
     scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bkglt,btkh->blkgh", probs, new_cache["v"])
+    # probabilities and P.V in fp32, the output rounded once: the plain
+    # prefill's rounding points (kernels/swa/ops.swa_attention_plain), so
+    # a decode step reproduces the prefill's logits
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkglt,btkh->blkgh", probs,
+                       new_cache["v"].to(torch.float32)).to(x.dtype)
     return _out(params, out.reshape(b, 1, cfg.num_heads, hd)), new_cache

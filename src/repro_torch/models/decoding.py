@@ -8,6 +8,8 @@ reference does.
 
 Cache kinds ported so far:
 
+* attention, full context — dense ``(B, cache_len, n_kv, hd)`` buffer
+  written at absolute slots;
 * attention, windowed (local / SWA) — rolling buffer of ``min(window,
   cache_len)`` slots, slot = position mod length;
 * mamba-2 — ``(B, conv_k-1, C)`` bf16 conv tail + ``(B, H, N, P)`` fp32
@@ -66,7 +68,8 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
     """Param-wrapped cache tree for ``decode_step`` (strip with
     ``param_values``), on ``device`` (``cuda`` when None).  Recurrent
     caches do not grow with ``cache_len``; attention caches hold
-    ``min(window, cache_len)`` positions."""
+    ``cache_len`` positions (full context) or ``min(window, cache_len)``
+    (windowed)."""
     _check_supported(cfg)
     dev = default_device(device)
     pattern, n_full, rem = pattern_split(cfg)
@@ -93,12 +96,15 @@ def _to_decode_cache(raw, cfg: ModelConfig, kind: str, cache_len: int,
                      positions: torch.Tensor):
     """A raw prefill cache (one layer, or layers stacked on a leading
     axis) in the decode layout.  Recurrent caches already are; an
-    attention layer's keys and values go to their rolling-buffer slots:
-    the last ``min(S, length)`` positions, at ``position mod length``."""
+    attention layer's keys and values go to their slots of a dense
+    cache of ``cache_len`` (full context: every position at its own
+    slot) or of a rolling buffer: the last ``min(S, length)``
+    positions, at ``position mod length``."""
     if kind in ("ssm", "rec"):
         return raw
     k, v = raw["k"], raw["v"]                  # (..., B, S, n_kv, hd)
-    length = min(_attn_window(cfg), cache_len)
+    window = _attn_window(cfg)
+    length = min(window, cache_len) if window else cache_len
     take = min(k.shape[-3], length)
     slots = torch.remainder(positions[-take:], length)
     out = {}

@@ -8,8 +8,8 @@ layout — so a reference tree converts leaf for leaf — and walks the
 stacked axis with a Python loop.
 
 The ported block kinds are ``"ssm"`` (mamba-2), ``"rec"`` (RG-LRU +
-MLP) and ``"attn"`` (local causal self-attention + MLP); full-context
-attention, MoE FFNs, the encoder-decoder stack, VLM inputs and int8 KV
+MLP) and ``"attn"`` (causal self-attention, full-context or local, +
+MLP); MoE FFNs, the encoder-decoder stack, VLM inputs and int8 KV
 caches raise ``NotImplementedError`` until their slices land (ROADMAP,
 port queue).
 """
@@ -24,9 +24,9 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.types import Param, is_param, tree_map
 
-NEXT_SLICE = ("ROADMAP, port queue: MoE FFNs (mixtral), the dense archs' "
-              "full-attention paths, int8 KV caches, cross-attention, "
-              "encoder-decoder and VLM inputs come with later slices")
+NEXT_SLICE = ("ROADMAP, port queue: MoE FFNs (mixtral, grok), int8 KV "
+              "caches, cross-attention, encoder-decoder and VLM inputs "
+              "come with later slices")
 BLOCK_KINDS = ("ssm", "rec", "attn")
 
 
@@ -52,8 +52,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
         if kind not in BLOCK_KINDS:
             raise _unported(f"block kind {kind!r} ({cfg.name})")
-    if "attn" in cfg.block_pattern and not _attn_window(cfg):
-        raise _unported(f"full-context attention ({cfg.name})")
     if cfg.num_experts:
         raise _unported(f"the MoE FFN ({cfg.name})")
     if cfg.is_encoder_decoder:

@@ -1,0 +1,460 @@
+"""The port's dense transformer family (qwen2-0.5b, deepseek-7b,
+granite-3-8b, chatglm3-6b; smoke configs) against the reference.
+
+Full-context attention is the ``swa`` op with the band as wide as the
+keys (``window = S``): on the CPU its plain version, on a card the
+Hopper kernel.  The reference's weights are carried across with
+``repro_torch.convert.model_tree`` (QKV biases, the tied embedding and
+the padded vocab included) and both packages get the same numpy-made
+inputs.  Attention holds the reference's ``attend`` at 1e-5 in fp32 and
+2e-2 in bf16 (the swa kernel's own tolerances); the model's forward,
+prefill caches and decode steps hold the reference's at 1e-4 in fp32
+and, in bf16, at rtol 2e-2 / atol 0.08 (the port's other bf16 model
+tests' floor: the two frameworks round bf16 at different points).  The
+port's own decode holds its forward at the reference's decode-parity
+tolerances (tests/test_decode_parity.py: rtol = atol = 2e-2 for one
+step, 7e-2 over four).  Decode crosses
+the prompt length by several steps on a dense cache of ``cache_len``
+slots, and the serving engine on qwen2-0.5b's smoke config (the
+reference's serving arch, tests/test_serve.py) gives the reference
+engine's tokens, step log, oracle cycles and ``EngineStats``."""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import models as j_models  # noqa: E402
+from repro.configs import get_config as j_get  # noqa: E402
+from repro.configs import get_smoke_config as j_smoke  # noqa: E402
+from repro.models import attention as j_attn  # noqa: E402
+from repro.serve import Request as JRequest  # noqa: E402
+from repro.serve import ServeEngine as JEngine  # noqa: E402
+from repro.serve import PagedKVCache as JKV  # noqa: E402
+from repro.serve import SoCLatencyOracle as JOracle  # noqa: E402
+from repro.types import param_values as j_values  # noqa: E402
+from repro_torch import models as t_models  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
+from repro_torch.convert import model_tree  # noqa: E402
+from repro_torch.kernels.swa import kernel as t_swa_kernel  # noqa: E402
+from repro_torch.kernels.swa import ops as t_swa_ops  # noqa: E402
+from repro_torch.models import attention as t_attn  # noqa: E402
+from repro_torch.models import layers as t_layers  # noqa: E402
+from repro_torch.serve import PagedKVCache as TKV  # noqa: E402
+from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.serve import SoCLatencyOracle as TOracle  # noqa: E402
+from repro_torch.types import param_values  # noqa: E402
+
+DENSE = ("qwen2-0.5b", "deepseek-7b", "granite-3-8b", "chatglm3-6b")
+ATTEND_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# whole-model bf16 across the two frameworks: the absolute floor of
+# test_torch_hybrid.py / test_torch_models.py, since the frameworks round
+# bf16 at different points (attention's probabilities, the residual
+# adds); fp32 agrees to 1e-4
+MODEL_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+             "bfloat16": dict(rtol=2e-2, atol=0.08)}
+# tests/test_decode_parity.py: one decode step against the forward, and
+# four steps carried across (no dense arch widens ATOL_SINGLE/ATOL_MULTI)
+ATOL_SINGLE, ATOL_MULTI = 2e-2, 7e-2
+BATCH, SEQ, CACHE = 2, 24, 40
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _configs(arch, dtype):
+    return (dataclasses.replace(j_smoke(arch), dtype=dtype),
+            dataclasses.replace(t_smoke(arch), dtype=dtype))
+
+
+@pytest.fixture(scope="module",
+                params=[(a, d) for a in DENSE for d in ("float32",
+                                                        "bfloat16")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def pair(request):
+    arch, dtype = request.param
+    jcfg, tcfg = _configs(arch, dtype)
+    jp = j_values(j_models.init_params(jax.random.PRNGKey(0), jcfg))
+    tp = model_tree(jax.tree.map(np.asarray, jp), device="cpu")
+    return dtype, jcfg, tcfg, jp, tp
+
+
+def _np(x):
+    return x.to(torch.float32).numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def _act(jcfg, shape, seed):
+    """Activations rounded to the compute dtype once, in both packages."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    t = torch.from_numpy(x).to(t_layers.compute_dtype(jcfg))
+    return jnp.asarray(_np(t)).astype(jnp.dtype(jcfg.dtype)), t
+
+
+def _tokens(cfg, shape, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+def _attn_layer(jp, tp, i=0):
+    return (jax.tree.map(lambda a: a[i], jp["blocks"][0]["attn"]),
+            t_models.transformer.layer(tp["blocks"][0]["attn"], i))
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+def test_attend_full_context_matches_reference(pair, monkeypatch):
+    """``window`` 0 reaches the swa op once, with the band as wide as
+    the keys, and gives the reference's output and (k, v)."""
+    dtype, jcfg, tcfg, jp, tp = pair
+    ja, ta = _attn_layer(jp, tp)
+    jx, tx = _act(jcfg, (BATCH, SEQ, jcfg.d_model), 8)
+    pos = np.arange(SEQ)
+    calls = []
+
+    def counting(q, k, v, **kw):
+        calls.append(kw["window"])
+        return t_swa_ops.swa_attention_plain(q, k, v, **kw)
+
+    monkeypatch.setattr(t_swa_ops, "swa_attention", counting)
+    want, (jk, jv) = j_attn.attend(ja, jx, jcfg, positions=jnp.asarray(pos),
+                                   window=0, return_kv=True)
+    got, (tk, tv) = t_attn.attend(ta, tx, tcfg, positions=torch.as_tensor(pos),
+                                  window=0, return_kv=True)
+    assert calls == [SEQ]
+    assert got.dtype == t_layers.compute_dtype(tcfg)
+    _close(got, want, ATTEND_TOL[dtype])
+    _close(tk, jk, ATTEND_TOL[dtype])
+    _close(tv, jv, ATTEND_TOL[dtype])
+
+
+def test_attend_decode_on_the_dense_cache_matches_reference(pair):
+    """Six steps on a dense cache of 40 slots from a 14-token history,
+    the two rows at different positions (t and t + 3): each row writes
+    at its own position and attends to every slot up to it."""
+    dtype, jcfg, tcfg, jp, tp = pair
+    ja, ta = _attn_layer(jp, tp)
+    jc = j_attn.init_attn_cache(jcfg, 1, CACHE)
+    jx, _ = _act(jcfg, (1, 17, jcfg.d_model), 9)
+    for t in range(14):
+        _, jc = j_attn.attend_decode(ja, jx[:, t:t + 1], jcfg, jc,
+                                     jnp.asarray(t, jnp.int32))
+    jc2 = jc
+    for t in range(14, 17):
+        _, jc2 = j_attn.attend_decode(ja, jx[:, t:t + 1], jcfg, jc2,
+                                      jnp.asarray(t, jnp.int32))
+    cache = {k: jnp.concatenate([jc[k], jc2[k]]) for k in ("k", "v")}
+    tcache = model_tree(jax.tree.map(np.asarray, cache), device="cpu")
+    assert tuple(tcache["k"].shape) == (2, CACHE, jcfg.num_kv_heads,
+                                        jcfg.head_dim)
+    jcs = [jc, jc2]
+    for step in range(6):
+        ts = np.array([14 + step, 17 + step], np.int32)
+        jx1, tx1 = _act(jcfg, (2, 1, jcfg.d_model), 20 + step)
+        wants = []
+        for r in range(2):
+            y, jcs[r] = j_attn.attend_decode(ja, jx1[r:r + 1], jcfg, jcs[r],
+                                             jnp.asarray(ts[r], jnp.int32))
+            wants.append(y)
+        got, tcache = t_attn.attend_decode(ta, tx1, tcfg, tcache,
+                                           torch.as_tensor(ts))
+        _close(got, jnp.concatenate(wants), MODEL_TOL[dtype])
+        for k in ("k", "v"):
+            _close(tcache[k], jnp.concatenate([c[k] for c in jcs]),
+                   MODEL_TOL[dtype])
+
+
+# --------------------------------------------------------------------------
+# model
+# --------------------------------------------------------------------------
+def test_forward_matches_reference(pair):
+    dtype, jcfg, tcfg, jp, tp = pair
+    toks = _tokens(jcfg, (BATCH, SEQ))
+    want = j_models.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg,
+                            mode="prefill")
+    got = t_models.forward(tp, {"tokens": torch.as_tensor(toks)}, tcfg)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    _close(got, want, MODEL_TOL[dtype])
+
+
+def test_prefill_logits_and_caches_match_reference(pair):
+    dtype, jcfg, tcfg, jp, tp = pair
+    toks = _tokens(jcfg, (BATCH, SEQ))
+    jl, jc, jt = j_models.prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg,
+                                  CACHE)
+    tl, tc, tt = t_models.prefill(tp, {"tokens": torch.as_tensor(toks)},
+                                  tcfg, CACHE)
+    assert tt == int(jt) == SEQ
+    _close(tl, jl, MODEL_TOL[dtype])
+    jleaves, jdef = jax.tree.flatten(jc)
+    tleaves, tdef = jax.tree.flatten(
+        tc, is_leaf=lambda a: isinstance(a, torch.Tensor))
+    assert tdef == jdef
+    for got, want in zip(tleaves, jleaves):
+        assert tuple(got.shape) == want.shape
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
+        _close(got, want, MODEL_TOL[dtype])
+    # a dense cache of CACHE slots: every prompt position at its own
+    # slot, the slots past the prompt empty
+    k = tc["blocks"][0]["k"]
+    assert tuple(k.shape) == (jcfg.num_layers, BATCH, CACHE,
+                              jcfg.num_kv_heads, jcfg.head_dim)
+    assert not bool(k[:, :, SEQ:].any()) and bool(k[:, :, SEQ - 1].any())
+
+
+def test_decode_steps_match_reference(pair):
+    """Four steps from the reference's own prefill caches, carried
+    across: ``decode_step`` in both packages."""
+    dtype, jcfg, tcfg, jp, tp = pair
+    toks = _tokens(jcfg, (BATCH, SEQ))
+    _, jc, jt = j_models.prefill(jp, {"tokens": jnp.asarray(toks[:, :-4])},
+                                 jcfg, CACHE)
+    tc = model_tree(jax.tree.map(np.asarray, jc), device="cpu")
+    for i in range(4):
+        tok = toks[:, SEQ - 4 + i:SEQ - 3 + i]
+        t = int(jt) + i
+        jl, jc = j_models.decode_step(jp, jc, jnp.asarray(tok),
+                                      jnp.asarray(t, jnp.int32), jcfg)
+        tl, tc = t_models.decode_step(tp, tc, torch.as_tensor(tok), t, tcfg)
+        _close(tl, jl, MODEL_TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_forward(arch):
+    """tests/test_decode_parity.py's check on the port (bf16, the smoke
+    config): prefill S - 1 tokens, decode the last, against the
+    forward's last position."""
+    cfg = t_smoke(arch)
+    params = param_values(t_models.init_params(0, cfg, device="cpu"))
+    toks = torch.as_tensor(_tokens(cfg, (BATCH, 32), seed=2))
+    ref = t_models.forward(params, {"tokens": toks}, cfg)[:, -1]
+    _, caches, t = t_models.prefill(params, {"tokens": toks[:, :-1]}, cfg,
+                                    40)
+    got, _ = t_models.decode_step(params, caches, toks[:, -1:], t, cfg)
+    _close(got, ref, dict(rtol=2e-2, atol=ATOL_SINGLE))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_multi_step_decode_consistency(arch):
+    """Four decode steps carried across from a 28-token prefill equal
+    the forward over the 32 tokens at each step, within the reference's
+    multi-step tolerance."""
+    cfg = t_smoke(arch)
+    params = param_values(t_models.init_params(0, cfg, device="cpu"))
+    toks = torch.as_tensor(_tokens(cfg, (BATCH, 32), seed=3))
+    full = t_models.forward(params, {"tokens": toks}, cfg)
+    _, caches, t = t_models.prefill(params, {"tokens": toks[:, :28]}, cfg,
+                                    40)
+    for i in range(4):
+        got, caches = t_models.decode_step(params, caches,
+                                           toks[:, 28 + i:29 + i], t + i, cfg)
+        _close(got, full[:, 28 + i], dict(rtol=7e-2, atol=ATOL_MULTI))
+
+
+def _row_caches(jp, jcfg, toks, lens):
+    rows = [j_models.prefill(jp, {"tokens": jnp.asarray(toks[r:r + 1, :n])},
+                             jcfg, CACHE)[1] for r, n in enumerate(lens)]
+    axes = j_models.cache_slot_axes(rows[0])
+    return jax.tree.map(lambda ax, *xs: jnp.concatenate(xs, axis=ax),
+                        axes, *rows)
+
+
+def test_slot_decode_crosses_the_prompt_length(pair):
+    """Rows prefilled to 9 and 20 tokens decode six steps each with a
+    position per row, well past both prompts, on the dense cache."""
+    dtype, jcfg, tcfg, jp, tp = pair
+    toks = _tokens(jcfg, (BATCH, 28))
+    lens = (9, 20)
+    jc = _row_caches(jp, jcfg, toks, lens)
+    tc = model_tree(jax.tree.map(np.asarray, jc), device="cpu")
+    for i in range(6):
+        ts = np.array([n + i for n in lens], np.int32)
+        tok = np.stack([toks[r, n + i] for r, n in enumerate(lens)])[:, None]
+        jl, jc = j_models.slot_decode_step(jp, jc, jnp.asarray(tok),
+                                           jnp.asarray(ts), jcfg)
+        tl, tc = t_models.slot_decode_step(tp, tc, torch.as_tensor(tok),
+                                           torch.as_tensor(ts), tcfg)
+        _close(tl, jl, MODEL_TOL[dtype])
+
+
+# --------------------------------------------------------------------------
+# registry, layout, conversion, refusals
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", DENSE)
+def test_configs_and_working_sets_match_reference(arch):
+    assert arch in ARCHS
+    for jcfg, tcfg in ((j_get(arch), get_config(arch)),
+                       (j_smoke(arch), t_smoke(arch))):
+        assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+        assert dataclasses.asdict(j_models.decode_working_set(jcfg)) == \
+            dataclasses.asdict(t_models.decode_working_set(tcfg))
+    ws = t_models.decode_working_set(get_config(arch))
+    assert ws.state_bytes == 0
+    assert all(w == 0 for w, _ in ws.kv_entries)    # the full context
+
+
+def test_model_tree_carries_the_dense_trees():
+    """qwen2-0.5b's tree (QKV biases, the tied embedding) and
+    chatglm3-6b's (biases, partial rotary) arrive leaf for leaf, values
+    bit for bit, in the port's own layout."""
+    for arch in ("qwen2-0.5b", "chatglm3-6b"):
+        jcfg, tcfg = j_smoke(arch), t_smoke(arch)
+        jp = j_values(j_models.init_params(jax.random.PRNGKey(3), jcfg))
+        tp = model_tree(jax.tree.map(np.asarray, jp), device="cpu")
+        own = param_values(t_models.init_params(0, tcfg, device="cpu"))
+        jl, jdef = jax.tree.flatten(jp)
+        tl, tdef = jax.tree.flatten(
+            tp, is_leaf=lambda a: isinstance(a, torch.Tensor))
+        _, odef = jax.tree.flatten(
+            own, is_leaf=lambda a: isinstance(a, torch.Tensor))
+        assert tdef == jdef == odef
+        for got, want in zip(tl, jl):
+            assert got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        attn = tp["blocks"][0]["attn"]
+        assert {"bq", "bk", "bv"} <= set(attn)
+        assert tuple(attn["bq"].shape) == (jcfg.num_layers, jcfg.num_heads,
+                                           jcfg.head_dim)
+        assert "unembed" not in tp["embed"] if tcfg.tie_embeddings else \
+            "unembed" in tp["embed"]
+
+
+def test_unported_options_raise_by_name():
+    base = t_smoke("qwen2-0.5b")
+    for bad, name in ((dict(num_experts=4), "MoE"),
+                      (dict(is_encoder_decoder=True), "encoder-decoder"),
+                      (dict(kv_cache_dtype="int8"), "int8")):
+        cfg = dataclasses.replace(base, **bad)
+        with pytest.raises(NotImplementedError, match=name):
+            t_models.init_params(0, cfg, device="cpu")
+    vlm = dataclasses.replace(base, family="vlm")
+    params = param_values(t_models.init_params(0, vlm, device="cpu"))
+    with pytest.raises(NotImplementedError, match="vlm"):
+        t_models.forward(params, {"tokens": torch.zeros((1, 4),
+                                                        dtype=torch.int64)},
+                         vlm)
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        t_attn.attend_decode({}, torch.zeros((1, 1, 8)), base, {}, 0,
+                             cross_cache={})
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
+def _engines(dtype, **kw):
+    arch = "qwen2-0.5b"
+    jcfg, tcfg = _configs(arch, dtype)
+    jparams = j_values(j_models.init_params(jax.random.PRNGKey(0), jcfg))
+    tparams = model_tree(jax.tree.map(np.asarray, jparams), device="cpu")
+    jeng = JEngine(jcfg, jparams, **kw)
+    teng = ServeEngine(tcfg, tparams, device="cpu", **kw)
+    rng = np.random.default_rng(1)
+    for i in range(7):
+        plen = (24, 11, 40)[i % 3]
+        toks = tuple(int(t) for t in rng.integers(3, tcfg.vocab_size, plen))
+        jeng.submit(JRequest(rid=i, tokens=toks, max_new=6 + i,
+                             arrival_s=i * 2e-6))
+        teng.submit(Request(rid=i, tokens=toks, max_new=6 + i,
+                            arrival_s=i * 2e-6))
+    return jeng, teng
+
+
+def test_engine_matches_reference_engine_fp32():
+    """qwen2-0.5b's smoke config in fp32 at temperature 0, prompts of
+    24, 11 and 40 tokens, more requests than slots, decode running up
+    to 12 steps past each prompt on the dense cache: identical tokens,
+    step log (oracle cycles included) and stats."""
+    jeng, teng = _engines("float32", cache_len=56, max_slots=3, eos_id=-1,
+                          temperature=0.0)
+    want, got = jeng.run(), teng.run()
+    assert got.to_record() == want.to_record()
+    assert [r.to_record() for r in teng.step_log] == \
+        [r.to_record() for r in jeng.step_log]
+    assert teng.finished == jeng.finished
+    assert {r.kind for r in teng.step_log} >= {"prefill", "decode",
+                                               "mixed"}
+
+
+def test_engine_stats_and_cycles_match_reference_bf16():
+    """The reference's serving setup (bf16, tests/test_serve.py): with
+    no EOS no cycle depends on a token, so ``EngineStats`` and every
+    step's kind, cycles, admissions and occupancy are the reference's."""
+    jeng, teng = _engines("bfloat16", cache_len=56, max_slots=3, eos_id=-1,
+                          temperature=0.0)
+    want, got = jeng.run(), teng.run()
+    assert got.to_record() == want.to_record()
+    keep = ("step", "kind", "cycles", "sim_time_s", "active", "admitted",
+            "finished", "llc_hit_rate")
+    assert [{k: r.to_record()[k] for k in keep} for r in teng.step_log] == \
+        [{k: r.to_record()[k] for k in keep} for r in jeng.step_log]
+
+
+def test_oracle_steps_match_reference():
+    """The oracle over qwen2-0.5b's working set (dense KV of 24 layers,
+    no recurrent state), its weight stream capped at 1 MiB so the
+    replay stays small: prefill, decode and mixed steps give the
+    reference's records."""
+    ws_j = j_models.decode_working_set(j_get("qwen2-0.5b"))
+    ws_t = t_models.decode_working_set(get_config("qwen2-0.5b"))
+    jo = JOracle(ws_j, weight_bytes=1 << 20)
+    to = TOracle(ws_t, weight_bytes=1 << 20, device="cpu")
+    kj = JKV(num_blocks=64, block_size=16, token_bytes=ws_j.kv_token_bytes)
+    kt = TKV(num_blocks=64, block_size=16, token_bytes=ws_t.kv_token_bytes)
+    for rid, n in enumerate((200, 120, 64)):
+        kj.admit(rid, n, 8)
+        kt.admit(rid, n, 8)
+    for step in (lambda o, k: o.prefill_step(k, [0, 1]),
+                 lambda o, k: o.decode_step(k, [0, 1, 2]),
+                 lambda o, k: o.prefill_step(k, [2], decode_rids=[0, 1])):
+        got, want = step(to, kt), step(jo, kj)
+        assert got.metrics.to_record() == want.metrics.to_record()
+        assert (got.cycles, got.seconds) == (want.cycles, want.seconds)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_serve_cli_runs_the_dense_archs_on_cpu(arch, capsys):
+    from repro_torch.serve.__main__ import main as serve_main
+
+    serve_main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                "--prompt-len", "12", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}-smoke  device=cpu" in out
+    assert "simulated SoC:" in out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_through_kernel_matches_plain_on_card(arch, monkeypatch):
+    """bf16 prefill on the card: full-context attention through the
+    Hopper kernel (one launch per layer) against the same prefill
+    through the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    cfg = t_smoke(arch)
+    params = param_values(t_models.init_params(0, cfg, device=dev))
+    toks = torch.as_tensor(_tokens(cfg, (3, 137)), device=dev)
+    before = t_swa_kernel.launches
+    got, _, _ = t_models.prefill(params, {"tokens": toks}, cfg, 160)
+    assert t_swa_kernel.launches == before + cfg.num_layers
+    monkeypatch.setattr(t_swa_ops, "swa_attention",
+                        t_swa_ops.swa_attention_plain)
+    want, _, _ = t_models.prefill(params, {"tokens": toks}, cfg, 160)
+    torch.cuda.synchronize()
+    _close(got.cpu(), want.cpu(), MODEL_TOL["bfloat16"])

@@ -324,7 +324,7 @@ def test_configs_match_reference():
 
 def test_unported_options_raise():
     for bad in (dict(num_experts=4), dict(kv_cache_dtype="int8"),
-                dict(local_window=0)):
+                dict(is_encoder_decoder=True)):
         cfg = dataclasses.replace(t_smoke(ARCH), **bad)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_models.init_params(0, cfg, device="cpu")

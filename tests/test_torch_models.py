@@ -160,7 +160,8 @@ def test_params_and_caches_keep_the_reference_layout():
 def test_working_set_and_registry_match_reference():
     from repro.configs import get_config as j_get
 
-    assert ARCHS == ("mamba2-130m", "recurrentgemma-9b")
+    assert ARCHS == ("mamba2-130m", "recurrentgemma-9b", "qwen2-0.5b",
+                     "deepseek-7b", "granite-3-8b", "chatglm3-6b")
     for get in (lambda a: (j_get(a), get_config(a)),
                 lambda a: (j_smoke(a), t_smoke(a))):
         jcfg, tcfg = get(ARCH)

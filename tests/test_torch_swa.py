@@ -291,3 +291,46 @@ def test_kernel_matches_plain_on_card(case, dtype):
     torch.cuda.synchronize()
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), rtol=tol,
                                atol=tol)
+
+
+# the dense archs' prefill heads, full causal (window = S): qwen2-0.5b's
+# 14 query heads over 2 KV heads of 64 (a group of 7) and granite-3-8b's
+# 32 over 8 of 128 — at a ragged length on the CPU, at the full-width
+# prompt of 2048 tokens on the card
+DENSE_HEADS = [(14, 2, 64), (32, 8, 128)]
+
+
+@pytest.mark.parametrize("hq,hkv,d", DENSE_HEADS)
+def test_tensor_core_rounding_fits_bf16_tolerance_at_dense_heads(hq, hkv, d):
+    """The tensor-core kernel's rounding spec (above) over a full causal
+    band at the dense archs' heads: an odd GQA group and D 64 / 128,
+    S 150 (ragged, three row blocks of 64), against the reference's
+    Pallas op and the port's plain version."""
+    s = 150
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(1, s, hq, hkv, d, hq + d),
+                                       "bfloat16")
+    got = _tc_emulation(tq, tk, tv, window=s, scale=d ** -0.5)
+    want = j_swa(jq, jk, jv, window=s, block=64, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+    plain = swa_attention(tq, tk, tv, window=s)
+    np.testing.assert_allclose(_np(got), _np(plain), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,d", [(1, 14, 2, 64), (2, 32, 8, 128)],
+                         ids=["qwen2-0.5b", "granite-3-8b"])
+def test_tc_kernel_full_causal_at_dense_heads_on_card(b, hq, hkv, d):
+    """``swa_tc_kernel`` over the full causal band of a 2048-token prompt
+    (window = S) at the dense archs' heads, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    s = 2048
+    _, ts = _both(_inputs(b, s, hq, hkv, d, hq + d), "bfloat16")
+    tq, tk, tv = (x.cuda() for x in ts)
+    before = t_kernel.launches_by_path["tc"]
+    got = swa_attention(tq, tk, tv, window=s)
+    assert t_kernel.launches_by_path["tc"] == before + 1
+    want = t_ops.swa_attention_plain(tq, tk, tv, window=s)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), rtol=2e-2,
+                               atol=2e-2)
