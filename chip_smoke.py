@@ -52,7 +52,20 @@ port's paths through them:
   query heads over 8 KV heads of 128, 8.4 G fp32 parameters): one
   2048-token prefill and 8 greedy decode steps, the kernel held to its
   plain version on every layer's operands and, in fp32, the logits and
-  the greedy tokens of kernel and plain held together.
+  the greedy tokens of kernel and plain held together;
+* the MoE family through the SWA kernel: serving mixtral-8x7b at full
+  width (d_model 4096, 32 query heads over 8 KV heads of 128, window
+  4096, 8 experts top-2 of d_ff 14336) cut to 8 of its 32 layers (11.9
+  G fp32 parameters; the full depth does not fit one card): 8 requests
+  of 5120 and 4200 tokens, banded past the window, held to the
+  reference's anchors; and grok-1-314b at full width (48 query heads
+  over 8 KV heads of 128, softcap 30, 8 experts of d_ff 32768) cut to
+  2 of its 64 layers: one 2048-token prefill and 8 greedy decode steps,
+  checked as granite-3-8b;
+* the encoder-decoder stack: serving whisper-tiny at full width and
+  depth (4 encoder + 4 decoder layers, 6 heads of 64, 1500 frames a
+  request as the engine's ``extras``): 8 requests of 224 and 120
+  decoder tokens, 32 new tokens each, held the same way.
 
 Before the paths it times every kernel beside its plain version, a
 PyTorch library call where one computes the same function, and its
@@ -140,7 +153,11 @@ LOGITS_TOL = dict(rtol=2e-2, atol=0.08)
 # ragged 2100-token prompt; the dense archs' full causal bands (window =
 # S) at qwen2-0.5b's heads (14 query over 2 KV, a group of 7, D 64) at
 # its 2048- and ragged 1200-token prompts and granite-3-8b's (32 over 8,
-# D 128); then recurrentgemma-9b's full-width prefill shape, bf16
+# D 128); mixtral-8x7b's band narrower than its 5120-token prompt
+# (window 4096, 32 over 8 heads, D 128), grok-1-314b's full causal
+# 2048 tokens with softcap 30 (48 over 8, D 128) and whisper-tiny's
+# decoder at 224 tokens (6 over 6, D 64); then recurrentgemma-9b's
+# full-width prefill shape, bf16
 SWA_CASES = [(2, s, 4, 2, 32, w, 0.0, 1.0)
              for s, w in [(128, 32), (128, 64), (256, 256), (96, 32)]] \
     + [(1, 64, 2, 2, 32, 64, 30.0, 3.0)] \
@@ -150,13 +167,22 @@ SWA_CASES = [(2, s, 4, 2, 32, w, 0.0, 1.0)
        (1, 2100, 16, 1, 256, 2048, 0.0, 1.0)] \
     + [(1, 2048, 14, 2, 64, 2048, 0.0, 1.0),
        (3, 1200, 14, 2, 64, 1200, 0.0, 1.0),
-       (2, 2048, 32, 8, 128, 2048, 0.0, 1.0)]
+       (2, 2048, 32, 8, 128, 2048, 0.0, 1.0)] \
+    + [(1, 5120, 32, 8, 128, 4096, 0.0, 1.0),
+       (1, 2048, 48, 8, 128, 2048, 30.0, 1.0),
+       (1, 224, 6, 6, 64, 224, 0.0, 1.0)]
 SWA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SWA_FULL = (1, 2560, 16, 1, 256, 2048)
-# the dense archs' full-width prefill shapes, full causal (window = S):
-# qwen2-0.5b and granite-3-8b, 1 x 2048 tokens, bf16
-SWA_DENSE = {"qwen2-0.5b": (1, 2048, 14, 2, 64, 2048),
-             "granite-3-8b": (1, 2048, 32, 8, 128, 2048)}
+# the served archs' full-width prefill shapes (b, s, hq, hkv, d,
+# window, softcap), bf16: the dense archs' full causal bands (window =
+# S; qwen2-0.5b and granite-3-8b, 1 x 2048), mixtral-8x7b's band of 4096
+# over 5120 tokens, grok-1-314b's soft-capped full causal 2048 and
+# whisper-tiny's decoder at 224 tokens
+SWA_ARCHS = {"qwen2-0.5b": (1, 2048, 14, 2, 64, 2048, 0.0),
+             "granite-3-8b": (1, 2048, 32, 8, 128, 2048, 0.0),
+             "mixtral-8x7b": (1, 5120, 32, 8, 128, 4096, 0.0),
+             "grok-1-314b": (1, 2048, 48, 8, 128, 2048, 30.0),
+             "whisper-tiny": (1, 224, 6, 6, 64, 224, 0.0)}
 BF16_OPS_PER_S = 989e12
 # first-token logits through the SWA kernel vs the plain version, both
 # prefills in fp32: the reference's one-step decode-parity tolerance for
@@ -219,9 +245,60 @@ QWEN_ORACLE_DECODE_HIT_RATE = 0.5
 # prefills of the dense archs: the reference's one-step decode-parity
 # tolerance (tests/test_decode_parity.py, rtol = atol = 2e-2)
 DENSE_LOGITS_TOL = dict(rtol=2e-2, atol=2e-2)
-# dense_path (b): granite-3-8b, one prompt of 2048 tokens (numpy
+# dense_path (b) and moe_path (b): one prompt of 2048 tokens (numpy
 # default_rng(1)), 8 greedy decode steps
 GRANITE_PROMPT, GRANITE_DECODE = 2048, 8
+
+# Serving mixtral-8x7b at full width cut to 8 of 32 layers (moe_path
+# (a)): the JAX reference's ServeEngine on the CPU as for qwen2-0.5b
+# (stub model calls, eos_id=-1) with get_config("mixtral-8x7b") and
+# num_layers=8, cache_len 5136, 8 requests of 5120 and 4200 tokens, 16
+# new tokens, 4 slots.  Its 6.8 GB bf16 weight stream exceeds the
+# paged-KV region (the same 256 MiB subset), and at 32 KiB of KV a token
+# the engine's default pool (4 slots x 5136 tokens, 673 MB) would run
+# into the state region at 0x3800_0000, so both engines get the largest
+# pool below it, 768 blocks of 16 tokens (384 MiB): it holds one
+# 5120-token and one 4200-token request at a time (max occupancy 2).
+# Oracle costs for admits of (5120, 16) and (4200, 16) in that pool:
+# prefill_step(kv, [0, 1]), decode_step(kv, [0, 1]).
+MIXTRAL_LAYERS = 8
+MIXTRAL_WEIGHT_BYTES = 268_435_456
+MIXTRAL_KV_BLOCKS = 768
+MIXTRAL_STATS = {
+    "requests": 8, "tokens": 128, "steps": 65, "prefill_steps": 8,
+    "decode_steps": 64, "idle_steps": 0, "sim_time_s": 9.82151872,
+    "tokens_per_s": 13.032607649502092, "latency_p50_s": 5.0273387199999995,
+    "latency_p99_s": 9.82081872, "mean_occupancy": 1.9692307692307693,
+    "max_occupancy": 2}
+MIXTRAL_STEP_RUNS = [("prefill", 374013952, 1)] + [
+    ("mixed", 693409280, 1), ("decode", 460324864, 14),
+    ("mixed", 719257600, 1)] * 3 + [
+    ("mixed", 693409280, 1), ("decode", 460324864, 14),
+    ("decode", 345243648, 1)]
+MIXTRAL_ORACLE = (492_017_152, 460_324_864, 0.5)
+# moe_path (b): grok-1-314b at full width, 2 of its 64 layers
+GROK_LAYERS = 2
+
+# Serving whisper-tiny at full width and depth (encdec_path): the JAX
+# reference's ServeEngine on the CPU as above (stub model calls, each
+# request's frames as extras, eos_id=-1), cache_len 256, 8 requests of
+# 224 and 120 decoder tokens, 32 new tokens, 4 slots, the default oracle
+# (its 112.7 MB weight stream fits below the paged-KV region); oracle
+# costs for 4 requests of (224, 32) in PagedKVCache(num_blocks=64,
+# block_size=16, token_bytes=6144).
+WHISPER_STATS = {
+    "requests": 8, "tokens": 256, "steps": 65, "prefill_steps": 4,
+    "decode_steps": 64, "idle_steps": 0, "sim_time_s": 2.74508416,
+    "tokens_per_s": 93.2576143676411, "latency_p50_s": 1.40301171,
+    "latency_p99_s": 2.74458416, "mean_occupancy": 3.9384615384615387,
+    "max_occupancy": 4}
+# the dense self KV grows a token a step: 21,072 more cycles a step
+WHISPER_STEP_RUNS = [("prefill", 97822816, 1), ("mixed", 204817220, 1)] \
+    + [("decode", 131901508 + 21072 * i, 1) for i in range(30)] \
+    + [("mixed", 221105876, 1), ("mixed", 204817220, 1)] \
+    + [("decode", 131901508 + 21072 * i, 1) for i in range(30)] \
+    + [("decode", 123283060, 1)]
+WHISPER_ORACLE = (99_002_848, 132_970_912, 0.5)
 
 # Full-width mamba2-130m serving anchors: the JAX reference's
 # ServeEngine on the same traffic (CPU), EngineStats.to_record() and the
@@ -1116,14 +1193,15 @@ def check_engine(eng, stats, want_stats: dict, want_runs: list) -> None:
           "cycles equal the JAX reference's, bit for bit")
 
 
-def check_oracle(oracle, kv, want: tuple) -> tuple:
-    """One prefill_step and one decode_step against the reference's
-    (prefill cycles, decode cycles, decode hit rate); returns their
-    host times (s)."""
+def check_oracle(oracle, kv, want: tuple, decode_rids=(0, 1, 2, 3)
+                 ) -> tuple:
+    """One prefill_step (rids 0 and 1) and one decode_step (over
+    ``decode_rids``) against the reference's (prefill cycles, decode
+    cycles, decode hit rate); returns their host times (s)."""
     t0 = time.perf_counter()
     pre = oracle.prefill_step(kv, [0, 1])
     t1 = time.perf_counter()
-    dec = oracle.decode_step(kv, [0, 1, 2, 3])
+    dec = oracle.decode_step(kv, list(decode_rids))
     t2 = time.perf_counter()
     if (pre.cycles, dec.cycles, dec.metrics.hit_rate) != want:
         raise AssertionError(f"oracle: prefill {pre.cycles}, decode "
@@ -1286,9 +1364,11 @@ def serve_path(dev) -> tuple[dict, dict]:
 def print_splits(profiled: dict, kernel: str) -> None:
     for name, sp in profiled.items():
         busy = sp[kernel] + sp["other"]
+        moe = "" if "moe" not in sp else \
+            f"; MoE layers {ms_or_not(sp['moe'])} ms"
         print(f"{name}: wall {sp['wall_ms']:.2f} ms, device busy "
               f"{busy:.3f} ms ({busy / sp['wall_ms']:.1%}; {kernel} "
-              f"{sp[kernel]:.3f} ms)" if busy else
+              f"{sp[kernel]:.3f} ms{moe})" if busy else
               f"{name}: wall {sp['wall_ms']:.2f} ms, device time not "
               "measured (no device events in the trace)")
 
@@ -1348,22 +1428,24 @@ def check_swa(dev) -> float:
     return worst
 
 
-def check_swa_groups(params, cfg, cache_len, groups, first, dev, tol
-                     ) -> tuple[float, float, float]:
+def check_swa_groups(params, cfg, cache_len, groups, first, dev, tol,
+                     extras=None) -> tuple[float, float, float]:
     """Each prefill group's bf16 prefill through the SWA kernel (its
     first tokens are the engine's, ``first`` by rid; the kernel against
     its plain version on every attention layer's own operands), then
     the first-token logits through the kernel against the plain
     version's, in bf16 (reported) and in fp32 (held to ``tol``).
-    ``groups`` holds lists of requests.  Returns the worst absolute
-    errors: kernel vs plain per layer, fp32 logits, bf16 logits."""
+    ``groups`` holds lists of requests; ``extras`` (by rid) the
+    engine's per-request prefill inputs, stacked as the engine stacks
+    them.  Returns the worst absolute errors: kernel vs plain per
+    layer, fp32 logits, bf16 logits."""
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.models import prefill
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     worst = bf16_worst = swa_worst = 0.0
     kernel_op = swa_ops.swa_attention
-    n_attn = cfg.layer_kinds().count("attn")
+    n_attn = cfg.layer_kinds().count("attn")   # the causal ones
 
     def plain_prefill(batch, c):
         swa_ops.swa_attention = swa_ops.swa_attention_plain
@@ -1375,6 +1457,9 @@ def check_swa_groups(params, cfg, cache_len, groups, first, dev, tol
     for reqs in groups:
         batch = {"tokens": torch.as_tensor([list(r.tokens) for r in reqs],
                                            device=dev)}
+        for key in (extras or {}).get(reqs[0].rid, {}):
+            batch[key] = torch.as_tensor(np.stack(
+                [extras[r.rid][key] for r in reqs]), device=dev)
         operands = []
 
         def capture(*args, **kw):
@@ -1419,7 +1504,11 @@ def check_swa_groups(params, cfg, cache_len, groups, first, dev, tol
 
 def swa_serve_runs() -> dict:
     """The serving paths through the SWA kernel, by arch: traffic,
-    oracle and the JAX reference's anchors (above)."""
+    oracle and the JAX reference's anchors (above).  ``layers`` cuts
+    the depth, ``num_blocks`` sizes the engine's KV pool (the default
+    backs every slot), ``admits`` are the oracle anchors' requests (4
+    prompts and their new tokens by default), ``frames`` submits each
+    request's frame embeddings as ``extras``."""
     return {
         "recurrentgemma-9b": dict(
             cache_len=2576, lengths=(2560, 2100), max_new=16,
@@ -1432,7 +1521,50 @@ def swa_serve_runs() -> dict:
             weight_bytes=QWEN_WEIGHT_BYTES, stats=QWEN_STATS,
             runs=QWEN_STEP_RUNS, kv_blocks=520, tol=DENSE_LOGITS_TOL,
             oracle=(QWEN_ORACLE_PREFILL_CYCLES, QWEN_ORACLE_DECODE_CYCLES,
-                    QWEN_ORACLE_DECODE_HIT_RATE))}
+                    QWEN_ORACLE_DECODE_HIT_RATE)),
+        "mixtral-8x7b": dict(
+            cache_len=5136, lengths=(5120, 4200), max_new=16,
+            layers=MIXTRAL_LAYERS, weight_bytes=MIXTRAL_WEIGHT_BYTES,
+            num_blocks=MIXTRAL_KV_BLOCKS, kv_blocks=MIXTRAL_KV_BLOCKS,
+            admits=((5120, 16), (4200, 16)), stats=MIXTRAL_STATS,
+            runs=MIXTRAL_STEP_RUNS, tol=DENSE_LOGITS_TOL,
+            oracle=MIXTRAL_ORACLE),
+        "whisper-tiny": dict(
+            cache_len=256, lengths=(224, 120), max_new=32,
+            weight_bytes=None, kv_blocks=64, frames=True,
+            stats=WHISPER_STATS, runs=WHISPER_STEP_RUNS,
+            tol=DENSE_LOGITS_TOL, oracle=WHISPER_ORACLE)}
+
+
+def request_frames(cfg, rid: int) -> np.ndarray:
+    """Request ``rid``'s frame embeddings (encoder_len, d_model), fp32,
+    from ``np.random.default_rng(100 + rid)``."""
+    return np.random.default_rng(100 + rid).standard_normal(
+        (cfg.encoder_len, cfg.d_model)).astype(np.float32)
+
+
+def moe_drops(params, cfg, batch, cache_len) -> list:
+    """The token-choices each MoE layer of a prefill of ``batch``
+    drops (past its expert's capacity), in layer order."""
+    from repro_torch.models import moe, prefill
+
+    apply_moe = moe.apply_moe
+    drops = []
+
+    def counting(p, x, c, **kw):
+        b, s, d = x.shape
+        group = moe.group_size(b * s)
+        r = moe.route(moe.router_probs(p, x.reshape(-1, group, d)), c,
+                      moe._capacity(group, c))
+        drops.append(int((~r.fits).sum()))
+        return apply_moe(p, x, c, **kw)
+
+    moe.apply_moe = counting
+    try:
+        prefill(params, batch, cfg, cache_len)
+    finally:
+        moe.apply_moe = apply_moe
+    return drops
 
 
 def serve_swa_path(dev, arch: str) -> tuple[dict, dict]:
@@ -1442,7 +1574,10 @@ def serve_swa_path(dev, arch: str) -> tuple[dict, dict]:
     prefill group's first-token logits through the SWA kernel against
     the plain version, and the kernel against its plain version on
     every attention layer's operands of those prefills
-    (``check_swa_groups``)."""
+    (``check_swa_groups``); for an MoE arch the token-choices each layer
+    drops in one prefill.  A profiled prefill and decode step split the
+    device time into ``swa``, the MoE layers (for an MoE arch) and the
+    rest."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.convcore import kernel as cc_kernel
     from repro_torch.kernels.postproc import kernel as pp_kernel
@@ -1460,8 +1595,12 @@ def serve_swa_path(dev, arch: str) -> tuple[dict, dict]:
 
     run = swa_serve_runs()[arch]
     cache_len, plen = run["cache_len"], run["lengths"][0]
-    phase(f"serving path: {arch} at full width through ServeEngine")
     cfg = get_config(arch)
+    cut = ""
+    if run.get("layers"):
+        cut = f", depth cut to {run['layers']} of {cfg.num_layers} layers"
+        cfg = dataclasses.replace(cfg, num_layers=run["layers"])
+    phase(f"serving path: {arch} at full width{cut} through ServeEngine")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = param_values(init_params(
@@ -1476,12 +1615,15 @@ def serve_swa_path(dev, arch: str) -> tuple[dict, dict]:
     ws = decode_working_set(cfg)
     eng = ServeEngine(cfg, params, cache_len=cache_len, max_slots=4,
                       temperature=0.0, eos_id=-1, device=dev,
+                      num_blocks=run.get("num_blocks"),
                       oracle=SoCLatencyOracle(
                           ws, weight_bytes=run["weight_bytes"], device=dev))
     requests = serve_requests(cfg.vocab_size, lengths=run["lengths"],
                               max_new=run["max_new"])
+    extras = {r.rid: {"frames": request_frames(cfg, r.rid)}
+              for r in requests} if run.get("frames") else {}
     for req in requests:
-        eng.submit(req)
+        eng.submit(req, extras=extras.get(req.rid))
     cc_kernel.launches = pp_kernel.launches = ssd_kernel.launches = 0
     swa_kernel.launches = 0
     swa_kernel.launches_by_path.update(tc=0, fma=0)
@@ -1516,16 +1658,17 @@ def serve_swa_path(dev, arch: str) -> tuple[dict, dict]:
 
     kv = PagedKVCache(num_blocks=run["kv_blocks"], block_size=16,
                       token_bytes=ws.kv_token_bytes)
-    for rid in range(4):
-        kv.admit(rid, plen, run["max_new"])
+    admits = run.get("admits") or ((plen, run["max_new"]),) * 4
+    for rid, (n, new) in enumerate(admits):
+        kv.admit(rid, n, new)
     pre_s, dec_s = check_oracle(
         SoCLatencyOracle(ws, weight_bytes=run["weight_bytes"], device=dev),
-        kv, run["oracle"])
+        kv, run["oracle"], decode_rids=range(len(admits)))
 
     first = {f["rid"]: f["tokens"][0] for f in eng.finished}
     swa_worst, worst, bf16_worst = check_swa_groups(
         params, cfg, cache_len, [[by_rid[r] for r in rids] for rids in groups],
-        first, dev, run["tol"])
+        first, dev, run["tol"], extras)
 
     split = {"wall_s": wall, "model_s": eng.wall_s["model"],
              "oracle_s": eng.wall_s["oracle"],
@@ -1540,35 +1683,51 @@ def serve_swa_path(dev, arch: str) -> tuple[dict, dict]:
     ts = torch.full((4,), plen, dtype=torch.int64, device=dev)
     one = {"tokens": torch.as_tensor([list(requests[0].tokens)],
                                      device=dev)}
+    for key, val in extras.get(0, {}).items():
+        one[key] = torch.as_tensor(val[None], device=dev)
+    if cfg.num_experts:
+        split["moe_drops_per_layer"] = moe_drops(params, cfg, one, cache_len)
+        print(f"MoE token-choices dropped per layer in a 1 x {plen} prefill "
+              f"({plen * cfg.num_experts_per_tok} choices a layer): "
+              f"{split['moe_drops_per_layer']}")
+    ranges = ("moe",) if cfg.num_experts else ()
     split["profiled"] = {
         f"prefill_1x{plen}": device_split(
-            lambda: prefill(params, one, cfg, cache_len), kinds),
+            lambda: prefill(params, one, cfg, cache_len), kinds, ranges),
         "decode_step_4_slots": device_split(
-            lambda: slot_decode_step(params, caches, toks, ts, cfg), kinds)}
+            lambda: slot_decode_step(params, caches, toks, ts, cfg), kinds,
+            ranges)}
     print_splits(split["profiled"], "swa")
     del params, eng, caches
     torch.cuda.empty_cache()
     return launches, split
 
 
-def granite_path(dev) -> tuple[int, dict]:
-    """The dense path's second part, with the SWA launch counter at 0
-    before it: granite-3-8b at full width (40 layers, d_model 4096, 32
-    query heads over 8 KV heads of 128, 8.4 G fp32 parameters from seed
-    0), one bf16 prefill of 2048 tokens through the kernel and 8 greedy
-    decode steps on the dense cache; then the kernel against its plain
-    version on every layer's own operands of that prefill, and in fp32
-    the prefill's logits through the kernel against the plain
-    version's, and the 9 greedy tokens of both equal."""
+def greedy_path(dev, arch: str, layers: int | None = None
+                ) -> tuple[int, dict]:
+    """One arch at full width (``layers`` cuts the depth), with the SWA
+    launch counter at 0 before it: parameters from seed 0, one bf16
+    prefill of 2048 tokens through the kernel and 8 greedy decode
+    steps; then the kernel against its plain version on every layer's
+    own operands of that prefill, and in fp32 the prefill's logits
+    through the kernel against the plain version's, and the 9 greedy
+    tokens of both equal.  Serves granite-3-8b (40 layers, 32 query
+    heads over 8 KV heads of 128, 8.4 G fp32 parameters) and
+    grok-1-314b (2 of 64 layers: 48 query heads over 8 KV heads of 128,
+    softcap 30, 8 experts of d_ff 32768; 11.4 G fp32 parameters)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.swa import kernel as swa_kernel
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.types import param_values, tree_map
 
-    phase(f"dense path (b): granite-3-8b at full width, one "
-          f"{GRANITE_PROMPT}-token prefill and {GRANITE_DECODE} decode steps")
-    cfg = get_config("granite-3-8b")
+    cfg = get_config(arch)
+    cut = ""
+    if layers:
+        cut = f", depth cut to {layers} of {cfg.num_layers} layers"
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    phase(f"{arch} at full width{cut}, one {GRANITE_PROMPT}-token prefill "
+          f"and {GRANITE_DECODE} decode steps")
     s, n_dec = GRANITE_PROMPT, GRANITE_DECODE
     cache_len = s + n_dec
     torch.cuda.reset_peak_memory_stats()
@@ -1630,7 +1789,7 @@ def granite_path(dev) -> tuple[int, dict]:
         raise AssertionError(f"swa launched {by_path}, not once a layer "
                              "on the tensor-core path")
     if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("granite-3-8b bf16 logits not finite")
+        raise AssertionError(f"{arch} bf16 logits not finite")
     swa_worst = max(check_swa_close(*args, **kw) for args, kw in operands)
     del operands
     bf16_gap = max_err(logits[:, :cfg.vocab_size], greedy(
@@ -1653,11 +1812,12 @@ def granite_path(dev) -> tuple[int, dict]:
     kinds = {"swa": "swa_tc_kernel"}
     _, caches, t = prefill(params, batch, cfg, cache_len)
     tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    ranges = ("moe",) if cfg.num_experts else ()
     profiled = {
         f"prefill_1x{s}": device_split(
-            lambda: prefill(params, batch, cfg, cache_len), kinds),
+            lambda: prefill(params, batch, cfg, cache_len), kinds, ranges),
         "decode_step_1_slot": device_split(
-            lambda: decode_step(params, caches, tok, t, cfg), kinds)}
+            lambda: decode_step(params, caches, tok, t, cfg), kinds, ranges)}
     print_splits(profiled, "swa")
     del params, caches
     torch.cuda.empty_cache()
@@ -1674,11 +1834,35 @@ def dense_path(dev) -> tuple[int, dict]:
     full width, (b) granite-3-8b at full width; the SWA launches of
     both (full causal bands, D 64 and D 128)."""
     serve_launches, serve = serve_swa_path(dev, "qwen2-0.5b")
-    granite_launches, granite = granite_path(dev)
+    granite_launches, granite = greedy_path(dev, "granite-3-8b")
     return serve_launches["swa"] + granite_launches, {
         "qwen2-0.5b": serve, "granite-3-8b": granite,
         "swa_max_abs_err": max(serve["swa_max_abs_err"],
                                granite["swa_max_abs_err"])}
+
+
+def moe_path(dev) -> tuple[int, dict]:
+    """The MoE family's path: (a) serving mixtral-8x7b at full width cut
+    to 8 of 32 layers (banded attention, D 128, groups of 4), (b)
+    grok-1-314b at full width cut to 2 of 64 layers (soft-capped full
+    causal attention, D 128, groups of 6); the SWA launches of both."""
+    serve_launches, serve = serve_swa_path(dev, "mixtral-8x7b")
+    grok_launches, grok = greedy_path(dev, "grok-1-314b", GROK_LAYERS)
+    return serve_launches["swa"] + grok_launches, {
+        "mixtral-8x7b": serve, "grok-1-314b": grok,
+        "swa_max_abs_err": max(serve["swa_max_abs_err"],
+                               grok["swa_max_abs_err"])}
+
+
+def encdec_path(dev) -> tuple[int, dict]:
+    """The encoder-decoder path: serving whisper-tiny at full width and
+    depth with each request's frames as ``extras``; the SWA launches of
+    its decoder's causal self-attention (full causal, D 64, no
+    grouping; the encoder and the cross-attention are plain torch, as
+    in the reference)."""
+    launches, serve = serve_swa_path(dev, "whisper-tiny")
+    return launches["swa"], {"whisper-tiny": serve,
+                             "swa_max_abs_err": serve["swa_max_abs_err"]}
 
 
 def farm_path(dev) -> dict:
@@ -2033,56 +2217,66 @@ def time_swa(dev) -> dict:
     return out
 
 
-def time_swa_dense(dev) -> dict:
-    """The SWA kernel at the dense archs' full-width prefill shapes
-    (``SWA_DENSE``: full causal, window = S, bf16) beside its plain
-    version, scaled_dot_product_attention(is_causal=True) on the KV
-    heads expanded outside the timing, and its bound (the causal pairs'
-    FLOPs over the bf16 tensor-core peak, or the bytes over HBM)."""
+def time_swa_archs(dev) -> dict:
+    """The SWA kernel at the served archs' full-width prefill shapes
+    (``SWA_ARCHS``, bf16) beside its plain version, its bound (the
+    in-band pairs' FLOPs over the bf16 tensor-core peak, or the bytes
+    over HBM) and scaled_dot_product_attention on the KV heads expanded
+    outside the timing: ``is_causal=True`` for a full causal band, a
+    boolean band mask for a narrower one; none for a soft-capped one
+    (SDPA applies no tanh softcap)."""
     from repro_torch.kernels.swa import kernel as K
     from repro_torch.kernels.swa import ops
 
     out = {}
     gen = torch.Generator(device=dev).manual_seed(5)
-    for arch, (b, s, hq, hkv, d, window) in SWA_DENSE.items():
+    for arch, (b, s, hq, hkv, d, window, cap) in SWA_ARCHS.items():
         q, k, v = swa_inputs(b, s, hq, hkv, d, torch.bfloat16, gen, dev)
 
         def tc():
             return K.swa_attention_kernel(q, k, v, window=window,
-                                          scale=d ** -0.5)
+                                          scale=d ** -0.5, softcap=cap)
 
         qh = q.transpose(1, 2)
         kh, vh = (x.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
                   .contiguous() for x in (k, v))
+        pos = torch.arange(s, device=dev)
+        band = (pos[:, None] >= pos[None, :]) & \
+            (pos[:, None] - pos[None, :] < window)
+        full = window >= s
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True)
+                qh, kh, vh, is_causal=full, attn_mask=None if full else band)
 
+        want = ops.swa_attention_plain(q, k, v, window=window, softcap=cap)
         tm = {"ms": queued_ms(tc, 20), "event_ms": cuda_ms(tc, 20),
               "plain_ms": cuda_ms(lambda: ops.swa_attention_plain(
-                  q, k, v, window=window), 5),
-              "library_ms": queued_ms(sdpa, 20),
-              "library_event_ms": cuda_ms(sdpa, 20)}
-        want = ops.swa_attention_plain(q, k, v, window=window)
-        tm["max_abs_err"] = max_err(tc(), want)
-        lib_err = max_err(sdpa().transpose(1, 2), want)
+                  q, k, v, window=window, softcap=cap), 5),
+              "library_ms": None, "library_event_ms": None,
+              "max_abs_err": max_err(tc(), want)}
+        library = "scaled_dot_product_attention: none (no tanh softcap)"
+        if not cap:
+            tm["library_ms"] = queued_ms(sdpa, 20)
+            tm["library_event_ms"] = cuda_ms(sdpa, 20)
+            library = (f"scaled_dot_product_attention("
+                       f"{'is_causal=True' if full else 'band mask'}) "
+                       f"{tm['library_ms']:.4f} ms (events "
+                       f"{tm['library_event_ms']:.4f}; max abs err vs plain "
+                       f"{max_err(sdpa().transpose(1, 2), want):.2e})")
         flops, nbytes = swa_bound(tm, b, s, hq, hkv, d, window)
         if tm["max_abs_err"] > SWA_TOL[torch.bfloat16]:
             raise AssertionError(f"swa at {arch}'s shape: max abs err "
                                  f"{tm['max_abs_err']:.3e} vs plain")
-        print(f"swa {arch} b {b} s {s} hq {hq} hkv {hkv} d {d} full causal "
-              f"bf16: kernel (tc) {tm['ms']:.4f} ms of device time (events "
-              f"{tm['event_ms']:.4f}), plain {tm['plain_ms']:.4f} ms, "
-              f"scaled_dot_product_attention(is_causal=True) "
-              f"{tm['library_ms']:.4f} ms (events "
-              f"{tm['library_event_ms']:.4f}; max abs err vs plain "
-              f"{lib_err:.2e}), bound {tm['bound_ms']:.4f} ms "
-              f"({tm['bound_by']}: {flops / 1e9:.2f} GFLOP causal, "
-              f"{nbytes / 1e6:.1f} MB); kernel vs plain max abs err "
-              f"{tm['max_abs_err']:.2e}")
+        print(f"swa {arch} b {b} s {s} hq {hq} hkv {hkv} d {d} window "
+              f"{window} softcap {cap:g} bf16: kernel (tc) {tm['ms']:.4f} ms "
+              f"of device time (events {tm['event_ms']:.4f}), plain "
+              f"{tm['plain_ms']:.4f} ms, {library}, bound "
+              f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}: "
+              f"{flops / 1e9:.2f} GFLOP in band, {nbytes / 1e6:.1f} MB); "
+              f"kernel vs plain max abs err {tm['max_abs_err']:.2e}")
         out[arch] = tm
-        del q, k, v, qh, kh, vh, want
+        del q, k, v, qh, kh, vh, want, band
     return out
 
 
@@ -2364,28 +2558,53 @@ def time_postproc(dev) -> dict:
     return pp
 
 
-def device_split(fn, kinds=None) -> dict:
+def device_split(fn, kinds=None, ranges=()) -> dict:
     """Wall time of ``fn`` and the device time of the kernels it
     launches, by kind (name -> substring of the kernel's name), from a
     torch.profiler trace (ms; the wall time includes the profiler's own
-    cost)."""
-    from torch.profiler import ProfilerActivity, profile
+    cost).  ``ranges`` may hold ``"moe"``: every MoE layer runs inside a
+    ``record_function`` range of that name, and ``split["moe"]`` is the
+    device time of the kernels launched inside them (a part of the
+    other kernels' time; None where the trace linked none)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    from repro_torch.models import moe
+
+    apply_moe = moe.apply_moe
+
+    def ranged(*args, **kw):
+        with record_function("moe"):
+            return apply_moe(*args, **kw)
+
+    if "moe" in ranges:
+        moe.apply_moe = ranged
+    try:
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        moe.apply_moe = apply_moe
     kinds = kinds or {"convcore": "convcore_",
                       "postproc": "postproc_"}
-    split = {"wall_ms": (time.perf_counter() - t0) * 1e3, "other": 0.0,
-             **{k: 0.0 for k in kinds}}
+    split = {"wall_ms": wall * 1e3, "other": 0.0, **{k: 0.0 for k in kinds}}
+    for name in ranges:
+        split[name] = 0.0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.name in ranges:
+            # the CPU range sums its kernels; its GPU annotation (a
+            # device event spanning them) is no kernel
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                split[e.name] += e.device_time_total / 1e3
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
             kind = next((k for k, sub in kinds.items() if sub in e.name),
                         "other")
             split[kind] += e.device_time_total / 1e3
+    for name in ranges:
+        split[name] = split[name] or None
     return split
 
 
@@ -2442,7 +2661,7 @@ def main() -> int:
     timed, rows = time_kernels(dev)
     timed["ssd"] = time_ssd(dev)
     timed["swa"] = time_swa(dev)
-    timed["swa_dense"] = time_swa_dense(dev)
+    timed["swa_archs"] = time_swa_archs(dev)
     res, launches, main_errs = main_path(dev)
     engine_times = paper_chain(res, dev)
     sim = sim_path(dev)
@@ -2453,9 +2672,13 @@ def main() -> int:
     rg_launches, serve_rg = serve_swa_path(dev, "recurrentgemma-9b")
     farm = farm_path(dev)
     dense_launches, dense = dense_path(dev)
-    launches["swa"] = rg_launches["swa"] + dense_launches
+    moe_launches, moe = moe_path(dev)
+    encdec_launches, encdec = encdec_path(dev)
+    launches["swa"] = rg_launches["swa"] + dense_launches + moe_launches \
+        + encdec_launches
     main_errs["swa"] = max(serve_rg["swa_max_abs_err"],
-                           dense["swa_max_abs_err"])
+                           dense["swa_max_abs_err"], moe["swa_max_abs_err"],
+                           encdec["swa_max_abs_err"])
     profiled = where_time_goes(dev)
 
     meta = {
@@ -2488,7 +2711,7 @@ def main() -> int:
         {"card": smi, "kernels": kernels, "convcore_layers": rows,
          "engine_wall_s": engine_times, "sim_path": sim,
          "campaign_path": campaign, "farm_path": farm,
-         "dense_path": dense,
+         "dense_path": dense, "moe_path": moe, "encdec_path": encdec,
          "profiled": profiled,
          "timed": timed,
          "serve": serve, "serve_recurrentgemma": serve_rg}, indent=1))

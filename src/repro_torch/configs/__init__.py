@@ -1,14 +1,14 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
-``ARCHS`` lists the architectures whose block kinds the port runs: the
-SSM family (``mamba2-130m``), the Griffin hybrid of RG-LRU and local
-attention (``recurrentgemma-9b``) and the dense transformer family with
+``ARCHS`` lists the architectures the port runs: the SSM family
+(``mamba2-130m``), the Griffin hybrid of RG-LRU and local attention
+(``recurrentgemma-9b``), the dense transformer family with
 full-context attention (``qwen2-0.5b``, ``deepseek-7b``,
-``granite-3-8b``, ``chatglm3-6b``).  The registry also holds
-``whisper-tiny``, which only sizes the NPU's GEMM workloads
-(``core.npu``) until the encoder-decoder stack is ported.  The other
-archs of the reference's registry arrive with their block kinds
-(ROADMAP, port queue).
+``granite-3-8b``, ``chatglm3-6b``), the top-k MoE family
+(``mixtral-8x7b`` with sliding-window attention, ``grok-1-314b`` with
+soft-capped attention) and the encoder-decoder ``whisper-tiny``.  The
+reference's last arch, ``internvl2-26b``, arrives with the VLM input
+stage (ROADMAP, port queue).
 """
 from __future__ import annotations
 
@@ -30,10 +30,11 @@ _ARCH_MODULES = {
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "grok-1-314b": "repro_torch.configs.grok_1_314b",
 }
 
-ARCHS = ("mamba2-130m", "recurrentgemma-9b", "qwen2-0.5b", "deepseek-7b",
-         "granite-3-8b", "chatglm3-6b")
+ARCHS = tuple(_ARCH_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,6 +1,6 @@
-"""Model zoo of the port: the block kinds ported so far — mamba-2
-(``"ssm"``), RG-LRU (``"rec"``) and causal / local self-attention
-(``"attn"``)."""
+"""Model zoo of the port: mamba-2 (``"ssm"``), RG-LRU (``"rec"``) and
+attention (``"attn"``) blocks, the latter with a dense MLP or the top-k
+MoE FFN (``moe``), and the encoder-decoder stack (whisper)."""
 from repro_torch.models.decoding import (  # noqa: F401
     DecodeWorkingSet,
     cache_slot_axes,

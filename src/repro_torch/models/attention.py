@@ -1,5 +1,5 @@
 """Attention: GQA/MQA self-attention, full-context or sliding-window
-(banded), KV caches.
+(banded), cross-attention, KV caches.
 
 * Prefill is causal attention through ``kernels.swa`` — the Hopper
   kernel on the card, its plain version on the CPU — over a band of
@@ -19,9 +19,15 @@
   of the output, as in the plain prefill, so decode reproduces the
   prefill's logits (the reference rounds the probabilities to the
   compute dtype instead, in both of its paths).
+* Cross-attention (the queries over an encoder output, key positions
+  ``arange(T)``, no RoPE) and non-causal self-attention (the encoder)
+  are plain torch in prefill and decode: the reference computes them
+  outside its Pallas kernel, which is causal only.  They keep the
+  decode path's rounding points (fp32 scores, softmax and P.V, one
+  rounding of the output).
 
-Cross-attention, int8 KV caches and split-K decode raise
-``NotImplementedError`` until their slices land (ROADMAP, port queue).
+Int8 KV caches and split-K decode raise ``NotImplementedError`` until
+their slices land (ROADMAP, port queue).
 """
 from __future__ import annotations
 
@@ -38,8 +44,7 @@ NEG_INF = -1e30
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet — ROADMAP, port queue (the port runs "
-        "causal self-attention, full-context or local, with a bf16 or "
-        "fp32 KV cache)")
+        "self- and cross-attention with a bf16 or fp32 KV cache)")
 
 
 # --------------------------------------------------------------------------
@@ -101,30 +106,51 @@ def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
     return scores
 
 
+def _attend_plain(q, k, v, cfg: ModelConfig, valid=None) -> torch.Tensor:
+    """q (B, L, nq, hd) over k/v (B, T, n_kv, hd) with GQA by grouping
+    the query heads; ``valid`` (B or 1, T) masks keys.  fp32 scores,
+    softmax and P.V, the output rounded once to q's dtype."""
+    b, l, nq, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, l, nkv, nq // nkv, hd)
+    scores = torch.einsum("blkgh,btkh->bkglt", qg.to(torch.float32),
+                          k.to(torch.float32)) * hd ** -0.5
+    scores = _softcap(scores, cfg.attn_logit_softcap)
+    if valid is not None:
+        scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkglt,btkh->blkgh", probs, v.to(torch.float32))
+    return out.reshape(b, l, nq, hd).to(q.dtype)
+
+
 # --------------------------------------------------------------------------
 # prefill path (the SWA kernel)
 # --------------------------------------------------------------------------
 def attend(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
            positions: torch.Tensor, causal: bool = True, window: int = 0,
            kv_src: torch.Tensor | None = None, return_kv: bool = False):
-    """Full-sequence causal self-attention (prefill).
+    """Full-sequence attention (prefill, encoder, cross).
 
-    x: (B, S, d); positions: (S,) query positions; each query sees the
-    ``window`` positions up to its own, or all of them when ``window``
-    is 0.  Returns (B, S, d) [, (k, v) after RoPE, at n_kv heads]."""
-    if kv_src is not None or not causal:
-        raise _unported("cross-attention and non-causal attention "
-                        "(encoder stacks)")
+    x: (B, S, d); positions: (S,) query positions.  Causal
+    self-attention (the swa op): each query sees the ``window``
+    positions up to its own, or all of them when ``window`` is 0.
+    ``causal=False`` sees every key; ``kv_src`` (B, T, d), an encoder
+    output, gives the keys and values of a cross-attention (no RoPE,
+    every key).  Returns (B, S, d) [, (k, v) after RoPE, at n_kv
+    heads]."""
     q = _project_q(params, x, cfg)
-    k, v = _project_kv(params, x, cfg)
-    if cfg.rope_fraction > 0:
+    k, v = _project_kv(params, x if kv_src is None else kv_src, cfg)
+    if cfg.rope_fraction > 0 and kv_src is None:
         q = apply_rope(q, positions, cfg)
         k = apply_rope(k, positions, cfg)
-    # full context is the band as wide as the keys: the kernel computes
-    # row0 - window + 1 in int, so no sentinel width
-    out = swa_ops.swa_attention(q, k, v, window=window or k.shape[1],
-                                scale=cfg.head_dim ** -0.5,
-                                softcap=cfg.attn_logit_softcap)
+    if kv_src is not None or not causal:
+        out = _attend_plain(q, k, v, cfg)
+    else:
+        # full context is the band as wide as the keys: the kernel
+        # computes row0 - window + 1 in int, so no sentinel width
+        out = swa_ops.swa_attention(q, k, v, window=window or k.shape[1],
+                                    scale=cfg.head_dim ** -0.5,
+                                    softcap=cfg.attn_logit_softcap)
     y = _out(params, out)
     if return_kv:
         return y, (k, v)
@@ -157,9 +183,13 @@ def attend_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
                   cross_cache: dict | None = None):
     """One-token decode. x: (B, 1, d); t: the absolute position, a
     scalar or one per row (B,).  Returns (y, new_cache); the cache is
-    not written in place."""
+    not written in place.  With ``cross_cache`` (the encoder output's
+    precomputed k/v) it attends to every encoder position instead and
+    passes ``cache`` through."""
     if cross_cache is not None:
-        raise _unported("cross-attention decode")
+        out = _attend_plain(_project_q(params, x, cfg), cross_cache["k"],
+                            cross_cache["v"], cfg)
+        return _out(params, out), cache
     b = x.shape[0]
     ts = torch.as_tensor(t, device=x.device).to(torch.int64).reshape(-1) \
         .expand(b)
@@ -187,17 +217,9 @@ def attend_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         valid = idx[None, :] <= ts[:, None]
     # GQA by grouping the query heads (the reference broadcasts each KV
-    # head over its group; the products are the same)
-    nkv, hd = cfg.num_kv_heads, cfg.head_dim
-    qg = q.reshape(b, 1, nkv, cfg.num_heads // nkv, hd)
-    scores = torch.einsum("blkgh,btkh->bkglt", qg.to(torch.float32),
-                          new_cache["k"].to(torch.float32)) * hd ** -0.5
-    scores = _softcap(scores, cfg.attn_logit_softcap)
-    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
-    # probabilities and P.V in fp32, the output rounded once: the plain
-    # prefill's rounding points (kernels/swa/ops.swa_attention_plain), so
-    # a decode step reproduces the prefill's logits
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkglt,btkh->blkgh", probs,
-                       new_cache["v"].to(torch.float32)).to(x.dtype)
-    return _out(params, out.reshape(b, 1, cfg.num_heads, hd)), new_cache
+    # head over its group; the products are the same); probabilities
+    # and P.V in fp32, the output rounded once: the plain prefill's
+    # rounding points (kernels/swa/ops.swa_attention_plain), so a decode
+    # step reproduces the prefill's logits
+    out = _attend_plain(q, new_cache["k"], new_cache["v"], cfg, valid)
+    return _out(params, out), new_cache

@@ -14,7 +14,9 @@ Cache kinds ported so far:
   cache_len)`` slots, slot = position mod length;
 * mamba-2 — ``(B, conv_k-1, C)`` bf16 conv tail + ``(B, H, N, P)`` fp32
   SSM state;
-* RG-LRU — ``(B, conv_k-1, W)`` bf16 conv tail + ``(B, W)`` fp32 state.
+* RG-LRU — ``(B, conv_k-1, W)`` bf16 conv tail + ``(B, W)`` fp32 state;
+* whisper decoder — ``{"self": dense KV, "cross": the encoder output's
+  precomputed k/v of ``encoder_len`` rows}``.
 """
 from __future__ import annotations
 
@@ -32,13 +34,15 @@ from repro_torch.models.transformer import (
     _check_supported,
     _embed_input,
     _run_stack,
+    _sinusoid,
     _unported,
     apply_block_decode,
+    encode,
     layer,
     pattern_split,
     stack_trees,
 )
-from repro_torch.types import Param, tree_map
+from repro_torch.types import Param, is_param, tree_map
 from repro_torch.utils.env import default_device
 
 
@@ -60,7 +64,14 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
         axes = attn_mod.cache_axes()
     else:
         raise _unported(f"the {kind!r} cache")
-    return {k: Param(v, axes[k]) for k, v in values.items()}
+    cache = {k: Param(v, axes[k]) for k, v in values.items()}
+    if kind == "attn" and cfg.is_encoder_decoder:
+        shape = (batch, cfg.encoder_len, cfg.num_kv_heads, cfg.head_dim)
+        dt = L.compute_dtype(cfg)
+        cache = {"self": cache, "cross": {
+            k: Param(torch.zeros(shape, dtype=dt, device=device), axes[k])
+            for k in ("k", "v")}}
+    return cache
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
@@ -76,10 +87,10 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
     caches: dict = {}
     if n_full:
         caches["blocks"] = tuple(
-            {k: Param(p.value[None].expand((n_full,) + p.value.shape)
-                      .contiguous(), ("layers",) + p.axes)
-             for k, p in _layer_cache(cfg, kind, batch, cache_len,
-                                      device=dev).items()}
+            tree_map(lambda p: Param(p.value[None].expand(
+                (n_full,) + p.value.shape).contiguous(), ("layers",) + p.axes),
+                _layer_cache(cfg, kind, batch, cache_len, device=dev),
+                is_leaf=is_param)
             for kind in pattern)
     if rem:
         caches["rem"] = tuple(
@@ -99,9 +110,18 @@ def _to_decode_cache(raw, cfg: ModelConfig, kind: str, cache_len: int,
     attention layer's keys and values go to their slots of a dense
     cache of ``cache_len`` (full context: every position at its own
     slot) or of a rolling buffer: the last ``min(S, length)``
-    positions, at ``position mod length``."""
+    positions, at ``position mod length``; an encdec layer's cross k/v
+    pass through."""
     if kind in ("ssm", "rec"):
         return raw
+    if cfg.is_encoder_decoder:
+        return {"self": _kv_slots(raw["self"], cfg, cache_len, positions),
+                "cross": raw["cross"]}
+    return _kv_slots(raw, cfg, cache_len, positions)
+
+
+def _kv_slots(raw, cfg: ModelConfig, cache_len: int,
+              positions: torch.Tensor) -> dict:
     k, v = raw["k"], raw["v"]                  # (..., B, S, n_kv, hd)
     window = _attn_window(cfg)
     length = min(window, cache_len) if window else cache_len
@@ -117,12 +137,15 @@ def _to_decode_cache(raw, cfg: ModelConfig, kind: str, cache_len: int,
 
 def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int):
     """Run the full prompt, return (last-token logits (B, Vp), caches,
-    t_next), the caches in decode format."""
+    t_next), the caches in decode format; an encdec config reads
+    ``batch["frames"]`` (B, encoder_len, d)."""
     _check_supported(cfg)
     pattern, _, _ = pattern_split(cfg)
     x, positions, _ = _embed_input(params, batch, cfg)
+    enc_out = encode(params, batch["frames"], cfg) \
+        if cfg.is_encoder_decoder else None
     x, raw = _run_stack(params, x, cfg, pattern, positions=positions,
-                        collect_cache=True)
+                        enc_out=enc_out, collect_cache=True)
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x[:, -1:], cfg)[:, 0]
     caches: dict = {}
@@ -141,13 +164,18 @@ def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int):
 # --------------------------------------------------------------------------
 # single-token decode
 # --------------------------------------------------------------------------
-def decode_step(params, caches, token: torch.Tensor, t, cfg: ModelConfig):
+def decode_step(params, caches, token: torch.Tensor, t, cfg: ModelConfig,
+                *, row_groups: bool = False):
     """One decode step.  token (B, 1) int; t the absolute position (a
-    scalar, or one per row).  Returns (logits (B, padded_vocab) fp32,
-    new_caches)."""
+    scalar, or one per row).  The B tokens route through an MoE layer
+    as one group, or each as a group of its own with ``row_groups``.
+    Returns (logits (B, padded_vocab) fp32, new_caches)."""
     _check_supported(cfg)
     pattern, _, _ = pattern_split(cfg)
     x = L.embed_tokens(params["embed"], token, cfg)
+    if cfg.is_encoder_decoder:   # the sinusoid at each row's position
+        ts = torch.as_tensor(t, device=x.device).reshape(-1)
+        x = x + _sinusoid(ts, cfg.d_model).to(x.dtype)[:, None]
     new_caches: dict = {}
     if "blocks" in caches:
         n_layers = params["blocks"][0]["norm1"]["scale"].shape[0]
@@ -156,14 +184,16 @@ def decode_step(params, caches, token: torch.Tensor, t, cfg: ModelConfig):
             for j, kind in enumerate(pattern):
                 x, c = apply_block_decode(layer(params["blocks"][j], i), x,
                                           cfg, kind,
-                                          layer(caches["blocks"][j], i), t)
+                                          layer(caches["blocks"][j], i), t,
+                                          row_groups=row_groups)
                 per_pos[j].append(c)
         new_caches["blocks"] = tuple(stack_trees(c) for c in per_pos)
     if "rem" in caches:
         rem_new = []
         for j, blk in enumerate(params["rem"]):
             x, c = apply_block_decode(blk, x, cfg, pattern[j % len(pattern)],
-                                      caches["rem"][j], t)
+                                      caches["rem"][j], t,
+                                      row_groups=row_groups)
             rem_new.append(c)
         new_caches["rem"] = tuple(rem_new)
     x = L.apply_norm(params["final_norm"], x, cfg)
@@ -187,14 +217,17 @@ def slot_decode_step(params, caches, tokens: torch.Tensor,
     """One decode step with an *independent position per row*.
 
     ``tokens`` (B, 1), ``ts`` (B,) absolute positions.  The reference
-    ``vmap``s a batch-1 ``decode_step`` over the slot axis; with the
-    batch written out, every row of a ported block is already
-    independent of the others, and the attention step takes each row's
-    own position for RoPE, the write slot and the valid mask, so the
-    batch runs as one ``decode_step`` with the per-row positions.
+    ``vmap``s a batch-1 ``decode_step`` over the slot axis.  The port
+    runs the batch as one ``decode_step`` with the per-row positions
+    (the attention step takes each row's own for RoPE, the write slot
+    and the valid mask; an encdec row adds its own sinusoid) and routes
+    each row's token through an MoE layer as a group of its own, with
+    the batch-1 capacity: routed together, the rows would share each
+    expert's capacity, and a batch of more than four slots could drop
+    tokens that the reference keeps.
 
     Returns (logits (B, padded_vocab) fp32, new_caches)."""
-    return decode_step(params, caches, tokens, ts, cfg)
+    return decode_step(params, caches, tokens, ts, cfg, row_groups=True)
 
 
 # --------------------------------------------------------------------------

@@ -34,7 +34,8 @@ def padded_vocab(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------------
 def _dense_init(gen: torch.Generator, shape, in_axis_size) -> torch.Tensor:
     scale = 1.0 / math.sqrt(max(1, in_axis_size))
-    return torch.randn(shape, generator=gen, device=gen.device) * scale
+    # scaled in place: one full-size temporary fewer at init
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
 
 
 def init_norm(cfg: ModelConfig, device) -> dict:

@@ -9,24 +9,28 @@ stacked axis with a Python loop.
 
 The ported block kinds are ``"ssm"`` (mamba-2), ``"rec"`` (RG-LRU +
 MLP) and ``"attn"`` (causal self-attention, full-context or local, +
-MLP); MoE FFNs, the encoder-decoder stack, VLM inputs and int8 KV
-caches raise ``NotImplementedError`` until their slices land (ROADMAP,
-port queue).
+MLP or the top-k MoE FFN).  ``encdec`` (whisper) adds an encoder stack
+of non-causal attention blocks over precomputed frame embeddings and a
+cross-attention in each decoder layer, with absolute sinusoid positions
+in place of RoPE.  VLM inputs and int8 KV caches raise
+``NotImplementedError`` until their slices land (ROADMAP, port queue).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.types import Param, is_param, tree_map
 
-NEXT_SLICE = ("ROADMAP, port queue: MoE FFNs (mixtral, grok), int8 KV "
-              "caches, cross-attention, encoder-decoder and VLM inputs "
-              "come with later slices")
+NEXT_SLICE = ("ROADMAP, port queue: VLM inputs and int8 KV caches come "
+              "with later slices")
 BLOCK_KINDS = ("ssm", "rec", "attn")
 
 
@@ -44,6 +48,19 @@ def pattern_split(cfg: ModelConfig) -> tuple[tuple[str, ...], int, int]:
     return pat, n_full, rem
 
 
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Absolute sinusoidal embedding (whisper-style stub positions),
+    fp32 (..., d) for positions (...,)."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / max(1, half - 1))
+    ang = positions.to(torch.float32)[..., None] * freq
+    out = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    if d % 2:
+        out = torch.nn.functional.pad(out, (0, 1))
+    return out
+
+
 def _attn_window(cfg: ModelConfig) -> int:
     return cfg.sliding_window or cfg.local_window
 
@@ -52,10 +69,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
         if kind not in BLOCK_KINDS:
             raise _unported(f"block kind {kind!r} ({cfg.name})")
-    if cfg.num_experts:
-        raise _unported(f"the MoE FFN ({cfg.name})")
-    if cfg.is_encoder_decoder:
-        raise _unported(f"the encoder-decoder stack ({cfg.name})")
     if cfg.kv_cache_dtype == "int8":
         raise _unported(f"the int8 KV cache ({cfg.name})")
 
@@ -63,7 +76,8 @@ def _check_supported(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 # per-block init / apply
 # --------------------------------------------------------------------------
-def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, *,
+               decoder_cross: bool = False) -> dict:
     dev = gen.device
     if kind == "ssm":
         return {"norm1": L.init_norm(cfg, dev),
@@ -74,23 +88,36 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
                 "norm2": L.init_norm(cfg, dev),
                 "mlp": L.init_mlp(gen, cfg)}
     if kind == "attn":
-        return {"norm1": L.init_norm(cfg, dev),
-                "attn": attn_mod.init_attention(gen, cfg),
-                "norm2": L.init_norm(cfg, dev),
-                "mlp": L.init_mlp(gen, cfg)}
+        p = {"norm1": L.init_norm(cfg, dev),
+             "attn": attn_mod.init_attention(gen, cfg),
+             "norm2": L.init_norm(cfg, dev),
+             "mlp": (moe_mod.init_moe(gen, cfg) if cfg.num_experts
+                     else L.init_mlp(gen, cfg))}
+        if decoder_cross:
+            p["norm_x"] = L.init_norm(cfg, dev)
+            p["xattn"] = attn_mod.init_attention(gen, cfg)
+        return p
     raise _unported(f"block kind {kind!r}")
 
 
-def _mlp_residual(params, x, cfg: ModelConfig):
-    return x + L.apply_mlp(params["mlp"], L.apply_norm(params["norm2"], x,
-                                                       cfg), cfg)
+def _mlp_residual(params, x, cfg: ModelConfig, row_groups: bool = False):
+    """The FFN's residual: the MoE layer when the config has experts
+    (``row_groups``: each batch row routed as its own group), else the
+    dense MLP."""
+    h = L.apply_norm(params["norm2"], x, cfg)
+    if cfg.num_experts:
+        return x + moe_mod.apply_moe(params["mlp"], h, cfg,
+                                     row_groups=row_groups)
+    return x + L.apply_mlp(params["mlp"], h, cfg)
 
 
 def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions=None,
+                causal: bool = True, enc_out=None,
                 collect_cache: bool = False):
     """Full-sequence block. Returns (x, cache_or_None); an attention
     block's cache is its raw (k, v) after RoPE, which ``prefill`` turns
-    into the decode layout."""
+    into the decode layout — with a cross-attention, ``{"self": (k, v),
+    "cross": the encoder output's (k, v)}``."""
     if kind not in BLOCK_KINDS:
         raise _unported(f"block kind {kind!r}")
     h = L.apply_norm(params["norm1"], x, cfg)
@@ -110,16 +137,27 @@ def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions=None,
             y = rglru_mod.apply_rglru(params["rec"], h, cfg)
     else:
         y = attn_mod.attend(params["attn"], h, cfg, positions=positions,
-                            window=_attn_window(cfg),
+                            causal=causal, window=_attn_window(cfg),
                             return_kv=collect_cache)
         if collect_cache:
             y, (k, v) = y
             cache = {"k": k, "v": v}
+        if "xattn" in params:
+            x = x + y
+            hx = L.apply_norm(params["norm_x"], x, cfg)
+            y = attn_mod.attend(params["xattn"], hx, cfg,
+                                positions=positions, causal=False,
+                                kv_src=enc_out, return_kv=collect_cache)
+            if collect_cache:
+                y, (kx, vx) = y
+                cache = {"self": cache, "cross": {"k": kx, "v": vx}}
     return _mlp_residual(params, x + y, cfg), cache
 
 
-def apply_block_decode(params, x, cfg: ModelConfig, kind: str, cache, t):
-    """One-token block step (``t`` a scalar or one position per row).
+def apply_block_decode(params, x, cfg: ModelConfig, kind: str, cache, t, *,
+                       row_groups: bool = False):
+    """One-token block step (``t`` a scalar or one position per row;
+    ``row_groups`` routes each row's MoE tokens as a group of its own).
     Returns (x, new_cache)."""
     if kind not in BLOCK_KINDS:
         raise _unported(f"block kind {kind!r}")
@@ -130,10 +168,19 @@ def apply_block_decode(params, x, cfg: ModelConfig, kind: str, cache, t):
     if kind == "rec":
         y, new_cache = rglru_mod.apply_rglru_decode(params["rec"], h, cfg,
                                                     cache)
+    elif "xattn" in params:
+        y, new_self = attn_mod.attend_decode(params["attn"], h, cfg,
+                                             cache["self"], t,
+                                             window=_attn_window(cfg))
+        x = x + y
+        hx = L.apply_norm(params["norm_x"], x, cfg)
+        y, _ = attn_mod.attend_decode(params["xattn"], hx, cfg, None, t,
+                                      cross_cache=cache["cross"])
+        new_cache = {"self": new_self, "cross": cache["cross"]}
     else:
         y, new_cache = attn_mod.attend_decode(params["attn"], h, cfg, cache,
                                               t, window=_attn_window(cfg))
-    return _mlp_residual(params, x + y, cfg), new_cache
+    return _mlp_residual(params, x + y, cfg, row_groups), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -156,16 +203,17 @@ def layer(tree, i: int):
 
 
 def _stack_layers(gen: torch.Generator, cfg: ModelConfig, kind: str,
-                  n: int) -> dict:
+                  n: int, *, decoder_cross: bool = False) -> dict:
     """``n`` layers of one kind, initialised in order, their values
     written into preallocated stacked tensors one layer at a time (peak
     memory: the stack plus one layer, not two stacks)."""
-    first = init_block(gen, cfg, kind)
+    blk = init_block(gen, cfg, kind, decoder_cross=decoder_cross)
     stacked = tree_map(
         lambda p: Param(p.value.new_empty((n,) + p.value.shape),
-                        ("layers",) + p.axes), first, is_leaf=is_param)
+                        ("layers",) + p.axes), blk, is_leaf=is_param)
     for i in range(n):
-        blk = first if i == 0 else init_block(gen, cfg, kind)
+        if i:
+            blk = init_block(gen, cfg, kind, decoder_cross=decoder_cross)
         tree_map(lambda dst, src: dst.value[i].copy_(src.value), stacked,
                  blk, is_leaf=is_param)
         del blk
@@ -186,12 +234,20 @@ def init_params(key, cfg: ModelConfig, *, device=None) -> dict:
     pattern, n_full, rem = pattern_split(cfg)
     p: dict = {"embed": L.init_embeddings(gen, cfg),
                "final_norm": L.init_norm(cfg, dev)}
+    cross = cfg.is_encoder_decoder
     if n_full:
-        p["blocks"] = tuple(_stack_layers(gen, cfg, kind, n_full)
+        p["blocks"] = tuple(_stack_layers(gen, cfg, kind, n_full,
+                                          decoder_cross=cross)
                             for kind in pattern)
     if rem:
-        p["rem"] = tuple(init_block(gen, cfg, pattern[j % len(pattern)])
+        p["rem"] = tuple(init_block(gen, cfg, pattern[j % len(pattern)],
+                                    decoder_cross=cross)
                          for j in range(rem))
+    if cross:
+        p["encoder"] = {
+            "blocks": (_stack_layers(gen, cfg, "attn",
+                                     cfg.num_encoder_layers),),
+            "final_norm": L.init_norm(cfg, dev)}
     return p
 
 
@@ -199,6 +255,7 @@ def init_params(key, cfg: ModelConfig, *, device=None) -> dict:
 # full-sequence forward (prefill)
 # --------------------------------------------------------------------------
 def _run_stack(params, x, cfg: ModelConfig, pattern, *, positions=None,
+               causal: bool = True, enc_out=None,
                collect_cache: bool = False):
     """Walk the stacked pattern groups, then the remainder layers.
 
@@ -212,7 +269,8 @@ def _run_stack(params, x, cfg: ModelConfig, pattern, *, positions=None,
         for i in range(n_layers):
             for j, kind in enumerate(pattern):
                 x, c = apply_block(layer(params["blocks"][j], i), x, cfg,
-                                   kind, positions=positions,
+                                   kind, positions=positions, causal=causal,
+                                   enc_out=enc_out,
                                    collect_cache=collect_cache)
                 per_pos[j].append(c)
         caches["blocks"] = tuple(stack_trees(c) if collect_cache else None
@@ -221,27 +279,47 @@ def _run_stack(params, x, cfg: ModelConfig, pattern, *, positions=None,
         rem_caches = []
         for j, blk in enumerate(params["rem"]):
             x, c = apply_block(blk, x, cfg, pattern[j % len(pattern)],
-                               positions=positions,
+                               positions=positions, causal=causal,
+                               enc_out=enc_out,
                                collect_cache=collect_cache)
             rem_caches.append(c)
         caches["rem"] = tuple(rem_caches)
     return x, caches
 
 
+def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Whisper encoder over precomputed frame embeddings (B, T, d): the
+    sinusoid added in the compute dtype, the non-causal attention
+    stack, the encoder's final norm."""
+    dt = L.compute_dtype(cfg)
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames.to(dt) + _sinusoid(pos, cfg.d_model).to(dt)
+    x, _ = _run_stack(params["encoder"], x, cfg, ("attn",), positions=pos,
+                      causal=False)
+    return L.apply_norm(params["encoder"]["final_norm"], x, cfg)
+
+
 def _embed_input(params, batch: dict, cfg: ModelConfig):
-    """Token embedding. Returns (x, positions, n_prefix)."""
-    if cfg.family == "vlm" or cfg.is_encoder_decoder:
+    """Token embedding (+ the sinusoid for encdec). Returns (x,
+    positions, n_prefix)."""
+    if cfg.family == "vlm":
         raise _unported(f"the {cfg.family} input stage")
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.is_encoder_decoder:  # no RoPE: absolute sinusoid positions
+        x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
     return x, positions, 0
 
 
 def forward(params, batch: dict, cfg: ModelConfig, *, mode: str = "prefill"):
-    """Full-sequence logits (B, S_tokens, padded_vocab) in fp32."""
+    """Full-sequence logits (B, S_tokens, padded_vocab) in fp32; an
+    encdec config reads ``batch["frames"]`` (B, T, d)."""
     _check_supported(cfg)
     pattern, _, _ = pattern_split(cfg)
     x, positions, _ = _embed_input(params, batch, cfg)
-    x, _ = _run_stack(params, x, cfg, pattern, positions=positions)
+    enc_out = encode(params, batch["frames"], cfg) \
+        if cfg.is_encoder_decoder else None
+    x, _ = _run_stack(params, x, cfg, pattern, positions=positions,
+                      enc_out=enc_out)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.unembed(params["embed"], x, cfg)

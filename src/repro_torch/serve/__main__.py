@@ -6,6 +6,10 @@ Requests arrive at an offered load, queue for slots, and every scheduler
 step is priced by the SoC latency oracle, so throughput and tail latency
 come out in *simulated SoC seconds*; the model runs on ``--device``
 (``cuda`` unless asked otherwise, through the port's Hopper kernels).
+An encoder-decoder arch (``whisper-tiny``) gets each request's frame
+embeddings, ``(encoder_len, d_model)`` drawn from a seed, as the
+engine's prefill ``extras``: the reference's example submits none, so
+its prefill stops at the missing ``frames``.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve [--device cpu]
 """
@@ -48,11 +52,17 @@ def main(argv=None) -> None:
 
     rng = np.random.default_rng(1)
     for i in range(args.requests):
+        extras = None
+        if cfg.is_encoder_decoder:
+            extras = {"frames": np.random.default_rng(100 + i)
+                      .standard_normal((cfg.encoder_len, cfg.d_model))
+                      .astype(np.float32)}
         eng.submit(Request(
             rid=i,
             tokens=tuple(int(t) for t in
                          rng.integers(3, cfg.vocab_size, args.prompt_len)),
-            max_new=args.max_new, arrival_s=i * args.gap_us * 1e-6))
+            max_new=args.max_new, arrival_s=i * args.gap_us * 1e-6),
+            extras=extras)
 
     t0 = time.perf_counter()
     stats = eng.run()

@@ -209,6 +209,7 @@ class ServeEngine:
                                           cache_len=self.cache_len)
         self._decode = functools.partial(slot_decode_step, cfg=cfg)
         self.queue: collections.deque = collections.deque()
+        self._extras: dict[int, dict] = {}
         self.slots: list[_Slot | None] = [None] * self.max_slots
         self._caches = None          # lazy: materialized on first admission
         self._axes = None
@@ -226,9 +227,11 @@ class ServeEngine:
     def clock_s(self) -> float:
         return self.clock_cycles / self.oracle.freq_hz
 
-    def submit(self, request: Request) -> None:
-        """Queue a request.  (The reference's ``extras=`` — whisper
-        frames, VLM patches — comes with those archs' slices.)"""
+    def submit(self, request: Request, *, extras: dict | None = None
+               ) -> None:
+        """Queue a request.  ``extras`` carries non-token prefill inputs
+        (e.g. whisper ``frames``), kept on the host as numpy arrays —
+        they are not part of the typed record."""
         total = len(request.tokens) + request.max_new
         if total > self.cache_len:
             raise ValueError(
@@ -245,6 +248,9 @@ class ServeEngine:
                 s is not None and s.rid == request.rid for s in self.slots):
             raise ValueError(f"duplicate rid {request.rid}")
         self.queue.append(request)
+        if extras:
+            self._extras[request.rid] = {k: np.asarray(v)
+                                         for k, v in extras.items()}
 
     # -- internals ---------------------------------------------------------
     def _materialize_caches(self) -> None:
@@ -301,6 +307,11 @@ class ServeEngine:
             batch = {"tokens": torch.as_tensor(
                 [list(r.tokens) for _, r in group], dtype=torch.int64,
                 device=self.device)}
+            ex = [self._extras.get(r.rid) for _, r in group]
+            if ex[0] is not None:
+                for k in ex[0]:
+                    batch[k] = torch.as_tensor(np.stack([e[k] for e in ex]),
+                                               device=self.device)
             logits, new_caches, _ = self._prefill(self.params, batch)
             sids = torch.as_tensor([sid for sid, _ in group],
                                    device=self.device)
@@ -355,6 +366,7 @@ class ServeEngine:
                     "arrival_s": s.arrival_s, "finish_s": finish_s,
                     "latency_s": finish_s - s.arrival_s})
                 self.kv.release(s.rid)
+                self._extras.pop(s.rid, None)
                 self.slots[i] = None
                 done.append(s.rid)
         return done

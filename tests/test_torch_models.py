@@ -161,7 +161,8 @@ def test_working_set_and_registry_match_reference():
     from repro.configs import get_config as j_get
 
     assert ARCHS == ("mamba2-130m", "recurrentgemma-9b", "qwen2-0.5b",
-                     "deepseek-7b", "granite-3-8b", "chatglm3-6b")
+                     "deepseek-7b", "granite-3-8b", "chatglm3-6b",
+                     "whisper-tiny", "mixtral-8x7b", "grok-1-314b")
     for get in (lambda a: (j_get(a), get_config(a)),
                 lambda a: (j_smoke(a), t_smoke(a))):
         jcfg, tcfg = get(ARCH)
@@ -175,7 +176,7 @@ def test_working_set_and_registry_match_reference():
 
 def test_unported_block_kinds_raise():
     tcfg = dataclasses.replace(t_smoke(ARCH), block_pattern=("attn",),
-                               num_experts=4)
+                               kv_cache_dtype="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_models.init_params(0, tcfg, device="cpu")
     gcfg = dataclasses.replace(t_smoke(ARCH), ssm_ngroups=2)
