@@ -65,7 +65,17 @@ port's paths through them:
 * the encoder-decoder stack: serving whisper-tiny at full width and
   depth (4 encoder + 4 decoder layers, 6 heads of 64, 1500 frames a
   request as the engine's ``extras``): 8 requests of 224 and 120
-  decoder tokens, 32 new tokens each, held the same way.
+  decoder tokens, 32 new tokens each, held the same way;
+* the VLM input stage: internvl2-26b at full width (48 query heads over
+  8 KV heads of 128, d_model 6144) cut to 24 of its 48 layers: 256
+  seeded patch embeddings and 2048 tokens in one prefill through the
+  SWA kernel's full causal band over 2304 positions, 8 greedy decode
+  steps, checked as granite-3-8b;
+* int8 KV caches: deepseek-7b at full width and depth (32 query over 32
+  KV heads of 128) prefilling into and decoding from int8 caches,
+  checked as granite-3-8b, its first decode logits held against the
+  bf16 cache's; and the SSD kernel with 2 and 8 SSM groups at
+  mamba2-130m's widths, one launch a group.
 
 Before the paths it times every kernel beside its plain version, a
 PyTorch library call where one computes the same function, and its
@@ -133,6 +143,9 @@ FIG5 = dict(sizes_kib=(0.5, 64, 1024, 4096), blocks=(32, 64, 128))
 SSD_SHAPES = [(2, 64, 32, 4, 16, 32), (2, 128, 32, 8, 32, 64),
               (2, 32, 32, 2, 16, 16), (4, 512, 256, 24, 64, 128),
               (4, 300, 256, 24, 64, 128)]
+# grouped SSD (ssm_ngroups g > 1) at mamba2-130m's widths: one launch
+# per group over its h / g contiguous heads (12 and 3 heads)
+SSD_GROUPS = (2, 8)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)   # the reference's own for this kernel
 # first-token logits, SSD step through the kernel vs its plain version,
 # both prefills in fp32: the reference's one-step bf16 decode-parity
@@ -156,8 +169,10 @@ LOGITS_TOL = dict(rtol=2e-2, atol=0.08)
 # D 128); mixtral-8x7b's band narrower than its 5120-token prompt
 # (window 4096, 32 over 8 heads, D 128), grok-1-314b's full causal
 # 2048 tokens with softcap 30 (48 over 8, D 128) and whisper-tiny's
-# decoder at 224 tokens (6 over 6, D 64); then recurrentgemma-9b's
-# full-width prefill shape, bf16
+# decoder at 224 tokens (6 over 6, D 64); internvl2-26b's full causal
+# 2304 positions (256 patches + 2048 tokens, 48 over 8, D 128) and
+# deepseek-7b's 2048 tokens without grouping (32 over 32, D 128); then
+# recurrentgemma-9b's full-width prefill shape, bf16
 SWA_CASES = [(2, s, 4, 2, 32, w, 0.0, 1.0)
              for s, w in [(128, 32), (128, 64), (256, 256), (96, 32)]] \
     + [(1, 64, 2, 2, 32, 64, 30.0, 3.0)] \
@@ -170,19 +185,24 @@ SWA_CASES = [(2, s, 4, 2, 32, w, 0.0, 1.0)
        (2, 2048, 32, 8, 128, 2048, 0.0, 1.0)] \
     + [(1, 5120, 32, 8, 128, 4096, 0.0, 1.0),
        (1, 2048, 48, 8, 128, 2048, 30.0, 1.0),
-       (1, 224, 6, 6, 64, 224, 0.0, 1.0)]
+       (1, 224, 6, 6, 64, 224, 0.0, 1.0)] \
+    + [(1, 2304, 48, 8, 128, 2304, 0.0, 1.0),
+       (1, 2048, 32, 32, 128, 2048, 0.0, 1.0)]
 SWA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SWA_FULL = (1, 2560, 16, 1, 256, 2048)
 # the served archs' full-width prefill shapes (b, s, hq, hkv, d,
 # window, softcap), bf16: the dense archs' full causal bands (window =
 # S; qwen2-0.5b and granite-3-8b, 1 x 2048), mixtral-8x7b's band of 4096
-# over 5120 tokens, grok-1-314b's soft-capped full causal 2048 and
-# whisper-tiny's decoder at 224 tokens
+# over 5120 tokens, grok-1-314b's soft-capped full causal 2048,
+# whisper-tiny's decoder at 224 tokens, internvl2-26b's 256 patches and
+# 2048 tokens (groups of 6) and deepseek-7b's 2048 (no grouping)
 SWA_ARCHS = {"qwen2-0.5b": (1, 2048, 14, 2, 64, 2048, 0.0),
              "granite-3-8b": (1, 2048, 32, 8, 128, 2048, 0.0),
              "mixtral-8x7b": (1, 5120, 32, 8, 128, 4096, 0.0),
              "grok-1-314b": (1, 2048, 48, 8, 128, 2048, 30.0),
-             "whisper-tiny": (1, 224, 6, 6, 64, 224, 0.0)}
+             "whisper-tiny": (1, 224, 6, 6, 64, 224, 0.0),
+             "internvl2-26b": (1, 2304, 48, 8, 128, 2304, 0.0),
+             "deepseek-7b": (1, 2048, 32, 32, 128, 2048, 0.0)}
 BF16_OPS_PER_S = 989e12
 # first-token logits through the SWA kernel vs the plain version, both
 # prefills in fp32: the reference's one-step decode-parity tolerance for
@@ -278,6 +298,8 @@ MIXTRAL_STEP_RUNS = [("prefill", 374013952, 1)] + [
 MIXTRAL_ORACLE = (492_017_152, 460_324_864, 0.5)
 # moe_path (b): grok-1-314b at full width, 2 of its 64 layers
 GROK_LAYERS = 2
+# vlm_path: internvl2-26b at full width, 24 of its 48 layers
+VLM_LAYERS = 24
 
 # Serving whisper-tiny at full width and depth (encdec_path): the JAX
 # reference's ServeEngine on the CPU as above (stub model calls, each
@@ -622,20 +644,25 @@ def check_kernels(dev) -> dict:
     return errs
 
 
-def ssd_inputs(bb, l, h, p, n, gen, dev):
-    """Seeded SSD operands: x, post-softplus dt, negative A, B, C."""
+def ssd_inputs(bb, l, h, p, n, gen, dev, groups: int = 0):
+    """Seeded SSD operands: x, post-softplus dt, negative A, B, C; B/C
+    of shape (bb, l, groups, n) when ``groups``."""
     x = torch.randn((bb, l, h, p), generator=gen, device=dev)
     dt = torch.nn.functional.softplus(
         torch.randn((bb, l, h), generator=gen, device=dev))
     A = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.5)
-    B = torch.randn((bb, l, n), generator=gen, device=dev)
-    C = torch.randn((bb, l, n), generator=gen, device=dev)
+    bc = (bb, l, groups, n) if groups else (bb, l, n)
+    B = torch.randn(bc, generator=gen, device=dev)
+    C = torch.randn(bc, generator=gen, device=dev)
     return x, dt, A, B, C
 
 
 def check_ssd(dev) -> float:
     """The SSD kernel against its plain version on the card: y_intra and
-    states within rtol = atol = 1e-4."""
+    states within rtol = atol = 1e-4, with one SSM group and, at
+    mamba2-130m's widths, with ``SSD_GROUPS`` groups (one launch per
+    group, each group's heads held on their own)."""
+    from repro_torch.kernels.ssd import kernel as K
     from repro_torch.kernels.ssd import ops
 
     phase("ssd against its plain version")
@@ -655,6 +682,35 @@ def check_ssd(dev) -> float:
         print(f"  ssd bb {bb} l {l} q {cum.shape[2]} h {h} p {p} n {n}: "
               f"max abs err y {ey:.2e}, states {es:.2e} (|y| up to "
               f"{float(want_y.abs().max()):.1f})")
+    bb, l, chunk, h, p, n = SSD_SHAPES[3]
+    for g in SSD_GROUPS:
+        args = ssd_inputs(bb, l, h, p, n, gen, dev, groups=g)
+        before = K.launches
+        y, states, cum = ops.ssd_intra_chunk(*args, chunk=chunk)
+        launched = K.launches - before
+        want_y, want_states, want_cum = ops.ssd_intra_chunk_plain(
+            *args, chunk=chunk)
+        torch.cuda.synchronize()
+        if launched != g:
+            raise AssertionError(f"grouped ssd launched {launched} times "
+                                 f"for {g} groups")
+        torch.testing.assert_close(cum, want_cum, rtol=0, atol=0)
+        hg = h // g
+        errs = []
+        for gi in range(g):
+            heads = slice(gi * hg, (gi + 1) * hg)
+            torch.testing.assert_close(y[:, :, :, heads],
+                                       want_y[:, :, :, heads], **SSD_TOL)
+            torch.testing.assert_close(states[:, :, heads],
+                                       want_states[:, :, heads], **SSD_TOL)
+            errs.append(max(max_err(y[:, :, :, heads],
+                                    want_y[:, :, :, heads]),
+                            max_err(states[:, :, heads],
+                                    want_states[:, :, heads])))
+        worst = max(worst, *errs)
+        print(f"  ssd bb {bb} l {l} q {cum.shape[2]} h {h} p {p} n {n}, "
+              f"{g} groups of {hg} heads ({launched} launches): max abs err "
+              f"by group {', '.join(f'{e:.2e}' for e in errs)}")
     return worst
 
 
@@ -1703,18 +1759,26 @@ def serve_swa_path(dev, arch: str) -> tuple[dict, dict]:
     return launches, split
 
 
-def greedy_path(dev, arch: str, layers: int | None = None
-                ) -> tuple[int, dict]:
+def greedy_path(dev, arch: str, layers: int | None = None, *,
+                kv_cache_dtype: str | None = None) -> tuple[int, dict]:
     """One arch at full width (``layers`` cuts the depth), with the SWA
     launch counter at 0 before it: parameters from seed 0, one bf16
-    prefill of 2048 tokens through the kernel and 8 greedy decode
-    steps; then the kernel against its plain version on every layer's
-    own operands of that prefill, and in fp32 the prefill's logits
-    through the kernel against the plain version's, and the 9 greedy
-    tokens of both equal.  Serves granite-3-8b (40 layers, 32 query
-    heads over 8 KV heads of 128, 8.4 G fp32 parameters) and
-    grok-1-314b (2 of 64 layers: 48 query heads over 8 KV heads of 128,
-    softcap 30, 8 experts of d_ff 32768; 11.4 G fp32 parameters)."""
+    prefill of 2048 tokens through the kernel (a VLM arch's prompt
+    carries seeded (1, num_patches, d_model) fp32 patches from numpy
+    before them) and 8 greedy decode steps; then the kernel against its
+    plain version on every layer's own operands of that prefill, and in
+    fp32 the prefill's logits through the kernel against the plain
+    version's, and the 9 greedy tokens of both equal.  Serves
+    granite-3-8b (40 layers, 32 query heads over 8 KV heads of 128, 8.4
+    G fp32 parameters), grok-1-314b (2 of 64 layers: 48 query heads over
+    8 KV heads of 128, softcap 30, 8 experts of d_ff 32768; 11.4 G),
+    internvl2-26b (24 of 48 layers: 48 over 8 heads of 128, 256 patches;
+    10.5 G) and deepseek-7b with ``kv_cache_dtype="int8"`` (30 layers,
+    32 over 32 heads of 128; 6.9 G), where the first decode step's logits
+    are also held against the same run with the bf16 cache as
+    tests/test_decode_opt.py's ``rel``, and where an fp32 greedy token
+    differed the int8 values that kernel and plain quantised apart are
+    counted before the check fails."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.swa import kernel as swa_kernel
     from repro_torch.kernels.swa import ops as swa_ops
@@ -1726,10 +1790,15 @@ def greedy_path(dev, arch: str, layers: int | None = None
     if layers:
         cut = f", depth cut to {layers} of {cfg.num_layers} layers"
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    phase(f"{arch} at full width{cut}, one {GRANITE_PROMPT}-token prefill "
-          f"and {GRANITE_DECODE} decode steps")
+    if kv_cache_dtype:
+        cut += f", {kv_cache_dtype} KV cache"
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
     s, n_dec = GRANITE_PROMPT, GRANITE_DECODE
-    cache_len = s + n_dec
+    n_prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    phase(f"{arch} at full width{cut}, one {s}-token prefill"
+          f"{f' after {n_prefix} patches' if n_prefix else ''} and "
+          f"{n_dec} decode steps")
+    cache_len = n_prefix + s + n_dec
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = param_values(init_params(
@@ -1743,11 +1812,16 @@ def greedy_path(dev, arch: str, layers: int | None = None
           f"memory {torch.cuda.max_memory_allocated():,} bytes")
     batch = {"tokens": torch.as_tensor([np.random.default_rng(1).integers(
         3, cfg.vocab_size, s).tolist()], device=dev)}
+    if n_prefix:
+        batch["patches"] = torch.from_numpy(np.random.default_rng(2)
+                                            .standard_normal(
+            (1, n_prefix, cfg.d_model)).astype(np.float32)).to(dev)
     kernel_op = swa_ops.swa_attention
 
     def greedy(c, op, wall=None):
         """Prefill through ``op``, then ``n_dec`` greedy decode steps:
-        (first-token logits, the n_dec + 1 tokens)."""
+        (first-token logits, the n_dec + 1 tokens, the first decode
+        step's logits)."""
         swa_ops.swa_attention = op
         try:
             torch.cuda.synchronize()
@@ -1756,10 +1830,11 @@ def greedy_path(dev, arch: str, layers: int | None = None
             tok = logits[:, :cfg.vocab_size].argmax(dim=1)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            out = [int(tok)]
+            out, first_step = [int(tok)], None
             for i in range(n_dec):
                 step, caches = decode_step(params, caches, tok[:, None],
                                            t + i, c)
+                first_step = step if first_step is None else first_step
                 tok = step[:, :cfg.vocab_size].argmax(dim=1)
                 out.append(int(tok))
             t2 = time.perf_counter()
@@ -1767,7 +1842,7 @@ def greedy_path(dev, arch: str, layers: int | None = None
             swa_ops.swa_attention = kernel_op
         if wall is not None:
             wall.update(prefill_s=t1 - t0, decode_step_s=(t2 - t1) / n_dec)
-        return logits, out
+        return logits, out, first_step
 
     operands, wall = [], {}
 
@@ -1777,29 +1852,50 @@ def greedy_path(dev, arch: str, layers: int | None = None
 
     swa_kernel.launches = 0
     swa_kernel.launches_by_path.update(tc=0, fma=0)
-    logits, tokens = greedy(cfg, capture, wall)
+    logits, tokens, first_step = greedy(cfg, capture, wall)
     launches = swa_kernel.launches
     by_path = dict(swa_kernel.launches_by_path)
     peak = torch.cuda.max_memory_allocated()
-    print(f"bf16: prefill 1 x {s} {wall['prefill_s']:.3f} s wall, decode "
-          f"{wall['decode_step_s'] * 1e3:.1f} ms a step; tokens {tokens}; "
-          f"swa launches {launches} by path {by_path}; peak device memory "
-          f"{peak:,} bytes")
+    print(f"bf16: prefill 1 x {n_prefix + s} {wall['prefill_s']:.3f} s "
+          f"wall, decode {wall['decode_step_s'] * 1e3:.1f} ms a step; "
+          f"tokens {tokens}; swa launches {launches} by path {by_path}; "
+          f"peak device memory {peak:,} bytes")
     if launches != cfg.num_layers or by_path != {"tc": launches, "fma": 0}:
         raise AssertionError(f"swa launched {by_path}, not once a layer "
                              "on the tensor-core path")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch} bf16 logits not finite")
+    if operands[0][0][0].shape[1] != n_prefix + s:
+        raise AssertionError(f"swa saw {operands[0][0][0].shape[1]} "
+                             f"positions, not {n_prefix + s}")
     swa_worst = max(check_swa_close(*args, **kw) for args, kw in operands)
     del operands
     bf16_gap = max_err(logits[:, :cfg.vocab_size], greedy(
         cfg, swa_ops.swa_attention_plain)[0][:, :cfg.vocab_size])
+    int8 = {}
+    if cfg.kv_cache_dtype == "int8":
+        # tests/test_decode_opt.py's rel: the int8 cache's first decode
+        # logits against the same run's with the bf16 cache
+        bf16_cache = dataclasses.replace(cfg, kv_cache_dtype="bfloat16")
+        _, bf16_tokens, ref_step = greedy(bf16_cache, kernel_op)
+        rel = float((first_step.float() - ref_step.float()).abs().max()
+                    / (ref_step.float().abs().max() + 1e-6))
+        int8 = {"rel_vs_bf16_cache": rel, "bf16_cache_tokens": bf16_tokens}
+        print(f"int8 KV cache: first decode logits vs the bf16 cache's rel "
+              f"{rel:.4f} (tests/test_decode_opt.py holds rel < 0.08); "
+              f"greedy tokens int8 {tokens}, bf16 cache {bf16_tokens}")
+        if not rel < 0.08:
+            raise AssertionError(f"int8-KV decode diverged (rel {rel:.3f})")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    got32, got_tokens = greedy(cfg32, kernel_op)
-    want32, want_tokens = greedy(cfg32, swa_ops.swa_attention_plain)
+    got32, got_tokens, _ = greedy(cfg32, kernel_op)
+    want32, want_tokens, _ = greedy(cfg32, swa_ops.swa_attention_plain)
     torch.testing.assert_close(got32, want32, **DENSE_LOGITS_TOL)
     worst = max_err(got32[:, :cfg.vocab_size], want32[:, :cfg.vocab_size])
     if got_tokens != want_tokens:
+        if int8:
+            flips = int8_flips(params, batch, cfg32, cache_len, kernel_op)
+            print(f"fp32 greedy tokens differ; the prefill's int8 K/V "
+                  f"values kernel vs plain: {flips}")
         raise AssertionError(f"fp32 greedy tokens through the kernel "
                              f"{got_tokens} != the plain version's "
                              f"{want_tokens}")
@@ -1814,7 +1910,7 @@ def greedy_path(dev, arch: str, layers: int | None = None
     tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
     ranges = ("moe",) if cfg.num_experts else ()
     profiled = {
-        f"prefill_1x{s}": device_split(
+        f"prefill_1x{n_prefix + s}": device_split(
             lambda: prefill(params, batch, cfg, cache_len), kinds, ranges),
         "decode_step_1_slot": device_split(
             lambda: decode_step(params, caches, tok, t, cfg), kinds, ranges)}
@@ -1826,7 +1922,35 @@ def greedy_path(dev, arch: str, layers: int | None = None
                       "swa_max_abs_err": swa_worst,
                       "logits_fp32_max_abs_err": worst,
                       "logits_bf16_max_abs_err": bf16_gap,
-                      "profiled": profiled}
+                      **int8, "profiled": profiled}
+
+
+def int8_flips(params, batch, cfg, cache_len, kernel_op) -> dict:
+    """The int8 K/V values of one prefill's caches, through the kernel
+    and through the plain version, that differ: how many, of how many,
+    and the largest difference in quanta."""
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.models import prefill
+    from repro_torch.types import tree_map
+
+    caches = []
+    for op in (kernel_op, swa_ops.swa_attention_plain):
+        swa_ops.swa_attention = op
+        try:
+            caches.append(prefill(params, batch, cfg, cache_len)[1])
+        finally:
+            swa_ops.swa_attention = kernel_op
+    counts = {"differ": 0, "of": 0, "max_quanta": 0}
+
+    def count(a, b):
+        if a.dtype == torch.int8:
+            d = (a.int() - b.int()).abs()
+            counts["differ"] += int((d > 0).sum())
+            counts["of"] += d.numel()
+            counts["max_quanta"] = max(counts["max_quanta"], int(d.max()))
+
+    tree_map(count, *caches)
+    return counts
 
 
 def dense_path(dev) -> tuple[int, dict]:
@@ -1863,6 +1987,27 @@ def encdec_path(dev) -> tuple[int, dict]:
     launches, serve = serve_swa_path(dev, "whisper-tiny")
     return launches["swa"], {"whisper-tiny": serve,
                              "swa_max_abs_err": serve["swa_max_abs_err"]}
+
+
+def vlm_path(dev) -> tuple[int, dict]:
+    """The VLM input stage: internvl2-26b at full width cut to 24 of its
+    48 layers (10.5 G fp32 parameters; the full 19.9 G do not fit one
+    card), a bf16 prefill of 256 seeded patches and 2048 tokens (full
+    causal attention over 2304 positions, 48 query heads over 8 KV heads
+    of 128, no softcap) and 8 greedy steps; the SWA launches."""
+    launches, run = greedy_path(dev, "internvl2-26b", VLM_LAYERS)
+    return launches, {"internvl2-26b": run,
+                      "swa_max_abs_err": run["swa_max_abs_err"]}
+
+
+def int8_kv_path(dev) -> tuple[int, dict]:
+    """int8 KV caches: deepseek-7b at full width and depth (30 layers,
+    32 query over 32 KV heads of 128, 6.9 G fp32 parameters) decoding
+    from int8 caches with per-slot fp32 scales; the SWA launches of its
+    prefill."""
+    launches, run = greedy_path(dev, "deepseek-7b", kv_cache_dtype="int8")
+    return launches, {"deepseek-7b-int8": run,
+                      "swa_max_abs_err": run["swa_max_abs_err"]}
 
 
 def farm_path(dev) -> dict:
@@ -2337,6 +2482,54 @@ def time_ssd(dev) -> dict:
           f"{full_flops / rate * 1e3:.4f} ms)")
     out["ptxas"] = check_ptxas("ssd", ("ssd_y_kernel", "ssd_state_kernel"), 2)
     print(f"  dynamic shared memory: {K.smem_bytes()}")
+    out["grouped"] = {g: time_ssd_grouped(dev, g) for g in SSD_GROUPS}
+    return out
+
+
+def time_ssd_grouped(dev, g: int) -> dict:
+    """The SSD kernel at the same width with ``g`` SSM groups: its ``g``
+    launches (one a group, over h / g contiguous heads) on operands
+    chunked outside the timing, the whole grouped op (per-group slicing
+    and chunking included) and the plain version, beside the bound of
+    the grouped function (each group's causal C.B^T pairs once, its
+    heads' products, B/C read once a group)."""
+    from repro_torch.kernels.ssd import kernel as K
+    from repro_torch.kernels.ssd import ops
+
+    bb, l, chunk, h, p, n = SSD_SHAPES[3]
+    gen = torch.Generator(device=dev).manual_seed(30 + g)
+    x, dt, A, B, C = ssd_inputs(bb, l, h, p, n, gen, dev, groups=g)
+    hg = h // g
+    parts = [tuple(ops._aligned(t) for t in ops._chunked(
+        x[:, :, i * hg:(i + 1) * hg], dt[:, :, i * hg:(i + 1) * hg],
+        A[i * hg:(i + 1) * hg], B[:, :, i], C[:, :, i], chunk))
+        for i in range(g)]
+    nc, q = parts[0][0].shape[1], parts[0][0].shape[2]
+
+    def kernels():
+        return [K.ssd_intra_chunk_kernel(*part) for part in parts]
+
+    out = {"ms": queued_ms(kernels, 20),
+           "op_ms": cuda_ms(lambda: ops.ssd_intra_chunk(x, dt, A, B, C,
+                                                        chunk=chunk), 20),
+           "plain_ms": cuda_ms(lambda: ops.ssd_intra_chunk_plain(
+               x, dt, A, B, C, chunk=chunk), 5),
+           "library_ms": None, "launches_per_call": g}
+    pairs = q * (q + 1) // 2
+    flops = bb * nc * (g * 2 * pairs * n + h * (2 * pairs * p + 5 * pairs
+                                                + 2 * q * n * p))
+    nbytes = 4 * bb * nc * (2 * q * h * p + h * n * p + 2 * g * q * n
+                            + 2 * q * h)
+    rate = TF32_OPS_PER_S / 3
+    out["bound_ms"] = max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+    out["bound_by"] = "operations" if flops / rate >= \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    print(f"ssd {bb}x{nc} chunks of {q}, h {h}, p {p}, n {n}, {g} groups "
+          f"of {hg} heads: kernel {out['ms']:.4f} ms of device time ({g} "
+          f"launches), the grouped op {out['op_ms']:.4f} ms (events), plain "
+          f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}: {flops / 1e6:.0f} MFLOP causal, "
+          f"{nbytes / 1e6:.1f} MB)")
     return out
 
 
@@ -2674,11 +2867,14 @@ def main() -> int:
     dense_launches, dense = dense_path(dev)
     moe_launches, moe = moe_path(dev)
     encdec_launches, encdec = encdec_path(dev)
+    vlm_launches, vlm = vlm_path(dev)
+    int8_launches, int8 = int8_kv_path(dev)
     launches["swa"] = rg_launches["swa"] + dense_launches + moe_launches \
-        + encdec_launches
+        + encdec_launches + vlm_launches + int8_launches
     main_errs["swa"] = max(serve_rg["swa_max_abs_err"],
                            dense["swa_max_abs_err"], moe["swa_max_abs_err"],
-                           encdec["swa_max_abs_err"])
+                           encdec["swa_max_abs_err"], vlm["swa_max_abs_err"],
+                           int8["swa_max_abs_err"])
     profiled = where_time_goes(dev)
 
     meta = {
@@ -2712,6 +2908,7 @@ def main() -> int:
          "engine_wall_s": engine_times, "sim_path": sim,
          "campaign_path": campaign, "farm_path": farm,
          "dense_path": dense, "moe_path": moe, "encdec_path": encdec,
+         "vlm_path": vlm, "int8_kv_path": int8,
          "profiled": profiled,
          "timed": timed,
          "serve": serve, "serve_recurrentgemma": serve_rg}, indent=1))

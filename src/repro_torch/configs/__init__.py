@@ -6,9 +6,9 @@
 full-context attention (``qwen2-0.5b``, ``deepseek-7b``,
 ``granite-3-8b``, ``chatglm3-6b``), the top-k MoE family
 (``mixtral-8x7b`` with sliding-window attention, ``grok-1-314b`` with
-soft-capped attention) and the encoder-decoder ``whisper-tiny``.  The
-reference's last arch, ``internvl2-26b``, arrives with the VLM input
-stage (ROADMAP, port queue).
+soft-capped attention), the encoder-decoder ``whisper-tiny`` and the
+VLM ``internvl2-26b`` (precomputed patch embeddings put before the
+tokens) — all ten of the reference's archs.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ _ARCH_MODULES = {
     "whisper-tiny": "repro_torch.configs.whisper_tiny",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "grok-1-314b": "repro_torch.configs.grok_1_314b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

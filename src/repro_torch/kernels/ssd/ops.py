@@ -6,6 +6,10 @@ intra-chunk products; the caller composes the inter-chunk state scan
 and the D-skip.  Tensors on a CUDA device go through the Hopper kernel
 (``kernel.py``) — or raise; CPU tensors take the plain version
 (``ssd_intra_chunk_plain``, over ``ref.py``), which runs on any device.
+With G > 1 SSM groups (B/C of shape (Bb, L, G, N)) group ``gi`` owns the
+contiguous heads ``gi*H/G .. (gi+1)*H/G - 1`` (the reference's head
+order); both take one call per group over its heads and concatenate the
+results in head order.
 """
 from __future__ import annotations
 
@@ -16,13 +20,12 @@ from repro_torch.kernels.ssd import ref
 
 
 def _chunked(x, dt, A, B, C, chunk: int):
-    """(Bb, L, ...) operands -> fp32 (bb, nc, q, ...) chunks and the
-    within-chunk decay prefix ``cum``."""
+    """One group's (Bb, L, ...) operands -> fp32 (bb, nc, q, ...) chunks
+    and the within-chunk decay prefix ``cum``."""
     if x.dim() != 4 or B.dim() != 3 or C.dim() != 3:
-        raise ValueError("ssd_intra_chunk takes x (Bb, L, H, P) and "
-                         "single-group B/C (Bb, L, N) — more than one SSM "
-                         f"group is not supported; got x {tuple(x.shape)}, "
-                         f"B {tuple(B.shape)}, C {tuple(C.shape)}")
+        raise ValueError("a group's SSD operands are x (Bb, L, H, P) and "
+                         f"B/C (Bb, L, N); got x {tuple(x.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}")
     bb, l, h, p = x.shape
     n = B.shape[-1]
     if any(t.device != x.device for t in (dt, A, B, C)):
@@ -43,27 +46,55 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def ssd_intra_chunk_plain(x, dt, A, B, C, *, chunk: int):
-    """The plain PyTorch version of ``ssd_intra_chunk``, on the
-    operands' own device."""
+def _per_group(step, x, dt, A, B, C, chunk: int):
+    """``step`` over one group's operands, or once per group of grouped
+    B/C (Bb, L, G, N) over that group's contiguous heads, the results
+    concatenated in head order."""
+    if B.dim() != 4:
+        return step(x, dt, A, B, C, chunk)
+    g, h = B.shape[2], x.shape[2]
+    if C.shape != B.shape or h % g:
+        raise ValueError(f"{h} heads do not split into B/C's {g} groups "
+                         f"(B {tuple(B.shape)}, C {tuple(C.shape)})")
+    hg = h // g
+    outs = [step(x[:, :, i * hg:(i + 1) * hg], dt[:, :, i * hg:(i + 1) * hg],
+                 A[i * hg:(i + 1) * hg], B[:, :, i], C[:, :, i], chunk)
+            for i in range(g)]
+    y, states, cum = zip(*outs)
+    return torch.cat(y, dim=3), torch.cat(states, dim=2), torch.cat(cum, 3)
+
+
+def _plain_step(x, dt, A, B, C, chunk):
     xc, dtc, cum, bc, cc = _chunked(x, dt, A, B, C, chunk)
     y, states = ref.ssd_intra_chunk_ref(xc, dtc, cum, bc, cc)
     return y, states, cum
 
 
+def _kernel_step(x, dt, A, B, C, chunk):
+    xc, dtc, cum, bc, cc = _chunked(x, dt, A, B, C, chunk)
+    y, states = K.ssd_intra_chunk_kernel(
+        *(_aligned(t) for t in (xc, dtc, cum, bc, cc)))
+    return y, states, cum
+
+
+def ssd_intra_chunk_plain(x, dt, A, B, C, *, chunk: int):
+    """The plain PyTorch version of ``ssd_intra_chunk``, on the
+    operands' own device."""
+    return _per_group(_plain_step, x, dt, A, B, C, chunk)
+
+
 def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     B: torch.Tensor, C: torch.Tensor, *, chunk: int):
     """x (Bb, L, H, P); dt (Bb, L, H) post-softplus; A (H,) negative;
-    B/C (Bb, L, N) single-group.  Returns (y_intra (bb, nc, q, h, p),
-    states (bb, nc, h, n, p), cum (bb, nc, q, h)), fp32, with cum the
-    within-chunk decay prefix the inter-chunk scan needs."""
+    B/C (Bb, L, N) for one group or (Bb, L, G, N) for G groups (H a
+    multiple of G; one kernel launch per group).  Returns (y_intra (bb,
+    nc, q, h, p), states (bb, nc, h, n, p), cum (bb, nc, q, h)), fp32,
+    with cum the within-chunk decay prefix the inter-chunk scan
+    needs."""
     dev = x.device
     if dev.type == "cpu":
         return ssd_intra_chunk_plain(x, dt, A, B, C, chunk=chunk)
     if dev.type != "cuda":
         raise ValueError(f"ssd_intra_chunk runs on cuda (kernel) or cpu "
                          f"(plain version), not {dev.type}")
-    xc, dtc, cum, bc, cc = _chunked(x, dt, A, B, C, chunk)
-    y, states = K.ssd_intra_chunk_kernel(
-        *(_aligned(t) for t in (xc, dtc, cum, bc, cc)))
-    return y, states, cum
+    return _per_group(_kernel_step, x, dt, A, B, C, chunk)

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the SSD intra-chunk computation (g == 1)."""
+"""Plain PyTorch version of the SSD intra-chunk computation for one SSM
+group (``ops.py`` runs it once per group)."""
 from __future__ import annotations
 
 import torch

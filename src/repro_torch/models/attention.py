@@ -19,6 +19,11 @@
   of the output, as in the plain prefill, so decode reproduces the
   prefill's logits (the reference rounds the probabilities to the
   compute dtype instead, in both of its paths).
+* An int8 KV cache (``kv_cache_dtype="int8"``) holds int8 values with
+  an fp32 scale per (row, slot, KV head): each written K/V vector is
+  quantised by its absolute maximum over the head dim (round half to
+  even, clipped to +-127), and decode dequantises the whole cache to
+  the compute dtype before attending, as the reference does.
 * Cross-attention (the queries over an encoder output, key positions
   ``arange(T)``, no RoPE) and non-causal self-attention (the encoder)
   are plain torch in prefill and decode: the reference computes them
@@ -26,8 +31,8 @@
   decode path's rounding points (fp32 scores, softmax and P.V, one
   rounding of the output).
 
-Int8 KV caches and split-K decode raise ``NotImplementedError`` until
-their slices land (ROADMAP, port queue).
+Split-K decode (the reference's sequence-sharded cache) waits for the
+sharding rules (ROADMAP, port queue).
 """
 from __future__ import annotations
 
@@ -39,12 +44,6 @@ from repro_torch.models.layers import _dense_init, apply_rope, compute_dtype
 from repro_torch.types import Param
 
 NEG_INF = -1e30
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet — ROADMAP, port queue (the port runs "
-        "self- and cross-attention with a bf16 or fp32 KV cache)")
 
 
 # --------------------------------------------------------------------------
@@ -163,19 +162,39 @@ def attend(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                     window: int = 0, device) -> dict:
     """Dense cache of ``max_len`` slots (``window`` 0) or rolling-buffer
-    cache of ``min(window, max_len)``, in the compute dtype."""
-    if cfg.kv_cache_dtype == "int8":
-        raise _unported(f"kv_cache_dtype='int8' ({cfg.name})")
+    cache of ``min(window, max_len)``, in the compute dtype — or int8
+    with fp32 ``k_scale`` / ``v_scale`` of shape (B, length, n_kv)."""
     length = min(window, max_len) if window else max_len
     shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
-    dt = compute_dtype(cfg)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    quant = cfg.kv_cache_dtype == "int8"
+    dt = torch.int8 if quant else compute_dtype(cfg)
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=device)
+    return cache
 
 
 def cache_axes() -> dict:
     kv = ("act_batch", "cache_seq", "act_kv_heads", None)
     return {"k": kv, "v": kv, "k_scale": kv[:-1], "v_scale": kv[:-1]}
+
+
+def _quant_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., hd) -> int8 values and an fp32 scale per leading index:
+    amax / 127 (at least 1e-6 / 127), values rounded half to even and
+    clipped to +-127."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-6) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequant_kv(q: torch.Tensor, scale: torch.Tensor,
+                dt: torch.dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale[..., None]).to(dt)
 
 
 def attend_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -203,11 +222,22 @@ def attend_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     # cache as the reference's dynamic_update_slice clamps it
     slot = ts % length if window else ts.clamp(max=length - 1)
     rows = torch.arange(b, device=x.device)
+    quant = cfg.kv_cache_dtype == "int8"
+    if quant:
+        writes = dict(zip(("k", "k_scale"), _quant_kv(k_new)))
+        writes.update(zip(("v", "v_scale"), _quant_kv(v_new)))
+    else:
+        writes = {"k": k_new, "v": v_new}
     new_cache = {}
-    for name, val in (("k", k_new), ("v", v_new)):
+    for name, val in writes.items():
         buf = cache[name].clone()
         buf[rows, slot] = val[:, 0].to(buf.dtype)
         new_cache[name] = buf
+    if quant:   # the whole cache back in the compute dtype
+        k = _dequant_kv(new_cache["k"], new_cache["k_scale"], x.dtype)
+        v = _dequant_kv(new_cache["v"], new_cache["v_scale"], x.dtype)
+    else:
+        k, v = new_cache["k"], new_cache["v"]
     idx = torch.arange(length, device=x.device)
     if window:
         # slot i holds absolute position p_i = t - ((t - i) mod length)
@@ -221,5 +251,5 @@ def attend_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     # and P.V in fp32, the output rounded once: the plain prefill's
     # rounding points (kernels/swa/ops.swa_attention_plain), so a decode
     # step reproduces the prefill's logits
-    out = _attend_plain(q, new_cache["k"], new_cache["v"], cfg, valid)
+    out = _attend_plain(q, k, v, cfg, valid)
     return _out(params, out), new_cache

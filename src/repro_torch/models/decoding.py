@@ -16,7 +16,9 @@ Cache kinds ported so far:
   SSM state;
 * RG-LRU — ``(B, conv_k-1, W)`` bf16 conv tail + ``(B, W)`` fp32 state;
 * whisper decoder — ``{"self": dense KV, "cross": the encoder output's
-  precomputed k/v of ``encoder_len`` rows}``.
+  precomputed k/v of ``encoder_len`` rows}``;
+* ``kv_cache_dtype="int8"`` — attention K/V as int8 with fp32
+  ``k_scale`` / ``v_scale`` (one per row, slot and KV head).
 """
 from __future__ import annotations
 
@@ -110,8 +112,8 @@ def _to_decode_cache(raw, cfg: ModelConfig, kind: str, cache_len: int,
     attention layer's keys and values go to their slots of a dense
     cache of ``cache_len`` (full context: every position at its own
     slot) or of a rolling buffer: the last ``min(S, length)``
-    positions, at ``position mod length``; an encdec layer's cross k/v
-    pass through."""
+    positions, at ``position mod length``, quantised for an int8 cache;
+    an encdec layer's cross k/v pass through."""
     if kind in ("ssm", "rec"):
         return raw
     if cfg.is_encoder_decoder:
@@ -131,14 +133,19 @@ def _kv_slots(raw, cfg: ModelConfig, cache_len: int,
     for name, val in (("k", k), ("v", v)):
         buf = val.new_zeros(val.shape[:-3] + (length,) + val.shape[-2:])
         buf[..., slots, :, :] = val[..., val.shape[-3] - take:, :, :]
-        out[name] = buf
+        if cfg.kv_cache_dtype == "int8":   # the whole buffer, empty slots too
+            out[name], out[name + "_scale"] = attn_mod._quant_kv(buf)
+        else:
+            out[name] = buf
     return out
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int):
     """Run the full prompt, return (last-token logits (B, Vp), caches,
     t_next), the caches in decode format; an encdec config reads
-    ``batch["frames"]`` (B, encoder_len, d)."""
+    ``batch["frames"]`` (B, encoder_len, d), a vlm config
+    ``batch["patches"]`` (B, P, d) if present (``t_next`` counts the P
+    patch positions)."""
     _check_supported(cfg)
     pattern, _, _ = pattern_split(cfg)
     x, positions, _ = _embed_input(params, batch, cfg)

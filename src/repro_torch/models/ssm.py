@@ -8,7 +8,10 @@
 The chunked algorithm splits L into chunks of Q tokens; within a chunk
 the contribution is a masked (C B^T ⊙ decay) product — the Hopper kernel
 of ``repro_torch.kernels.ssd`` on the card, its plain version on the CPU
-— and across chunks a short loop carries the (H, N, P) state.
+— and across chunks a short loop carries the (H, N, P) state.  With
+``ssm_ngroups`` G > 1, B and C have one row per group and group ``gi``
+serves the contiguous heads ``gi*H/G .. (gi+1)*H/G - 1``, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -25,14 +28,6 @@ from repro_torch.types import Param
 
 def _conv_channels(cfg: ModelConfig) -> int:
     return cfg.ssm_d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
-
-
-def _check_groups(cfg: ModelConfig) -> None:
-    if cfg.ssm_ngroups != 1:
-        raise NotImplementedError(
-            f"ssm_ngroups={cfg.ssm_ngroups}: the port's SSD path takes one "
-            "SSM group (mamba2-130m); more groups are a later slice "
-            "(ROADMAP, port queue)")
 
 
 def init_ssm(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -80,20 +75,18 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int):
     """SSD scan in chunked (matmul) form.
 
     x (Bb, L, H, P); dt (Bb, L, H) [post-softplus]; A (H,) negative;
-    B, C (Bb, L, G, N) with G == 1; D (H,).  Returns (y (Bb, L, H, P),
-    final state (Bb, H, N, P)).  The intra-chunk part is
-    ``kernels.ssd.ssd_intra_chunk``; the inter-chunk recurrence,
-    ``y_inter`` and the D-skip run here."""
+    B, C (Bb, L, G, N) with H a multiple of G; D (H,).  Returns (y (Bb,
+    L, H, P), final state (Bb, H, N, P)).  The intra-chunk part is
+    ``kernels.ssd.ssd_intra_chunk`` (one launch per group); the
+    inter-chunk recurrence, ``y_inter`` and the D-skip run here."""
     bb, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    if g != 1:
-        raise NotImplementedError(
-            f"{g} SSM groups: the SSD kernel takes one group (ROADMAP, "
-            "port queue)")
-    y_intra, states, cum = ssd_ops.ssd_intra_chunk(
-        x, dt, A, B[:, :, 0], C[:, :, 0], chunk=chunk)
+    if g == 1:
+        B, C = B[:, :, 0], C[:, :, 0]
+    y_intra, states, cum = ssd_ops.ssd_intra_chunk(x, dt, A, B, C,
+                                                   chunk=chunk)
     nc, q = cum.shape[1], cum.shape[2]
-    cc = C.reshape(bb, nc, q, n).to(torch.float32)
+    cc = C.reshape(bb, nc, q, g, n).to(torch.float32)
 
     # inter-chunk recurrence over nc (sequential, nc is small)
     chunk_decay = torch.exp(cum[:, :, -1, :])                 # (Bb,nc,h)
@@ -104,9 +97,11 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int):
         carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
     prev_states = torch.stack(prev, dim=1)                    # (Bb,nc,h,n,p)
 
-    inner_decay = torch.exp(cum)                              # (Bb,nc,q,h)
-    y_inter = torch.einsum("bcln,bclh,bchnp->bclhp", cc, inner_decay,
-                           prev_states)
+    # each group's C against its heads' states
+    inner_decay = torch.exp(cum).reshape(bb, nc, q, g, h // g)
+    y_inter = torch.einsum("bclgn,bclgh,bcghnp->bclghp", cc, inner_decay,
+                           prev_states.reshape(bb, nc, g, h // g, n, p)) \
+        .reshape(bb, nc, q, h, p)
     y = (y_intra + y_inter).reshape(bb, l, h, p)
     return y + x * D[None, None, :, None], carry
 
@@ -114,7 +109,6 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int):
 def apply_ssm(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               return_state: bool = False):
     """Full-sequence Mamba-2 block. x (B, L, d) -> (B, L, d) [, cache]."""
-    _check_groups(cfg)
     dt_ = x.dtype
     zxbcdt = x @ params["in_proj"].to(dt_)
     z, xbc_raw, dtraw = _split_proj(zxbcdt, cfg)
@@ -169,7 +163,6 @@ def ssm_cache_axes() -> dict:
 def apply_ssm_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
                      cache: dict):
     """Single-token step. x (B, 1, d) -> (y (B, 1, d), new_cache)."""
-    _check_groups(cfg)
     dt_ = x.dtype
     zxbcdt = x @ params["in_proj"].to(dt_)
     z, xbc_new, dtraw = _split_proj(zxbcdt[:, 0, :], cfg)

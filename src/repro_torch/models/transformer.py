@@ -12,8 +12,9 @@ MLP) and ``"attn"`` (causal self-attention, full-context or local, +
 MLP or the top-k MoE FFN).  ``encdec`` (whisper) adds an encoder stack
 of non-causal attention blocks over precomputed frame embeddings and a
 cross-attention in each decoder layer, with absolute sinusoid positions
-in place of RoPE.  VLM inputs and int8 KV caches raise
-``NotImplementedError`` until their slices land (ROADMAP, port queue).
+in place of RoPE.  ``vlm`` (internvl2) puts precomputed patch embeddings
+(``batch["patches"]``) before the token embeddings; the logits of
+``forward`` leave them out again.
 """
 from __future__ import annotations
 
@@ -29,13 +30,12 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.types import Param, is_param, tree_map
 
-NEXT_SLICE = ("ROADMAP, port queue: VLM inputs and int8 KV caches come "
-              "with later slices")
 BLOCK_KINDS = ("ssm", "rec", "attn")
 
 
 def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet — {NEXT_SLICE}")
+    return NotImplementedError(
+        f"{what}: the reference has the block kinds {BLOCK_KINDS} only")
 
 
 # --------------------------------------------------------------------------
@@ -69,8 +69,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
         if kind not in BLOCK_KINDS:
             raise _unported(f"block kind {kind!r} ({cfg.name})")
-    if cfg.kv_cache_dtype == "int8":
-        raise _unported(f"the int8 KV cache ({cfg.name})")
 
 
 # --------------------------------------------------------------------------
@@ -300,26 +298,36 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _embed_input(params, batch: dict, cfg: ModelConfig):
-    """Token embedding (+ the sinusoid for encdec). Returns (x,
-    positions, n_prefix)."""
-    if cfg.family == "vlm":
-        raise _unported(f"the {cfg.family} input stage")
+    """Token embedding (+ the patch prefix for vlm, the sinusoid for
+    encdec).  Returns (x, positions, n_prefix): a vlm batch with
+    ``"patches"`` (B, P, d) runs them, cast to the compute dtype, as the
+    first P positions (``n_prefix`` = P); without, the prompt runs as
+    text."""
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    n_prefix = 0
+    if cfg.family == "vlm" and "patches" in batch:
+        patches = batch["patches"].to(device=x.device, dtype=x.dtype)
+        n_prefix = patches.shape[1]
+        x = torch.cat([patches, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.is_encoder_decoder:  # no RoPE: absolute sinusoid positions
         x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
-    return x, positions, 0
+    return x, positions, n_prefix
 
 
 def forward(params, batch: dict, cfg: ModelConfig, *, mode: str = "prefill"):
     """Full-sequence logits (B, S_tokens, padded_vocab) in fp32; an
-    encdec config reads ``batch["frames"]`` (B, T, d)."""
+    encdec config reads ``batch["frames"]`` (B, T, d), a vlm config
+    ``batch["patches"]`` (B, P, d) if present (the logits cover the
+    tokens only)."""
     _check_supported(cfg)
     pattern, _, _ = pattern_split(cfg)
-    x, positions, _ = _embed_input(params, batch, cfg)
+    x, positions, n_prefix = _embed_input(params, batch, cfg)
     enc_out = encode(params, batch["frames"], cfg) \
         if cfg.is_encoder_decoder else None
     x, _ = _run_stack(params, x, cfg, pattern, positions=positions,
                       enc_out=enc_out)
     x = L.apply_norm(params["final_norm"], x, cfg)
+    if n_prefix:
+        x = x[:, n_prefix:]
     return L.unembed(params["embed"], x, cfg)

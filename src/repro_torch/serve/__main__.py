@@ -1,6 +1,6 @@
 """Continuous-batching serving driver of the port — the twin of the
 reference's ``examples/serve_lm.py``, with the same flags and defaults
-(smoke config) plus ``--device``.
+(smoke config) plus ``--device`` and ``--kv-cache-dtype``.
 
 Requests arrive at an offered load, queue for slots, and every scheduler
 step is priced by the SoC latency oracle, so throughput and tail latency
@@ -9,13 +9,19 @@ come out in *simulated SoC seconds*; the model runs on ``--device``
 An encoder-decoder arch (``whisper-tiny``) gets each request's frame
 embeddings, ``(encoder_len, d_model)`` drawn from a seed, as the
 engine's prefill ``extras``: the reference's example submits none, so
-its prefill stops at the missing ``frames``.
+its prefill stops at the missing ``frames``.  A VLM arch
+(``internvl2-26b``) gets seeded ``(num_patches, d_model)`` patch
+embeddings the same way (without them its prompts run as text).
+``--kv-cache-dtype int8`` serves from int8 KV caches with per-slot
+scales.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve [--device cpu]
+          [--arch internvl2-26b] [--kv-cache-dtype int8]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -37,6 +43,9 @@ def main(argv=None) -> None:
     ap.add_argument("--gap-us", type=float, default=100.0,
                     help="arrival gap between requests (simulated µs)")
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--kv-cache-dtype", choices=("bfloat16", "int8"),
+                    default=None,
+                    help="attention KV cache type (default: the config's)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -44,6 +53,8 @@ def main(argv=None) -> None:
 
     dev = default_device(args.device)
     cfg = get_smoke_config(args.arch)
+    if args.kv_cache_dtype:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_cache_dtype)
     params = param_values(init_params(0, cfg, device=dev))
     eng = ServeEngine(cfg, params,
                       cache_len=args.prompt_len + args.max_new + 8,
@@ -57,6 +68,10 @@ def main(argv=None) -> None:
             extras = {"frames": np.random.default_rng(100 + i)
                       .standard_normal((cfg.encoder_len, cfg.d_model))
                       .astype(np.float32)}
+        elif cfg.family == "vlm":
+            extras = {"patches": np.random.default_rng(100 + i)
+                      .standard_normal((cfg.num_patches, cfg.d_model))
+                      .astype(np.float32)}
         eng.submit(Request(
             rid=i,
             tokens=tuple(int(t) for t in
@@ -68,7 +83,8 @@ def main(argv=None) -> None:
     stats = eng.run()
     dt = time.perf_counter() - t0
     print(f"arch={cfg.name}  device={dev}  requests={args.requests}  "
-          f"slots={args.max_slots}  prompt={args.prompt_len}")
+          f"slots={args.max_slots}  prompt={args.prompt_len}  "
+          f"kv={cfg.kv_cache_dtype}")
     print(f"host: {stats.tokens} tokens in {dt:.2f}s wall "
           f"(model {eng.wall_s['model']:.2f}s, oracle "
           f"{eng.wall_s['oracle']:.2f}s)")

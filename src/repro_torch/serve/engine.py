@@ -48,6 +48,7 @@ from repro_torch.models import (
 from repro_torch.serve.kvcache import PagedKVCache
 from repro_torch.serve.oracle import SoCLatencyOracle
 from repro_torch.types import param_values, tree_map
+from repro_torch.utils import prng
 from repro_torch.utils.env import default_device
 from repro_torch.utils.stats import nearest_rank
 
@@ -260,16 +261,18 @@ class ServeEngine:
                 device=self.device))
             self._axes = cache_slot_axes(self._caches)
 
-    def _request_seed(self, rid: int, n: int) -> int:
-        return (((self.seed * 1_000_003) + rid) * 1_000_003 + n) % (1 << 62)
+    def _request_key(self, rid: int, n: int) -> np.ndarray:
+        """The reference's key of request ``rid``'s ``n``-th token:
+        ``fold_in(fold_in(PRNGKey(seed), rid), n)``."""
+        return prng.fold_in(prng.fold_in(prng.prng_key(self.seed), rid), n)
 
     def _sample_row(self, logits_row: np.ndarray, rid: int, n: int) -> int:
         row = logits_row[:self.cfg.vocab_size]
         if self.temperature == 0.0:
             return int(np.argmax(row))
-        gen = torch.Generator().manual_seed(self._request_seed(rid, n))
-        probs = torch.softmax(torch.as_tensor(row) / self.temperature, 0)
-        return int(torch.multinomial(probs, 1, generator=gen))
+        return prng.categorical(self._request_key(rid, n),
+                                row.astype(np.float32)
+                                / np.float32(self.temperature))
 
     def _free_slot_ids(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]

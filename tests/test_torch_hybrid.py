@@ -323,16 +323,45 @@ def test_configs_match_reference():
 
 
 def test_unported_options_raise():
-    """What is still to port raises and names the queue: the int8 KV
-    cache at init, the VLM input stage at the forward."""
-    cfg = dataclasses.replace(t_smoke(ARCH), kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_models.init_params(0, cfg, device="cpu")
-    vlm = dataclasses.replace(t_smoke(ARCH), family="vlm")
-    params = param_values(t_models.init_params(0, vlm, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_models.forward(params, {"tokens": torch.zeros(
-            (1, 4), dtype=torch.int64)}, vlm)
+    """A block kind the reference does not have still raises and names
+    the ones it has.  The options once refused here run as the
+    reference's on the hybrid: an int8 KV cache in its local-attention
+    layers (rolling buffers of int8 values and scales; a prefill past
+    the window and three decode steps in fp32, at
+    tests/test_torch_int8kv.py's 1e-3) and the VLM input stage."""
+    with pytest.raises(NotImplementedError, match="block kinds"):
+        t_models.init_params(0, dataclasses.replace(
+            t_smoke(ARCH), block_pattern=("rec", "mlp")), device="cpu")
+    toks = _tokens(t_smoke(ARCH), (BATCH, SEQ))
+    tol = dict(rtol=1e-3, atol=1e-3)
+    for kw in (dict(kv_cache_dtype="int8"), dict(family="vlm",
+                                                  num_patches=4)):
+        jcfg = dataclasses.replace(j_smoke(ARCH), dtype="float32", **kw)
+        tcfg = dataclasses.replace(t_smoke(ARCH), dtype="float32", **kw)
+        jp = j_values(j_models.init_params(jax.random.PRNGKey(0), jcfg))
+        tp = model_tree(jax.tree.map(np.asarray, jp), device="cpu")
+        jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.as_tensor(
+            toks)}
+        if tcfg.family == "vlm":
+            patches = np.random.default_rng(8).standard_normal(
+                (BATCH, 4, tcfg.d_model)).astype(np.float32)
+            jb["patches"] = jnp.asarray(patches)
+            tb["patches"] = torch.from_numpy(patches)
+            _close(t_models.forward(tp, tb, tcfg),
+                   j_models.forward(jp, jb, jcfg, mode="prefill"), tol)
+        jl, jc, jt = j_models.prefill(jp, jb, jcfg, CACHE)
+        tl, tc, tt = t_models.prefill(tp, tb, tcfg, CACHE)
+        assert tt == int(jt)
+        _close(tl, jl, tol)
+        tc = model_tree(jax.tree.map(np.asarray, jc), device="cpu")
+        for i in range(3):
+            tok = toks[:, i:i + 1]
+            jl, jc = j_models.decode_step(jp, jc, jnp.asarray(tok),
+                                          jnp.asarray(int(jt) + i,
+                                                      jnp.int32), jcfg)
+            tl, tc = t_models.decode_step(tp, tc, torch.as_tensor(tok),
+                                          tt + i, tcfg)
+            _close(tl, jl, tol)
 
 
 def test_params_and_caches_keep_the_reference_layout():

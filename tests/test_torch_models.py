@@ -4,8 +4,8 @@ The reference's weights are carried across with
 ``repro_torch.convert.model_tree`` and both packages get the same
 numpy-made tokens.  In fp32 the port holds the reference's forward,
 prefill logits and caches, ``decode_step`` and ``slot_decode_step`` at
-rtol = atol = 1e-4; at the default bf16 it holds them at the
-reference's own decode-parity tolerances (tests/test_decode_parity.py:
+rtol = atol = 1e-4, with one SSM group and with several; at the default
+bf16 it holds them at the reference's own decode-parity tolerances (tests/test_decode_parity.py:
 atol 0.08 / rtol 2e-2 for one step, atol 0.3 / rtol 7e-2 over four),
 since the two frameworks round bf16 at different points."""
 from __future__ import annotations
@@ -162,7 +162,8 @@ def test_working_set_and_registry_match_reference():
 
     assert ARCHS == ("mamba2-130m", "recurrentgemma-9b", "qwen2-0.5b",
                      "deepseek-7b", "granite-3-8b", "chatglm3-6b",
-                     "whisper-tiny", "mixtral-8x7b", "grok-1-314b")
+                     "whisper-tiny", "mixtral-8x7b", "grok-1-314b",
+                     "internvl2-26b")
     for get in (lambda a: (j_get(a), get_config(a)),
                 lambda a: (j_smoke(a), t_smoke(a))):
         jcfg, tcfg = get(ARCH)
@@ -175,15 +176,102 @@ def test_working_set_and_registry_match_reference():
 
 
 def test_unported_block_kinds_raise():
-    tcfg = dataclasses.replace(t_smoke(ARCH), block_pattern=("attn",),
-                               kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_models.init_params(0, tcfg, device="cpu")
-    gcfg = dataclasses.replace(t_smoke(ARCH), ssm_ngroups=2)
-    params = param_values(t_models.init_params(0, gcfg, device="cpu"))
-    with pytest.raises(NotImplementedError, match="group"):
-        t_models.forward(params, {"tokens": torch.zeros((1, 8), dtype=torch.int64)},
-                         gcfg)
+    """A block kind the reference does not have raises by name; what the
+    port once refused here runs as the reference does: attention blocks
+    with an int8 KV cache (deepseek-7b's) and SSM blocks with 2 SSM
+    groups (fp32 forward)."""
+    bad = dataclasses.replace(t_smoke(ARCH), block_pattern=("conv",))
+    with pytest.raises(NotImplementedError, match="'conv'.*block kinds"):
+        t_models.init_params(0, bad, device="cpu")
+    toks = np.random.default_rng(5).integers(0, 256, (2, 24))
+    for arch, kw in (("deepseek-7b", dict(kv_cache_dtype="int8")),
+                     (ARCH, dict(ssm_ngroups=2))):
+        jcfg = dataclasses.replace(j_smoke(arch), dtype="float32", **kw)
+        tcfg = dataclasses.replace(t_smoke(arch), dtype="float32", **kw)
+        jp = j_values(j_models.init_params(jax.random.PRNGKey(0), jcfg))
+        tp = model_tree(jax.tree.map(np.asarray, jp), device="cpu")
+        want = j_models.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg,
+                                mode="prefill")
+        got = t_models.forward(tp, {"tokens": torch.as_tensor(toks)}, tcfg)
+        _close(got, want, FP32)
+
+
+@pytest.fixture(scope="module",
+                params=[(g, d) for g in (2, 4) for d in ("float32",
+                                                         "bfloat16")],
+                ids=lambda p: f"g{p[0]}-{p[1]}")
+def grouped(request):
+    g, dtype = request.param
+    jcfg = dataclasses.replace(j_smoke(ARCH), dtype=dtype, ssm_ngroups=g)
+    tcfg = dataclasses.replace(t_smoke(ARCH), dtype=dtype, ssm_ngroups=g)
+    jp = j_values(j_models.init_params(jax.random.PRNGKey(0), jcfg))
+    tp = model_tree(jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab_size,
+                                             (BATCH, SEQ))
+    return dtype, jcfg, tcfg, jp, tp, toks
+
+
+def test_grouped_ssm_matches_reference(grouped):
+    """``ssm_ngroups`` 2 and 4 over the smoke config's 4 SSM heads (2
+    heads a group, one head a group): the forward, the prefill's logits
+    and caches, and four decode steps, each from the reference's caches
+    of the step before (the conv tail is stored in bf16, so a cache the
+    port carried on could hold one element rounded the other way), at
+    the single-group model's tolerances."""
+    dtype, jcfg, tcfg, jp, tp, toks = grouped
+    want = j_models.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg,
+                            mode="prefill")
+    got = t_models.forward(tp, {"tokens": torch.as_tensor(toks)}, tcfg)
+    _close(got, want, _tol(dtype, multi=True))
+    jl, jc, jt = j_models.prefill(jp, {"tokens": jnp.asarray(
+        toks[:, :-4])}, jcfg, CACHE)
+    tl, tc, tt = t_models.prefill(tp, {"tokens": torch.as_tensor(
+        toks[:, :-4])}, tcfg, CACHE)
+    assert tt == int(jt)
+    _close(tl, jl, _tol(dtype))
+    conv = tc["blocks"][0]["conv"]
+    assert conv.shape[-1] == jcfg.ssm_d_inner + 2 * jcfg.ssm_ngroups \
+        * jcfg.ssm_state == jc["blocks"][0]["conv"].shape[-1]
+    _close(tc["blocks"][0]["state"], jc["blocks"][0]["state"],
+           FP32 if dtype == "float32" else BF16_MULTI)
+    for i in range(4):
+        tok = toks[:, SEQ - 4 + i:SEQ - 3 + i]
+        t = int(jt) + i
+        tc = model_tree(jax.tree.map(np.asarray, jc), device="cpu")
+        jl, jc = j_models.decode_step(jp, jc, jnp.asarray(tok),
+                                      jnp.asarray(t, jnp.int32), jcfg)
+        tl, tc = t_models.decode_step(tp, tc, torch.as_tensor(tok), t, tcfg)
+        _close(tl, jl, _tol(dtype, multi=i > 0))
+        _close(tc["blocks"][0]["state"], jc["blocks"][0]["state"],
+               _tol(dtype, multi=i > 0))
+
+
+def test_grouped_ssm_engine_matches_reference_engine_fp32():
+    """Serving with 2 SSM groups, fp32, temperature 0: the tokens, step
+    log and stats of the reference engine."""
+    from repro.serve import Request as JRequest
+    from repro.serve import ServeEngine as JEngine
+    from repro_torch.serve import Request, ServeEngine
+
+    jcfg = dataclasses.replace(j_smoke(ARCH), dtype="float32", ssm_ngroups=2)
+    tcfg = dataclasses.replace(t_smoke(ARCH), dtype="float32", ssm_ngroups=2)
+    jp = j_values(j_models.init_params(jax.random.PRNGKey(0), jcfg))
+    tp = model_tree(jax.tree.map(np.asarray, jp), device="cpu")
+    kw = dict(cache_len=80, max_slots=3, eos_id=-1, temperature=0.0)
+    jeng, teng = JEngine(jcfg, jp, **kw), ServeEngine(tcfg, tp,
+                                                      device="cpu", **kw)
+    rng = np.random.default_rng(1)
+    for i in range(5):
+        toks = tuple(int(t) for t in rng.integers(3, 256, (24, 64, 40)[i % 3]))
+        jeng.submit(JRequest(rid=i, tokens=toks, max_new=6 + i,
+                             arrival_s=i * 2e-6))
+        teng.submit(Request(rid=i, tokens=toks, max_new=6 + i,
+                            arrival_s=i * 2e-6))
+    want, got = jeng.run(), teng.run()
+    assert got.to_record() == want.to_record()
+    assert [r.to_record() for r in teng.step_log] == \
+        [r.to_record() for r in jeng.step_log]
+    assert teng.finished == jeng.finished
 
 
 @pytest.mark.gpu

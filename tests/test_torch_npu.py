@@ -118,16 +118,18 @@ def test_workloads_and_windows_match_reference(name):
 
 
 def test_workload_configs_are_the_references_and_serving_archs_unchanged():
-    for arch in ("qwen2-0.5b", "whisper-tiny"):
+    for arch in ("qwen2-0.5b", "whisper-tiny", "internvl2-26b"):
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(j_get(arch))
         assert dataclasses.asdict(get_smoke_config(arch)) == \
             dataclasses.asdict(j_smoke(arch))
-    assert "whisper-tiny" in ARCHS
+    assert {"whisper-tiny", "internvl2-26b"} <= set(ARCHS)
+    assert len(ARCHS) == 10
     from repro_torch.serve.__main__ import main as serve_main
 
-    serve_main(["--arch", "whisper-tiny", "--device", CPU, "--requests",
-                "2", "--prompt-len", "6", "--max-new", "3"])
+    for arch in ("whisper-tiny", "internvl2-26b"):
+        serve_main(["--arch", arch, "--device", CPU, "--requests", "2",
+                    "--prompt-len", "6", "--max-new", "3"])
 
 
 @pytest.mark.parametrize("case", ["40bit", "heap", "fmap", "config", "op",

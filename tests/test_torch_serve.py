@@ -132,6 +132,38 @@ def test_engine_matches_reference_engine_fp32():
     assert teng.wall_s["model"] > 0 and teng.wall_s["oracle"] > 0
 
 
+def test_engine_matches_reference_engine_at_temperature():
+    """Sampling at temperature 0.8 with an EOS (148, which the seed-5
+    draws hit early in two requests): the port draws with the
+    reference's keys, ``fold_in(fold_in(PRNGKey(seed), rid), n)``, and
+    its Gumbel-max (``repro_torch.utils.prng``), so the tokens, the
+    retire times and the step log are the reference engine's."""
+    jcfg = dataclasses.replace(j_smoke(ARCH), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+    jparams = j_values(j_init(jax.random.PRNGKey(0), jcfg))
+    tparams = model_tree(jax.tree.map(np.asarray, jparams), device="cpu")
+    kw = dict(cache_len=80, max_slots=3, eos_id=148, temperature=0.8,
+              seed=5)
+    jeng = JEngine(jcfg, jparams, **kw)
+    teng = ServeEngine(tcfg, tparams, device="cpu", **kw)
+    rng = np.random.default_rng(1)
+    for i in range(7):
+        plen = (24, 64, 40)[i % 3]
+        toks = tuple(int(t) for t in rng.integers(3, tcfg.vocab_size, plen))
+        jeng.submit(JRequest(rid=i, tokens=toks, max_new=6 + i,
+                             arrival_s=i * 2e-6))
+        teng.submit(Request(rid=i, tokens=toks, max_new=6 + i,
+                            arrival_s=i * 2e-6))
+    want, got = jeng.run(), teng.run()
+    assert got.to_record() == want.to_record()
+    assert [r.to_record() for r in teng.step_log] == \
+        [r.to_record() for r in jeng.step_log]
+    assert teng.finished == jeng.finished
+    early = [f for f in teng.finished if f["tokens"][-1] == 148
+             and len(f["tokens"]) < 6 + f["rid"]]
+    assert len(early) >= 2
+
+
 def test_hybrid_engine_matches_reference_engine_fp32():
     """recurrentgemma-9b's smoke config (window 16) in fp32, temperature
     0: prompts of 24, 12 and 30 tokens (past the window, inside it,

@@ -3,9 +3,11 @@
 On the CPU the op runs its plain version (``kernels/ssd/ref.py``); it is
 held to the reference's Pallas op (interpret mode) and pure-jnp oracle,
 and ``models.ssm.ssd_chunked`` to the reference's, at rtol = atol = 1e-4
-— the reference's own tolerance for this kernel.  On a card (``gpu``
-marker) the Hopper kernel is held to the plain version at the same
-tolerance.  Inputs are made with numpy and fed to both packages."""
+— the reference's own tolerance for this kernel — with one SSM group
+and with several (the op runs once per group over its contiguous
+heads).  On a card (``gpu`` marker) the Hopper kernel is held to the
+plain version at the same tolerance.  Inputs are made with numpy and
+fed to both packages."""
 from __future__ import annotations
 
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ from repro.kernels.ssd import ssd_intra_chunk as j_intra  # noqa: E402
 from repro.kernels.ssd.ref import ssd_intra_chunk_ref as j_ref  # noqa: E402
 from repro.models.ssm import ssd_chunked as j_chunked  # noqa: E402
 from repro_torch.kernels.ssd import kernel as t_kernel  # noqa: E402
+from repro_torch.kernels.ssd import ops as t_ops  # noqa: E402
 from repro_torch.kernels.ssd import ssd_intra_chunk  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
@@ -88,15 +91,79 @@ def test_ssd_chunked_matches_reference(bb, l, chunk, h, p, n):
     np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), **TOL)
 
 
+def _grouped_inputs(bb, l, h, p, n, g, seed):
+    """SSD operands with B/C of G groups: (bb, l, g, n)."""
+    rng = np.random.default_rng(seed)
+    x, dt, A, _, _ = _inputs(bb, l, h, p, n, seed)
+    B = rng.standard_normal((bb, l, g, n)).astype(np.float32)
+    C = rng.standard_normal((bb, l, g, n)).astype(np.float32)
+    D = rng.standard_normal(h).astype(np.float32)
+    return x, dt, A, B, C, D
+
+
 def test_ssd_chunked_takes_one_group_only():
-    x, dt, A, B, C = _inputs(1, 32, 2, 8, 16, seed=0)
-    B2 = torch.from_numpy(B.reshape(1, 32, 2, 8))
-    with pytest.raises(NotImplementedError, match="one group"):
-        ssd_chunked(torch.from_numpy(x), torch.from_numpy(dt),
-                    torch.from_numpy(A), B2, B2, torch.ones(2), chunk=32)
-    with pytest.raises(ValueError, match="single-group"):
-        ssd_intra_chunk(torch.from_numpy(x), torch.from_numpy(dt),
-                        torch.from_numpy(A), B2, B2, chunk=32)
+    """B/C with a group axis: each group serves its contiguous heads (6
+    heads in 2 groups of 3, no multiple of the kernel's 4-head tile) and
+    the scan gives the reference's grouped einsums; heads that do not
+    split into the groups are refused by name."""
+    x, dt, A, B, C, D = _grouped_inputs(1, 64, 6, 8, 16, 2, seed=0)
+    y, final = ssd_chunked(*map(torch.from_numpy, (x, dt, A, B, C, D)),
+                           chunk=32)
+    jy, jfinal = j_chunked(*map(jnp.asarray, (x, dt, A, B, C, D)), chunk=32)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), **TOL)
+    x5, dt5, A5, _, _ = _inputs(1, 32, 5, 8, 16, seed=0)
+    with pytest.raises(ValueError, match="do not split"):
+        ssd_intra_chunk(torch.from_numpy(x5), torch.from_numpy(dt5),
+                        torch.from_numpy(A5), torch.from_numpy(B[:, :32]),
+                        torch.from_numpy(C[:, :32]), chunk=32)
+
+
+# (bb, l, chunk, h, p, n, g): 2 and 4 groups, h / g of 1, 2, 3 and 6
+GROUPED = [
+    (2, 64, 32, 4, 16, 32, 2),
+    (2, 128, 32, 8, 16, 32, 4),
+    (1, 40, 32, 6, 8, 16, 2),       # ragged single chunk, 3 heads a group
+    (2, 96, 32, 4, 8, 16, 4),       # one head a group
+    (1, 64, 32, 24, 8, 16, 4),      # 6 heads a group
+]
+
+
+@pytest.mark.parametrize("bb,l,chunk,h,p,n,g", GROUPED)
+def test_grouped_ssd_chunked_matches_reference(bb, l, chunk, h, p, n, g):
+    x, dt, A, B, C, D = _grouped_inputs(bb, l, h, p, n, g, seed=l + h + g)
+    y, final = ssd_chunked(*map(torch.from_numpy, (x, dt, A, B, C, D)),
+                           chunk=chunk)
+    jy, jfinal = j_chunked(*map(jnp.asarray, (x, dt, A, B, C, D)),
+                           chunk=chunk)
+    assert tuple(y.shape) == (bb, l, h, p)
+    assert tuple(final.shape) == (bb, h, n, p)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), **TOL)
+
+
+@pytest.mark.parametrize("bb,l,chunk,h,p,n,g", GROUPED[:3])
+def test_grouped_intra_chunk_is_the_reference_op_per_group(bb, l, chunk, h,
+                                                           p, n, g):
+    """The grouped op's y_intra, states and cum, head block by head
+    block, against the reference's Pallas op (interpret mode) on that
+    group's heads and its B/C."""
+    x, dt, A, B, C, _ = _grouped_inputs(bb, l, h, p, n, g, seed=3 * l + g)
+    y, states, cum = ssd_intra_chunk(*map(torch.from_numpy,
+                                          (x, dt, A, B, C)), chunk=chunk)
+    hg = h // g
+    for gi in range(g):
+        heads = slice(gi * hg, (gi + 1) * hg)
+        jy, jstates, jcum = j_intra(
+            jnp.asarray(x[:, :, heads]), jnp.asarray(dt[:, :, heads]),
+            jnp.asarray(A[heads]), jnp.asarray(B[:, :, gi]),
+            jnp.asarray(C[:, :, gi]), chunk=chunk, interpret=True)
+        np.testing.assert_allclose(y[:, :, :, heads].numpy(),
+                                   np.asarray(jy), **TOL)
+        np.testing.assert_allclose(states[:, :, heads].numpy(),
+                                   np.asarray(jstates), **TOL)
+        np.testing.assert_allclose(cum[:, :, :, heads].numpy(),
+                                   np.asarray(jcum), **TOL)
 
 
 def test_intra_chunk_runs_on_cuda_or_cpu_only():
@@ -281,5 +348,25 @@ def test_kernel_matches_plain_on_card(cuda, bb, l, chunk, h, p, n):
         B.reshape(bb, nc, q, n), C.reshape(bb, nc, q, n))
     torch.cuda.synchronize()
     assert t_kernel.launches == before + 1
+    torch.testing.assert_close(y, want_y, **TOL)
+    torch.testing.assert_close(states, want_states, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [2, 8])
+def test_grouped_kernel_matches_plain_on_card(cuda, g):
+    """mamba2-130m's widths (h 24, p 64, n 128, chunk 256) with 2 and 8
+    SSM groups: one launch per group over its contiguous heads (12 and
+    3 heads), each against the plain version."""
+    bb, l, chunk, h, p, n = 2, 512, 256, 24, 64, 128
+    x, dt, A, B, C, _ = (torch.from_numpy(a).to(cuda) for a in
+                         _grouped_inputs(bb, l, h, p, n, g, seed=g))
+    before = t_kernel.launches
+    y, states, cum = ssd_intra_chunk(x, dt, A, B, C, chunk=chunk)
+    want_y, want_states, want_cum = t_ops.ssd_intra_chunk_plain(
+        x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert t_kernel.launches == before + g
+    torch.testing.assert_close(cum, want_cum, rtol=0, atol=0)
     torch.testing.assert_close(y, want_y, **TOL)
     torch.testing.assert_close(states, want_states, **TOL)
