@@ -75,7 +75,17 @@ port's paths through them:
   KV heads of 128) prefilling into and decoding from int8 caches,
   checked as granite-3-8b, its first decode logits held against the
   bf16 cache's; and the SSD kernel with 2 and 8 SSM groups at
-  mamba2-130m's widths, one launch a group.
+  mamba2-130m's widths, one launch a group;
+* training: the swa backward kernels (``csrc/swa_bwd.cu``) held to the
+  plain backward at every arch shape, qwen2-0.5b's training shape, a
+  ragged S at every head dim and a soft-capped band, in bf16 and fp32;
+  then qwen2-0.5b at full width and depth trained through
+  ``repro_torch.train.loop.train`` (batch 4 x 1024, 12 AdamW steps,
+  async checkpoints every 4, a failure injected at step 6): losses
+  finite and falling, the resumed steps' losses equal to an unbroken
+  run's, the backward kernel once a layer a step and no plain
+  attention, and one step through the kernels held to the same step
+  through the plain attention and autograd.
 
 Before the paths it times every kernel beside its plain version, a
 PyTorch library call where one computes the same function, and its
@@ -2836,6 +2846,404 @@ def where_time_goes(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# training: the swa backward kernels and qwen2-0.5b at full width
+# --------------------------------------------------------------------------
+# the swa backward (b, s, hq, hkv, d, window, softcap), each in bf16 and
+# fp32: every arch shape time_swa_archs times (SWA_ARCHS), qwen2-0.5b's
+# training shape (4 x 1024, 14 query heads over 2 KV heads of 64, full
+# causal), a ragged S at every head dim with a band narrower than S, and
+# grok's softcap over a band
+SWA_TRAIN = (4, 1024, 14, 2, 64, 1024, 0.0)
+SWA_BWD_CASES = [tuple(v) for v in SWA_ARCHS.values()] + [SWA_TRAIN] \
+    + [(2, 200, 4, 2, d, 50, 0.0) for d in (16, 32, 64, 128, 256)] \
+    + [(1, 300, 16, 1, 256, 128, 30.0), (2, 333, 48, 8, 128, 100, 30.0)]
+# relative to max|grad| of each gradient: fp32 summation order, and the
+# gradients' one bf16 rounding (tests/test_torch_swa_bwd.py)
+SWA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 12
+TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 6, 4
+TRAIN_TIMED_STEPS = 3
+# one bf16 step through the kernels against the same step through
+# swa_attention_plain and autograd: the two forwards round differently
+# (the tensor-core kernel rounds P to bf16 before P.V, the plain version
+# keeps it fp32) and 24 bf16 layers carry the difference into the loss
+# and every gradient
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GNORM_RTOL = 5e-2
+TRAIN_LEAF_RTOL = 5e-2      # ||g_kernel - g_plain|| / ||g_plain||, per leaf
+
+
+def swa_bwd_bound(out: dict, b, s, hq, hkv, d, window, itemsize=2):
+    """The backward's least time into ``out`` (``bound_ms``,
+    ``bound_by``): 10 D FLOP for each in-band pair and query head (q.k,
+    dO.v, dS.k, dS.q, P.dO) over the bf16 tensor-core peak, or the bytes
+    of q, k, v, o, dO read and dq, dk, dv written over HBM.  Returns
+    (FLOPs, bytes)."""
+    pairs = sum(min(i + 1, window) for i in range(s))
+    flops = 10 * d * pairs * hq * b
+    nbytes = itemsize * (4 * b * s * hq * d + 4 * b * s * hkv * d)
+    out["bound_ms"] = max(flops / BF16_OPS_PER_S,
+                          nbytes / HBM_BYTES_PER_S) * 1e3
+    out["bound_by"] = "operations" if flops / BF16_OPS_PER_S >= \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    return flops, nbytes
+
+
+def swa_bwd_rel(got, want) -> float:
+    """The largest of |dX - dX_plain| / max|dX_plain| over dq, dk, dv."""
+    return max(float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max().clamp_min(1e-30))
+               for g, w in zip(got, want))
+
+
+def check_swa_bwd(dev) -> dict:
+    """The swa backward kernels (through ``swa_attention``'s autograd
+    Function) against ``swa_attention_bwd_plain`` on the same q, k, v,
+    o and dO, at every ``SWA_BWD_CASES`` shape in bf16 and fp32; then
+    the bf16 backward timed at qwen2-0.5b's training shape beside the
+    plain backward, its bound and scaled_dot_product_attention's
+    backward (``is_causal``, KV heads expanded outside the timing)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.swa import kernel as K
+    from repro_torch.kernels.swa import ops
+
+    phase("swa backward against its plain version")
+    print("  dynamic shared memory by D: " + ", ".join(
+        f"{dim}: {K.bwd_smem_bytes(dim)}" for dim in K.HEAD_DIMS))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst_rel, worst_abs = 0.0, 0.0
+    before = K.bwd_launches
+    for b, s, hq, hkv, d, window, cap in SWA_BWD_CASES:
+        for dtype in DTYPES:
+            q, k, v = swa_inputs(b, s, hq, hkv, d, dtype, gen, dev)
+            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = ops.swa_attention(*leaves, window=window, softcap=cap)
+            got = torch.autograd.grad(o, leaves, do)
+            want = ops.swa_attention_bwd_plain(q, k, v, o.detach(), do,
+                                               window=window, softcap=cap)
+            torch.cuda.synchronize()
+            rel = swa_bwd_rel(got, want)
+            err = max(max_err(g, w) for g, w in zip(got, want))
+            print(f"  swa_bwd b {b} s {s} hq {hq} hkv {hkv} d {d} window "
+                  f"{window} softcap {cap:g} {str(dtype)[6:]}: max err "
+                  f"{rel:.2e} of max|grad| ({err:.2e} abs)")
+            if rel > SWA_BWD_TOL[dtype]:
+                raise AssertionError(f"swa_bwd off by {rel:.3e} of max|grad| "
+                                     f"at {(b, s, hq, hkv, d, window, cap)} "
+                                     f"{dtype}")
+            worst_rel = max(worst_rel, rel)
+            worst_abs = max(worst_abs, err)
+            del q, k, v, do, leaves, o, got, want
+    n = 2 * len(SWA_BWD_CASES)
+    if K.bwd_launches - before != n:
+        raise AssertionError(f"swa_bwd launched {K.bwd_launches - before} "
+                             f"times for {n} checks")
+
+    b, s, hq, hkv, d, window, cap = SWA_TRAIN
+    q, k, v = swa_inputs(b, s, hq, hkv, d, torch.bfloat16, gen, dev)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    o = K.swa_attention_kernel(q, k, v, window=window, scale=d ** -0.5)
+
+    def kernel():
+        return K.swa_attention_bwd_kernel(q, k, v, o, do, window=window,
+                                          scale=d ** -0.5)
+
+    def plain():
+        return ops.swa_attention_bwd_plain(q, k, v, o, do, window=window)
+
+    qh = q.transpose(1, 2).detach().requires_grad_()
+    kh, vh = (x.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+              .contiguous().requires_grad_() for x in (k, v))
+    out_lib = torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True)
+    do_h = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out_lib, (qh, kh, vh), do_h,
+                                   retain_graph=True)
+
+    tm = {"ms": queued_ms(kernel, 10), "event_ms": cuda_ms(kernel, 5),
+          "plain_ms": cuda_ms(plain, 3),
+          "library_ms": queued_ms(sdpa_bwd, 10),
+          "max_abs_err": worst_abs, "max_rel_err": worst_rel}
+    flops, nbytes = swa_bwd_bound(tm, b, s, hq, hkv, d, window)
+    print(f"swa_bwd qwen2-0.5b training shape b {b} s {s} hq {hq} hkv "
+          f"{hkv} d {d} full causal bf16: kernels {tm['ms']:.4f} ms of "
+          f"device time (events {tm['event_ms']:.4f}), plain "
+          f"{tm['plain_ms']:.4f} ms, scaled_dot_product_attention backward "
+          f"(is_causal=True) {tm['library_ms']:.4f} ms, bound "
+          f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}: {flops / 1e9:.2f} "
+          f"GFLOP in band, {nbytes / 1e6:.1f} MB)")
+    tm["ptxas"] = ptxas_report(_build.report("swa_bwd"), "swa_bwd")
+    for name, rec in sorted(tm["ptxas"].items()):
+        print(f"  ptxas {name}: {rec.get('registers')} registers, "
+              f"{rec.get('stack')} bytes stack, spill stores "
+              f"{rec.get('spill_stores')}, spill loads "
+              f"{rec.get('spill_loads')}")
+    return tm
+
+
+def train_step_split(step_fn, state, batch) -> dict:
+    """One train step's wall time and device time by kind from a
+    torch.profiler trace (ms): the swa forward and backward kernels and
+    the matrix products by kernel name; the cross entropy (its forward
+    inside a ``record_function`` range, its backward under autograd's
+    Logsumexp/Gather nodes) and the optimizer (a range around
+    ``adamw_update``) by range (the CPU range sums its kernels; its GPU
+    annotation is no kernel and is left out); ``other`` the rest; the
+    count of device events; and the ten kernels (by name) that took the
+    most device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import layers
+    from repro_torch.train import step as step_mod
+
+    ce, update = layers.cross_entropy, step_mod.adamw_update
+
+    def ranged(name, fn):
+        def wrapped(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return wrapped
+
+    layers.cross_entropy = ranged("cross_entropy", ce)
+    step_mod.adamw_update = ranged("optimizer", update)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, metrics = step_fn(state, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        layers.cross_entropy, step_mod.adamw_update = ce, update
+    kernels = {"swa": ("swa_tc_kernel", "swa_fma_kernel"),
+               "swa_bwd": ("swa_bwd_",),
+               "matmul": ("gemm", "nvjet", "xmma", "cutlass", "sm90_")}
+    # CPU events by exact name: the two ranges, and autograd's node for
+    # each of the cross entropy's backward ops (one level only: the
+    # node's own op event sums the same kernels again)
+    node = "autograd::engine::evaluate_function: "
+    ranges = {"cross_entropy": ("cross_entropy", node + "LogsumexpBackward0",
+                                node + "GatherBackward0"),
+              "optimizer": ("optimizer",)}
+    split = {"wall_ms": wall * 1e3, "device_ms": 0.0, "launches": 0,
+             **{k: 0.0 for k in (*kernels, *ranges)}}
+    by_name: dict = {}
+    for e in prof.events():
+        kind = next((k for k, names in ranges.items() if e.name in names),
+                    None)
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if kind:
+                continue    # a range's GPU annotation, no kernel
+            split["device_ms"] += e.device_time_total / 1e3
+            split["launches"] += 1
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+            kind = next((k for k, subs in kernels.items()
+                         if any(sub in e.name for sub in subs)), None)
+            if kind:
+                split[kind] += e.device_time_total / 1e3
+        elif kind:
+            split[kind] += e.device_time_total / 1e3
+    split["other"] = split["device_ms"] - sum(
+        split[k] for k in (*kernels, *ranges))
+    split["top_kernels"] = sorted(
+        ((name[:100], ms, n) for name, (ms, n) in by_name.items()),
+        key=lambda t: -t[1])[:10]
+    return split
+
+
+def train_path(dev) -> tuple[dict, dict]:
+    """qwen2-0.5b at full width and depth (24 layers, d_model 896, 14
+    query heads over 2 KV heads of 64, d_ff 4864, vocab 151,936 tied;
+    fp32 parameters and moments, bf16 compute, layer remat) trained
+    through ``repro_torch.train.loop.train``: global batch 4 x 1024
+    tokens, AdamW (lr 3e-3, warmup 5, decay 100), 12 steps, an async
+    checkpoint every 4 and a failure injected at step 6; then an
+    unbroken 12-step run, whose losses the resumed steps must equal.
+    The swa backward kernel must run once a layer a step, and neither
+    run may reach the plain attention.  Then three timed steps, one
+    profiled step's device-time split, and one step through the kernels
+    against the same step through ``swa_attention_plain`` and autograd
+    (loss, grad norm, every gradient leaf).  Checkpoints go to
+    ``build/train_ckpt`` (git-ignored, never copied back) and are removed
+    at the end.  Returns ({"swa": forward launches, "swa_bwd": backward
+    launches} of the two runs, the record)."""
+    import shutil
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.kernels.swa import kernel as K
+    from repro_torch.kernels.swa import ops
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.step import grads_of, make_train_step
+    from repro_torch.types import global_norm, tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    b, s, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    phase(f"train_path: {TRAIN_ARCH} at full width ({cfg.num_layers} "
+          f"layers, remat {cfg.remat}, {cfg.dtype} compute), batch {b} x "
+          f"{s}, {steps} AdamW steps, a failure at step {TRAIN_FAIL_AT}")
+    t_phase = time.perf_counter()
+    opt = AdamWConfig(lr=3e-3, warmup_steps=5, decay_steps=100)
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    plain_calls = [0]
+    fwd_plain, bwd_plain = ops.swa_attention_plain, ops.swa_attention_bwd_plain
+
+    def counted(fn):
+        def wrapped(*args, **kw):
+            plain_calls[0] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    def run(name, every, hook):
+        loop_cfg = LoopConfig(total_steps=steps, checkpoint_every=every,
+                              checkpoint_dir=str(ckpt / name), keep=2,
+                              async_save=True, log_every=1)
+        t0 = time.perf_counter()
+        res = train(cfg, opt, loop_cfg, global_batch=b, seq_len=s,
+                    failure_hook=hook, device=dev,
+                    log=lambda line: print(f"  [{name}] {line}"))
+        return res, time.perf_counter() - t0
+
+    armed = [True]
+
+    def failure_hook(step):
+        if step == TRAIN_FAIL_AT and armed[0]:
+            armed[0] = False
+            raise RuntimeError(f"injected node failure at step {step}")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.swa_attention_plain = counted(fwd_plain)
+    ops.swa_attention_bwd_plain = counted(bwd_plain)
+    try:
+        K.launches, K.bwd_launches = 0, 0
+        broken, broken_s = run("broken", TRAIN_CKPT_EVERY, failure_hook)
+        launches = {"swa": K.launches, "swa_bwd": K.bwd_launches}
+        last = latest_step(str(ckpt / "broken"))
+        K.launches, K.bwd_launches = 0, 0
+        whole, whole_s = run("whole", 10 * steps, None)
+        launches["swa"] += K.launches
+        launches["swa_bwd"] += K.bwd_launches
+    finally:
+        ops.swa_attention_plain = fwd_plain
+        ops.swa_attention_bwd_plain = bwd_plain
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ran = len(broken.losses) + len(whole.losses)
+    print(f"  broken run {broken_s:.1f} s ({len(broken.losses)} steps, "
+          f"{broken.restarts} restart, latest checkpoint {last}), unbroken "
+          f"run {whole_s:.1f} s; peak {peak_gb:.1f} GB; swa launches "
+          f"{launches['swa']}, swa_bwd launches {launches['swa_bwd']} "
+          f"({cfg.num_layers} x {ran} steps); plain attention calls "
+          f"{plain_calls[0]}")
+    losses = broken.losses
+    first, final = np.mean(losses[:4]), np.mean(losses[-4:])
+    checks = {
+        "every loss finite": all(math.isfinite(x) for x in losses
+                                 + whole.losses),
+        "losses fall": final < first,
+        "one restart, at step 12": broken.restarts == 1
+        and int(broken.state.step) == steps and last == steps,
+        "resumed losses equal the unbroken run's":
+            losses[:TRAIN_FAIL_AT] == whole.losses[:TRAIN_FAIL_AT]
+            and losses[TRAIN_FAIL_AT:] == whole.losses[TRAIN_CKPT_EVERY:],
+        "swa_bwd once a layer a step":
+            launches["swa_bwd"] == cfg.num_layers * ran,
+        "swa forward twice a layer a step (remat)":
+            launches["swa"] == 2 * cfg.num_layers * ran,
+        "no plain attention": plain_calls[0] == 0,
+    }
+    gaps = [abs(a - c) for a, c in zip(losses[TRAIN_FAIL_AT:],
+                                       whole.losses[TRAIN_CKPT_EVERY:])]
+    print(f"  losses: first 4 mean {first:.4f}, last 4 mean {final:.4f}; "
+          f"broken {[round(x, 5) for x in losses]}; resumed vs unbroken "
+          f"max gap {max(gaps):.3e}")
+    del broken
+
+    # step wall and tokens/s: steps 12.. of the unbroken run's state
+    stream = SyntheticStream(cfg, b, s, seed=0, device=dev)
+    step_fn = make_train_step(cfg, opt)
+    state = whole.state
+    walls = []
+    for i in range(steps, steps + TRAIN_TIMED_STEPS):
+        batch = stream.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[len(walls) // 2]
+    split = train_step_split(step_fn, state, stream.batch_at(
+        steps + TRAIN_TIMED_STEPS))
+    print(f"  step wall {wall * 1e3:.1f} ms (median of "
+          f"{TRAIN_TIMED_STEPS}: {[round(w * 1e3, 1) for w in walls]}), "
+          f"{b * s / wall:.0f} tokens/s")
+    if split["device_ms"]:
+        print(f"  profiled step: wall {split['wall_ms']:.1f} ms, device "
+              f"{split['device_ms']:.1f} ms in {split['launches']} device "
+              "events: " + ", ".join(
+                  f"{k} {split[k]:.2f}" for k in (
+                      "swa", "swa_bwd", "matmul", "cross_entropy",
+                      "optimizer", "other")) + " ms")
+        for name, ms, n in split["top_kernels"]:
+            print(f"    {ms:8.2f} ms in {n:5d} launches of {name}")
+    else:
+        print("  profiled step: device time not measured (no device "
+              "events in the trace)")
+
+    # one step through the kernels against the plain attention
+    params = state.params
+    batch = stream.batch_at(0)
+    before = K.bwd_launches
+    g_k, m_k = grads_of(params, batch, cfg)
+    kernel_bwd = K.bwd_launches - before
+    swa_attention = ops.swa_attention
+    ops.swa_attention = lambda q, k, v, **kw: fwd_plain(q, k, v, **kw)
+    try:
+        g_p, m_p = grads_of(params, batch, cfg)
+    finally:
+        ops.swa_attention = swa_attention
+    norms = (float(global_norm(g_k)), float(global_norm(g_p)))
+    leaf_rel = max(float((a.float() - c.float()).norm()
+                         / c.float().norm().clamp_min(1e-30))
+                   for a, c in zip(tree_leaves(g_k), tree_leaves(g_p)))
+    loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+    print(f"  one step, kernels vs plain attention: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}, grad norm {norms[0]:.5f} vs {norms[1]:.5f}, "
+          f"worst leaf ||g_k - g_p|| / ||g_p|| {leaf_rel:.3e} "
+          f"({kernel_bwd} swa_bwd launches in the kernel step)")
+    checks["comparison step within bf16 tolerances"] = (
+        abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p)
+        and abs(norms[0] - norms[1]) <= TRAIN_GNORM_RTOL * norms[1]
+        and leaf_rel <= TRAIN_LEAF_RTOL and kernel_bwd == cfg.num_layers)
+    unbroken = whole.losses
+    del state, whole, params, g_k, g_p
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"  train_path took {phase_s:.1f} s")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train_path: {failed}")
+    return launches, {
+        "losses": losses, "unbroken_losses": unbroken,
+        "restarts": 1, "latest_step": last, "peak_gb": peak_gb,
+        "step_wall_ms": wall * 1e3, "step_walls_ms": [w * 1e3 for w in walls],
+        "tokens_per_s": b * s / wall, "split": split,
+        "compare": {"loss": (loss_k, loss_p), "grad_norm": norms,
+                    "worst_leaf_rel": leaf_rel},
+        "broken_s": broken_s, "whole_s": whole_s, "phase_s": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2849,12 +3257,15 @@ def main() -> int:
     errs = check_kernels(dev)
     errs["ssd"] = check_ssd(dev)
     errs["swa"] = check_swa(dev)
+    timed_bwd = check_swa_bwd(dev)
     # the kernels' timings first: after the serving phases' long traces,
     # profiler windows missed kernels more often
     timed, rows = time_kernels(dev)
     timed["ssd"] = time_ssd(dev)
     timed["swa"] = time_swa(dev)
     timed["swa_archs"] = time_swa_archs(dev)
+    timed["swa_bwd"] = timed_bwd
+    train_launches, trained = train_path(dev)
     res, launches, main_errs = main_path(dev)
     engine_times = paper_chain(res, dev)
     sim = sim_path(dev)
@@ -2870,11 +3281,14 @@ def main() -> int:
     vlm_launches, vlm = vlm_path(dev)
     int8_launches, int8 = int8_kv_path(dev)
     launches["swa"] = rg_launches["swa"] + dense_launches + moe_launches \
-        + encdec_launches + vlm_launches + int8_launches
+        + encdec_launches + vlm_launches + int8_launches \
+        + train_launches["swa"]
+    launches["swa_bwd"] = train_launches["swa_bwd"]
     main_errs["swa"] = max(serve_rg["swa_max_abs_err"],
                            dense["swa_max_abs_err"], moe["swa_max_abs_err"],
                            encdec["swa_max_abs_err"], vlm["swa_max_abs_err"],
                            int8["swa_max_abs_err"])
+    errs["swa_bwd"] = main_errs["swa_bwd"] = timed_bwd["max_abs_err"]
     profiled = where_time_goes(dev)
 
     meta = {
@@ -2886,6 +3300,8 @@ def main() -> int:
                 "src/repro/kernels/ssd/kernel.py:60"),
         "swa": ("src/repro_torch/csrc/swa.cu",
                 "src/repro/kernels/swa/kernel.py:78"),
+        "swa_bwd": ("src/repro_torch/csrc/swa_bwd.cu",
+                    "src/repro/models/attention.py:151"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -2908,7 +3324,7 @@ def main() -> int:
          "engine_wall_s": engine_times, "sim_path": sim,
          "campaign_path": campaign, "farm_path": farm,
          "dense_path": dense, "moe_path": moe, "encdec_path": encdec,
-         "vlm_path": vlm, "int8_kv_path": int8,
+         "vlm_path": vlm, "int8_kv_path": int8, "train_path": trained,
          "profiled": profiled,
          "timed": timed,
          "serve": serve, "serve_recurrentgemma": serve_rg}, indent=1))

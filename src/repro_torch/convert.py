@@ -5,8 +5,8 @@ numeric stage's parameters arrive as numpy arrays (or anything
 ``np.asarray`` takes) and configs as any objects with the same
 dataclass fields as the port's.  Tests use it to feed both packages the
 same state: the numeric stage's tensors and configs (``stage_layers``,
-``to_config``) and a model's parameter and decode-cache trees
-(``model_tree``).
+``to_config``), a model's parameter and decode-cache trees
+(``model_tree``) and a trainer's state (``train_state``).
 """
 from __future__ import annotations
 
@@ -90,3 +90,22 @@ def model_tree(tree, *, device=None):
     dtype)."""
     dev = default_device(device)
     return tree_map(lambda a: _tensor(a, dev), tree)
+
+
+def train_state(state, *, device=None):
+    """A reference ``TrainState`` (``params``, ``opt`` = {"m", "v",
+    "count"}, ``step``, ``ef``; array leaves) as the port's
+    ``repro_torch.train.TrainState`` on ``device`` (``cuda`` when None),
+    dtypes kept (fp32 parameters and moments, int32 count and step), the
+    parameters made leaves that require gradients: both packages then
+    start the same steps from the same state."""
+    from repro_torch.train.step import TrainState
+
+    params = tree_map(lambda t: t.requires_grad_(),
+                      model_tree(state.params, device=device))
+    opt = {"m": model_tree(state.opt["m"], device=device),
+           "v": model_tree(state.opt["v"], device=device),
+           "count": model_tree(state.opt["count"], device=device)}
+    ef = None if state.ef is None else model_tree(state.ef, device=device)
+    return TrainState(params=params, opt=opt,
+                      step=model_tree(state.step, device=device), ef=ef)

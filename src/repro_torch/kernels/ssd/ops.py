@@ -77,6 +77,10 @@ def _kernel_step(x, dt, A, B, C, chunk):
     return y, states, cum
 
 
+def _device_type(x: torch.Tensor) -> str:
+    return x.device.type
+
+
 def ssd_intra_chunk_plain(x, dt, A, B, C, *, chunk: int):
     """The plain PyTorch version of ``ssd_intra_chunk``, on the
     operands' own device."""
@@ -90,11 +94,18 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     multiple of G; one kernel launch per group).  Returns (y_intra (bb,
     nc, q, h, p), states (bb, nc, h, n, p), cum (bb, nc, q, h)), fp32,
     with cum the within-chunk decay prefix the inter-chunk scan
-    needs."""
-    dev = x.device
-    if dev.type == "cpu":
+    needs.  On a CUDA tensor that needs a gradient it raises: the kernel
+    has no backward pass yet."""
+    dev = _device_type(x)
+    if dev == "cpu":
         return ssd_intra_chunk_plain(x, dt, A, B, C, chunk=chunk)
-    if dev.type != "cuda":
+    if dev != "cuda":
         raise ValueError(f"ssd_intra_chunk runs on cuda (kernel) or cpu "
-                         f"(plain version), not {dev.type}")
+                         f"(plain version), not {dev}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        raise NotImplementedError(
+            "ssd_intra_chunk has no backward kernel yet (ROADMAP, Queue 1: "
+            "the ssd backward kernel): on the card an SSM arch cannot "
+            "train; the kernel's output would carry no gradient")
     return _per_group(_kernel_step, x, dt, A, B, C, chunk)

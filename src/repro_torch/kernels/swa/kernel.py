@@ -1,13 +1,16 @@
-"""Sliding-window flash attention on Hopper: launch wrapper of
-``repro_torch/csrc/swa.cu`` (which says what bounds it and how it is
-built).
+"""Sliding-window flash attention on Hopper: launch wrappers of
+``repro_torch/csrc/swa.cu`` (the forward) and ``csrc/swa_bwd.cu`` (its
+backward pass), which say what bounds them and how they are built.
 
 Two kernels, picked here by dtype: bf16 goes to the tensor-core kernel
 (``wgmma`` fed by TMA; a block owns 128 query rows of one (batch, query
 head) as two 64-row warpgroups sharing each key/value tile), fp32 to
 the FMA kernel (fp32 products, which the 2e-5 fp32 tolerance needs).
 Both walk only the 64-key tiles that meet a block's band; the score
-matrix never leaves the SM and the softmax is online, in fp32.
+matrix never leaves the SM and the softmax is online, in fp32.  The
+backward (``swa_attention_bwd_kernel``) recomputes the probabilities
+from q and k in two grids, dQ by query tile and dK/dV by key tile, on
+the FMA units for both dtypes.
 """
 from __future__ import annotations
 
@@ -95,3 +98,88 @@ def swa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     launches_by_path[path] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# the backward pass: repro_torch/csrc/swa_bwd.cu
+# --------------------------------------------------------------------------
+bwd_launches = 0   # backward wrapper calls (two grids each), in this process
+
+_bwd_lib: ctypes.CDLL | None = None
+
+
+def _bwd_library() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.library("swa_bwd")
+        lib.swa_bwd_launch.restype = ctypes.c_int
+        lib.swa_bwd_launch.argtypes = [ctypes.c_void_p] * 10 \
+            + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int,
+                                                            ctypes.c_void_p]
+        lib.swa_bwd_smem_bytes.restype = ctypes.c_int
+        lib.swa_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def bwd_smem_bytes(d: int) -> dict[str, int]:
+    """Dynamic shared memory of the two backward kernels at head dim
+    ``d`` (bytes)."""
+    lib = _bwd_library()
+    return {"swa_bwd_dq": lib.swa_bwd_smem_bytes(d, 0),
+            "swa_bwd_dkdv": lib.swa_bwd_smem_bytes(d, 1)}
+
+
+def swa_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, window: int, scale: float,
+                             softcap: float = 0.0):
+    """Gradients of ``swa_attention_kernel``'s output ``o`` given its
+    cotangent ``do``: q/o/do (B, S, Hq, D), k/v (B, S, Hkv, D); one
+    dtype (bf16 or fp32), contiguous, 16-byte aligned, on one CUDA
+    device; D in ``HEAD_DIMS``.
+
+    Returns (dq, dk, dv) in the operands' dtype, launched on the
+    current stream: the ``swa_bwd_dq`` grid (which also writes the
+    rows' log-sum-exp and ``rowsum(do * o)`` to fp32 scratch), then the
+    ``swa_bwd_dkdv`` grid, which sums each KV head's group of query
+    heads without atomics."""
+    global bwd_launches
+    tensors = (q, k, v, o, do)
+    if q.device.type != "cuda" or any(
+            t.device != q.device or not t.is_contiguous()
+            or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("swa_attention_bwd_kernel takes contiguous, "
+                         "16-byte aligned tensors on one CUDA device")
+    if q.dtype not in PATHS or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError("swa_attention_bwd_kernel takes fp32 or bf16 "
+                        "operands of one dtype, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("swa_attention_bwd_kernel shapes: q/o/do (B, S, "
+                         "Hq, D), k/v (B, S, Hkv, D); got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d) or hq % hkv:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"swa_attention_bwd_kernel is built for head_dim "
+                         f"in {HEAD_DIMS}, got {d}")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    lse, delta = (torch.empty((b, hq, s), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    lib = _bwd_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.swa_bwd_launch(
+        *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, lse, delta)),
+        b, s, hq, hkv, d, int(window), float(scale), float(softcap),
+        int(q.dtype == torch.bfloat16), stream)
+    _build.check(lib, "swa_bwd", err)
+    bwd_launches += 1
+    return dq, dk, dv

@@ -6,10 +6,20 @@ through the Hopper kernel (``kernel.py``) — or raise; CPU tensors take
 the plain version (``swa_attention_plain``), which runs on any device.
 Neither expands the KV heads to the query heads in memory: query head
 ``h`` reads KV head ``h // (Hq // Hkv)``.
+
+With gradients on and an operand that needs one, ``swa_attention``
+runs as a ``torch.autograd.Function`` that saves q, k, v and the output
+and recomputes the probabilities in the backward pass (the
+flash-attention policy the reference writes as ``jax.checkpoint`` per
+query chunk): the backward kernel on the card, the plain backward
+(``swa_attention_bwd_plain``) on the CPU.  The backward is not itself
+differentiable (double backward raises), and forward-mode AD is not
+offered: no path returns a result detached from its inputs.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.swa import kernel as K
 from repro_torch.kernels.swa.ref import NEG_INF
@@ -64,6 +74,95 @@ def swa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(out, dim=1).reshape(b, s, hq, d).to(q.dtype)
 
 
+def swa_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, window: int,
+                            scale: float | None = None, softcap: float = 0.0,
+                            block: int = DEFAULT_BLOCK):
+    """The plain PyTorch version of the backward kernel, on the
+    operands' own device: (dq, dk, dv) of ``swa_attention``'s output
+    ``o`` for the cotangent ``do``, in the operands' dtypes.  Query
+    chunk by query chunk of ``block`` rows, in fp32: the chunk's scores
+    and probabilities recomputed, ``dP = dO Vᵀ``, ``dS = P (dP - delta)``
+    with ``delta = rowsum(dO * O)`` (times ``1 - tanh²`` of the capped
+    score with a softcap), ``dQ = scale dS K``, and ``dK += scale dSᵀ Q``,
+    ``dV += Pᵀ dO`` summed over each KV head's group of query heads."""
+    _check(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    pos = torch.arange(s, device=q.device)
+    f32 = torch.float32
+    qf, of, dof = (t.to(f32).reshape(b, s, hkv, g, d) for t in (q, o, do))
+    kf, vf = k.to(f32), v.to(f32)
+    delta = (dof * of).sum(-1).permute(0, 2, 3, 1)      # (b, hkv, g, s)
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i0 in range(0, s, block):
+        i1 = min(i0 + block, s)
+        j0 = max(0, i0 - window + 1)
+        scores = torch.einsum("blkgd,btkd->bkglt", qf[:, i0:i1],
+                              kf[:, j0:i1]) * scale
+        if softcap > 0.0:
+            t = torch.tanh(scores / softcap)
+            scores = softcap * t
+        qp, kp = pos[i0:i1, None], pos[None, j0:i1]
+        mask = (qp >= kp) & (qp - kp < window)
+        probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+        dp = torch.einsum("blkgd,btkd->bkglt", dof[:, i0:i1], vf[:, j0:i1])
+        ds = probs * (dp - delta[..., i0:i1, None])
+        if softcap > 0.0:
+            ds = ds * (1.0 - t * t)
+        dq[:, i0:i1] = torch.einsum("bkglt,btkd->blkgd", ds,
+                                    kf[:, j0:i1]) * scale
+        dk[:, j0:i1] += torch.einsum("bkglt,blkgd->btkd", ds,
+                                     qf[:, i0:i1]) * scale
+        dv[:, j0:i1] += torch.einsum("bkglt,blkgd->btkd", probs,
+                                     dof[:, i0:i1])
+    return (dq.reshape(b, s, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _forward(q, k, v, window, scale, softcap, block):
+    if q.device.type == "cpu":
+        return swa_attention_plain(q, k, v, window=window, scale=scale,
+                                   softcap=softcap, block=block)
+    return K.swa_attention_kernel(
+        *(t.contiguous() for t in (q, k, v)), window=window, scale=scale,
+        softcap=softcap)
+
+
+class _SwaAttention(torch.autograd.Function):
+    """``swa_attention`` with its backward pass: the kernels on CUDA
+    tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, scale, softcap, block):
+        o = _forward(q, k, v, window, scale, softcap, block)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = (window, scale, softcap, block)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        window, scale, softcap, block = ctx.args
+        if q.device.type == "cpu":
+            grads = swa_attention_bwd_plain(q, k, v, o, do, window=window,
+                                            scale=scale, softcap=softcap,
+                                            block=block)
+        else:
+            grads = K.swa_attention_bwd_kernel(
+                *(t.contiguous() for t in (q, k, v, o, do)), window=window,
+                scale=scale, softcap=softcap)
+        return (*grads, None, None, None, None)
+
+
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int, scale: float | None = None,
                   softcap: float = 0.0,
@@ -72,17 +171,15 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, S, Hq, D) in q's dtype; ``window >= S`` is full causal
     attention.  ``scale`` defaults to ``D ** -0.5``; ``softcap > 0``
     applies ``softcap * tanh(s / softcap)`` to the scores.  ``block`` is
-    the query chunk of the plain version (the CPU path); the kernel
-    tiles the queries its own way."""
+    the query chunk of the plain versions (the CPU path); the kernels
+    tile the queries their own way.  Differentiable in q, k and v (the
+    backward kernel on the card)."""
     _check(q, k, v, window)
     dev = q.device
-    if dev.type == "cpu":
-        return swa_attention_plain(q, k, v, window=window, scale=scale,
-                                   softcap=softcap, block=block)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"swa_attention runs on cuda (kernel) or cpu "
                          f"(plain version), not {dev.type}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    return K.swa_attention_kernel(
-        *(t.contiguous() for t in (q, k, v)), window=window, scale=scale,
-        softcap=softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _SwaAttention.apply(q, k, v, window, scale, softcap, block)
+    return _forward(q, k, v, window, scale, softcap, block)

@@ -9,7 +9,10 @@
   query-chunked, banded jnp path (``repro.models.attention.attend``) and
   keeps the Pallas SWA kernel as its TPU-native form; the port runs the
   kernel.  GQA is never expanded in memory: query head ``h`` reads KV
-  head ``h // group``.
+  head ``h // group``.  In training the op is differentiable: its
+  backward recomputes the probabilities in the swa backward kernel on
+  the card (``kernels.swa.ops``), the reference's per-chunk
+  ``jax.checkpoint`` policy.
 * Decode reads a dense cache of ``cache_len`` slots written at absolute
   positions (``window`` 0) or a rolling buffer of ``min(window,
   cache_len)`` slots (slot = position mod length), with RoPE applied at

@@ -146,7 +146,10 @@ def init_embeddings(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
     dt = compute_dtype(cfg)
-    x = params["embed"][tokens].to(dt)     # gather, then cast the rows
+    # gather, then cast the rows; F.embedding's backward sums the rows'
+    # gradients by sorting the tokens (deterministic on CUDA), where an
+    # index's backward accumulates with atomics
+    x = F.embedding(tokens, params["embed"]).to(dt)
     if cfg.family == "hybrid":  # gemma-style sqrt(d) scale, in dt
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
     return x
@@ -165,3 +168,12 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         mask = torch.arange(vp, device=logits.device) < v
         logits = torch.where(mask, logits, -1e9)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean CE in fp32. logits (..., V) — the padded vocab, its
+    padding at -1e9 from ``unembed`` — labels (...)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    return (logz - gold).mean()

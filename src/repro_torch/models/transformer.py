@@ -14,13 +14,17 @@ of non-causal attention blocks over precomputed frame embeddings and a
 cross-attention in each decoder layer, with absolute sinusoid positions
 in place of RoPE.  ``vlm`` (internvl2) puts precomputed patch embeddings
 (``batch["patches"]``) before the token embeddings; the logits of
-``forward`` leave them out again.
+``forward`` leave them out again.  ``forward(mode="train")`` checkpoints
+each layer group when ``cfg.remat == "layer"`` (its activations are
+recomputed in the backward pass), and ``loss_fn`` is the training
+objective: fp32 token-mean cross entropy and accuracy.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -28,7 +32,13 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.types import Param, is_param, tree_map
+from repro_torch.types import (
+    Param,
+    is_param,
+    tree_flatten,
+    tree_map,
+    tree_unflatten,
+)
 
 BLOCK_KINDS = ("ssm", "rec", "attn")
 
@@ -200,6 +210,17 @@ def layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def unstack(tree) -> list:
+    """Every layer of a stacked tree, as views (``torch.unbind``): in a
+    backward pass the layers' gradients are stacked once, where taking
+    each layer with ``layer`` would add a zero-filled stack-sized
+    gradient per layer, traffic quadratic in the depth."""
+    leaves, treedef = tree_flatten(tree)
+    per_leaf = [t.unbind(0) for t in leaves]
+    return [tree_unflatten(treedef, [u[i] for u in per_leaf])
+            for i in range(len(per_leaf[0]))]
+
+
 def _stack_layers(gen: torch.Generator, cfg: ModelConfig, kind: str,
                   n: int, *, decoder_cross: bool = False) -> dict:
     """``n`` layers of one kind, initialised in order, their values
@@ -254,8 +275,13 @@ def init_params(key, cfg: ModelConfig, *, device=None) -> dict:
 # --------------------------------------------------------------------------
 def _run_stack(params, x, cfg: ModelConfig, pattern, *, positions=None,
                causal: bool = True, enc_out=None,
-               collect_cache: bool = False):
+               collect_cache: bool = False, remat: bool = False):
     """Walk the stacked pattern groups, then the remainder layers.
+
+    ``remat`` (training, with gradients on) checkpoints each pattern
+    group: its activations are recomputed in the backward pass, as the
+    reference's ``jax.checkpoint`` around its scanned group body does
+    (the remainder layers are not rematerialised there either).
 
     Returns (x, caches) where caches mirrors {"blocks": tuple (stacked
     per pattern position), "rem": tuple} (entries None unless
@@ -264,12 +290,25 @@ def _run_stack(params, x, cfg: ModelConfig, pattern, *, positions=None,
     if "blocks" in params:
         n_layers = params["blocks"][0]["norm1"]["scale"].shape[0]
         per_pos: list[list] = [[] for _ in pattern]
-        for i in range(n_layers):
+        blocks = [unstack(b) for b in params["blocks"]]
+
+        def group(x, i):
+            out = []
             for j, kind in enumerate(pattern):
-                x, c = apply_block(layer(params["blocks"][j], i), x, cfg,
+                x, c = apply_block(blocks[j][i], x, cfg,
                                    kind, positions=positions, causal=causal,
                                    enc_out=enc_out,
                                    collect_cache=collect_cache)
+                out.append(c)
+            return x, out
+
+        for i in range(n_layers):
+            if remat:
+                x, group_caches = checkpoint(group, x, i,
+                                             use_reentrant=False)
+            else:
+                x, group_caches = group(x, i)
+            for j, c in enumerate(group_caches):
                 per_pos[j].append(c)
         caches["blocks"] = tuple(stack_trees(c) if collect_cache else None
                                  for c in per_pos)
@@ -315,19 +354,39 @@ def _embed_input(params, batch: dict, cfg: ModelConfig):
     return x, positions, n_prefix
 
 
+MODES = ("prefill", "train")
+
+
 def forward(params, batch: dict, cfg: ModelConfig, *, mode: str = "prefill"):
     """Full-sequence logits (B, S_tokens, padded_vocab) in fp32; an
     encdec config reads ``batch["frames"]`` (B, T, d), a vlm config
     ``batch["patches"]`` (B, P, d) if present (the logits cover the
-    tokens only)."""
+    tokens only).  ``mode="train"`` with ``cfg.remat == "layer"``
+    rematerialises each layer group in the backward pass (while
+    gradients are on)."""
     _check_supported(cfg)
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     pattern, _, _ = pattern_split(cfg)
     x, positions, n_prefix = _embed_input(params, batch, cfg)
     enc_out = encode(params, batch["frames"], cfg) \
         if cfg.is_encoder_decoder else None
+    remat = mode == "train" and cfg.remat == "layer" \
+        and torch.is_grad_enabled()
     x, _ = _run_stack(params, x, cfg, pattern, positions=positions,
-                      enc_out=enc_out)
+                      enc_out=enc_out, remat=remat)
     x = L.apply_norm(params["final_norm"], x, cfg)
     if n_prefix:
         x = x[:, n_prefix:]
     return L.unembed(params["embed"], x, cfg)
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig):
+    """Token-mean cross entropy of ``forward(mode="train")`` against
+    ``batch["labels"]``, and the metrics {"loss", "accuracy"} (the
+    accuracy detached: argmax over the padded vocab)."""
+    logits = forward(params, batch, cfg, mode="train")
+    labels = batch["labels"].to(logits.device)
+    loss = L.cross_entropy(logits, labels)
+    acc = (logits.detach().argmax(dim=-1) == labels).to(torch.float32).mean()
+    return loss, {"loss": loss, "accuracy": acc}

@@ -1,6 +1,7 @@
 """Serving: continuous batching scheduled by simulated SoC latencies."""
 from repro_torch.serve.engine import (  # noqa: F401
     EngineStats,
+    GenerationResult,
     Request,
     ServeEngine,
     StepResult,

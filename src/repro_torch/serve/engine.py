@@ -24,8 +24,9 @@ attention in Hopper kernels there.  Typed frozen ``Request`` / ``StepResult`` / 
 records with ``to_record()``/``from_record()`` are the journal currency.
 ``wall_s`` splits the host wall time of the run into the model
 (prefill + decode, which end in a copy of the logits to the host) and
-the oracle.  ``checkpoint``/``restore`` and the deprecated
-``generate()`` shim of the reference are not ported yet (ROADMAP).
+the oracle.  ``checkpoint``/``restore`` snapshot and resume every piece
+of scheduler state bit for bit; the deprecated ``generate()`` shim runs
+a padded static batch through the queue, as the reference's does.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import collections
 import dataclasses
 import functools
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -155,6 +157,14 @@ class EngineStats:
         kw.update({f: float(record[f]) for f in cls._FLOAT_FIELDS})
         return cls(**kw)
 
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    """Result shape of the deprecated ``generate()`` shim (seed API)."""
+    tokens: np.ndarray          # (B, steps) generated ids
+    lengths: np.ndarray         # (B,) #tokens before EOS (or steps)
+    steps: int
 
 
 # --------------------------------------------------------------------------
@@ -471,3 +481,102 @@ class ServeEngine:
             latency_p99_s=nearest_rank(lat, 99),
             mean_occupancy=self._occupancy_sum / max(1, busy),
             max_occupancy=self._occupancy_max)
+
+    # -- checkpoint / restore ---------------------------------------------
+    def _fingerprint(self) -> tuple:
+        return (self.cache_len, self.block_size, self.max_slots,
+                self.eos_id, self.temperature, self.seed)
+
+    def checkpoint(self) -> dict:
+        """Host-side snapshot of every piece of scheduler state.  The
+        caches are kept as host tensors (``.cpu().clone()``, dtypes as
+        they are: numpy has no bf16, where the reference keeps numpy
+        arrays; ``to("cpu", copy=True)``).  Restoring into a fresh engine with the same config and
+        params resumes bit-identically."""
+        caches = (None if self._caches is None else
+                  tree_map(lambda t: t.to("cpu", copy=True), self._caches))
+        return {
+            "fingerprint": self._fingerprint(),
+            "clock_cycles": self.clock_cycles,
+            "step_idx": self.step_idx,
+            "counts": dict(self._counts),
+            "occupancy_sum": self._occupancy_sum,
+            "occupancy_max": self._occupancy_max,
+            "queue": [r.to_record() for r in self.queue],
+            "extras": {rid: {k: v.copy() for k, v in ex.items()}
+                       for rid, ex in self._extras.items()},
+            "slots": [None if s is None else dataclasses.asdict(s)
+                      for s in self.slots],
+            "kv": self.kv.snapshot(),
+            "caches": caches,
+            "finished": [dict(f) for f in self.finished],
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Resume from ``checkpoint()``'s snapshot (which stays
+        unchanged: the caches are copied onto the engine's device)."""
+        if tuple(snap["fingerprint"]) != self._fingerprint():
+            raise ValueError(
+                f"checkpoint fingerprint {snap['fingerprint']} does not "
+                f"match engine config {self._fingerprint()}")
+        self.clock_cycles = int(snap["clock_cycles"])
+        self.step_idx = int(snap["step_idx"])
+        self._counts = dict(snap["counts"])
+        self._occupancy_sum = int(snap["occupancy_sum"])
+        self._occupancy_max = int(snap["occupancy_max"])
+        self.queue = collections.deque(
+            Request.from_record(r) for r in snap["queue"])
+        self._extras = {int(rid): {k: np.asarray(v) for k, v in ex.items()}
+                        for rid, ex in snap["extras"].items()}
+        self.slots = [None if s is None else
+                      _Slot(**{**s, "generated": list(s["generated"])})
+                      for s in snap["slots"]]
+        self.kv.restore(snap["kv"])
+        if snap["caches"] is None:
+            self._caches = None
+            self._axes = None
+        else:
+            self._caches = tree_map(
+                lambda t: t.to(self.device, copy=True), snap["caches"])
+            self._axes = cache_slot_axes(self._caches)
+        self.finished = [dict(f) for f in snap["finished"]]
+        self.step_log = []
+
+    # -- deprecated seed API ----------------------------------------------
+    def generate(self, batch: dict, max_new: int, *, seed: int = 0
+                 ) -> GenerationResult:
+        """Seed-era padded static-batch generation.
+
+        .. deprecated:: round-trips through the continuous-batching
+           queue; greedy tokens equal the seed loop's (per-row argmax
+           decode is batch-size invariant).  Use ``submit()`` + ``run()``
+           and the typed records instead.
+        """
+        warnings.warn(
+            "ServeEngine.generate(batch, max_new) is deprecated; submit "
+            "typed Requests and run() the continuous-batching scheduler",
+            DeprecationWarning, stacklevel=2)
+        if self.queue or self._active_slot_ids():
+            raise RuntimeError("generate() shim requires a drained engine")
+        toks = np.asarray(batch["tokens"])
+        b = toks.shape[0]
+        extras = {k: np.asarray(v) for k, v in batch.items()
+                  if k != "tokens"}
+        base = 1 + max((f["rid"] for f in self.finished), default=-1)
+        rids = list(range(base, base + b))
+        for i, rid in enumerate(rids):
+            self.submit(Request(rid=rid, tokens=tuple(int(t)
+                                                      for t in toks[i]),
+                                max_new=max_new, arrival_s=self.clock_s),
+                        extras={k: v[i] for k, v in extras.items()} or None)
+        self.run()
+        by_rid = {f["rid"]: f["tokens"] for f in self.finished}
+        rows = [by_rid[rid] for rid in rids]
+        n_cols = max(len(r) for r in rows)
+        out = np.full((b, n_cols), self.eos_id, np.int32)
+        for i, r in enumerate(rows):
+            out[i, :len(r)] = r
+        lengths = np.argmax(out == self.eos_id, axis=1)
+        lengths = np.where((out == self.eos_id).any(axis=1), lengths,
+                           n_cols)
+        return GenerationResult(tokens=out, lengths=lengths, steps=n_cols)

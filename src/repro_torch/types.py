@@ -8,7 +8,10 @@ and ``tuple``s with tensors (or ``Param``s) at the leaves.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,3 +46,95 @@ def tree_map(fn: Callable, tree, *rest, is_leaf: Callable | None = None):
 def param_values(tree):
     """Strip Param wrappers -> plain value tree."""
     return tree_map(lambda p: p.value, tree, is_leaf=is_param)
+
+
+def tree_flatten(tree, *, is_leaf: Callable | None = None) -> tuple[list, Any]:
+    """Leaves of ``tree`` in JAX's order — dict keys sorted, tuples and
+    lists in order, a dataclass's fields in declaration order (a
+    ``Param``'s value, its axes kept in the structure), ``None`` a node
+    with no leaves — and the structure to rebuild it from them
+    (``tree_unflatten``).  Whatever numbers the leaves (checkpoint leaf
+    indices, the optimizer's flat lists) uses this order, so a leaf's
+    index is the reference's."""
+    leaves: list = []
+
+    def walk(x):
+        if is_leaf is not None and is_leaf(x):
+            leaves.append(x)
+            return "*"
+        if x is None:
+            return None
+        if isinstance(x, Param):
+            return ("param", x.axes, (walk(x.value),))
+        if isinstance(x, dict):
+            keys = sorted(x)
+            return ("dict", tuple(keys), tuple(walk(x[k]) for k in keys))
+        if isinstance(x, (tuple, list)):
+            return (type(x).__name__, None, tuple(walk(v) for v in x))
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            names = tuple(f.name for f in dataclasses.fields(x))
+            return (type(x), names,
+                    tuple(walk(getattr(x, n)) for n in names))
+        leaves.append(x)
+        return "*"
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef, leaves) -> Any:
+    """The tree of ``treedef`` (from ``tree_flatten``) with ``leaves``
+    in its leaf order."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if node == "*":
+            return next(it)
+        kind, aux, children = node
+        values = [build(c) for c in children]
+        if kind == "param":
+            return Param(values[0], aux)
+        if kind == "dict":
+            return dict(zip(aux, values))
+        if kind == "tuple":
+            return tuple(values)
+        if kind == "list":
+            return values
+        return kind(**dict(zip(aux, values)))
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree structure holds")
+    return out
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if hasattr(x, "element_size"))
+
+
+def tree_param_count(tree) -> int:
+    return sum(int(math.prod(x.shape)) for x in tree_leaves(tree))
+
+
+def cast_floating(tree, dtype):
+    """Floating-point leaves cast to ``dtype``; others as they are."""
+    def _cast(x):
+        if hasattr(x, "is_floating_point") and x.is_floating_point():
+            return x.to(dtype)
+        return x
+
+    return tree_map(_cast, tree)
+
+
+def global_norm(tree):
+    """sqrt of the sum of squares of every leaf, in fp32 (a 0-d
+    tensor): each leaf's sum of squares, then their sum, as the
+    reference stacks and sums them."""
+    leaves = [x.to(torch.float32).square().sum() for x in tree_leaves(tree)]
+    return torch.stack(leaves).sum().sqrt()

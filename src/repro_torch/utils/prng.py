@@ -15,9 +15,16 @@ engine draws the reference's tokens:
 * ``uniform`` keeps 23 random mantissa bits under the exponent of 1.0;
 * ``gumbel`` is ``-log(-log(uniform(tiny, 1)))`` in float32 (JAX's
   ``mode="low"``) and ``categorical`` the Gumbel-max ``argmax(logits +
-  gumbel)``.
+  gumbel)``;
+* ``normal`` is ``sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1))``, with
+  XLA's float32 ``erf_inv`` polynomial (the synthetic data stream's
+  frame and patch stubs).
 
-Keys, bits and uniforms equal JAX's exactly.  Each ``log`` is rounded
+Keys, bits and uniforms equal JAX's exactly.  ``erf_inv`` evaluates
+XLA's polynomial with each multiply-add rounded once, as XLA fuses it,
+and ``log1p`` rounded once from float64, where XLA's float32 ``log1p``
+is up to two ulps off; so a normal value may differ from JAX's by a few
+float32 ulps (tests/test_torch_train.py measures the bound).  Each ``log`` is rounded
 once from float64, and XLA's float32 ``log`` may differ from that by an
 ulp, so a Gumbel value may differ from JAX's by up to two float32 ulps
 of ``max(|g|, 1)`` (one from each log); a draw can differ only where two
@@ -107,3 +114,37 @@ def categorical(key: np.ndarray, logits: np.ndarray) -> int:
     ``logits`` (1-D), ``jax.random.categorical``'s Gumbel-max."""
     logits = np.asarray(logits, np.float32)
     return int(np.argmax(gumbel(key, logits.shape) + logits))
+
+
+# XLA's float32 erf_inv (Giles' approximation): coefficients for
+# w = -log1p(-x^2) < 5 and for w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: np.ndarray) -> np.ndarray:
+    """float32 inverse error function, XLA's polynomial: each step
+    ``c + p * w`` rounded once (a fused multiply-add)."""
+    x = np.asarray(x, np.float32)
+    w = (-np.log1p(-(x * x).astype(np.float64))).astype(np.float32)
+    lt = w < np.float32(5.0)
+    w = np.where(lt, w - np.float32(2.5),
+                 np.sqrt(w) - np.float32(3.0)).astype(np.float64)
+    p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
+    for lo, hi in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        c = np.where(lt, np.float32(lo), np.float32(hi)).astype(np.float64)
+        p = (c + p.astype(np.float64) * w).astype(np.float32)
+    out = (p * x).astype(np.float32)
+    return np.where(np.abs(x) == 1, x * np.finfo(np.float32).max, out)
+
+
+def normal(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
+    """float32 standard normals, ``jax.random.normal``: ``sqrt(2) *
+    erf_inv(u)`` of uniforms in ``[nextafter(-1, 0), 1)``."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, shape, float(lo), 1.0)
+    return (np.float32(np.sqrt(2)) * erf_inv(u)).astype(np.float32)

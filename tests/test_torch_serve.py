@@ -4,7 +4,10 @@ The oracle's prefill, decode and mixed steps give the reference's
 ``LaneMetrics`` records exactly, and a smoke-config ``ServeEngine`` run
 in fp32 at temperature 0 gives the reference engine's tokens, step log
 and ``EngineStats`` exactly (the simulator pieces underneath are held
-bit for bit in tests/test_torch_serve_sim.py)."""
+bit for bit in tests/test_torch_serve_sim.py).  The deprecated
+``generate()`` shim gives the reference shim's tokens and lengths and
+warns at the caller's line; ``checkpoint``/``restore`` resume a run bit
+for bit and refuse a snapshot of another configuration."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,6 +37,7 @@ from repro_torch.serve import PagedKVCache as TKV  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.serve import SoCLatencyOracle as TOracle  # noqa: E402
 from repro_torch.serve.__main__ import main as serve_main  # noqa: E402
+from repro_torch.types import tree_leaves  # noqa: E402
 from repro_torch.utils import stats as t_stats  # noqa: E402
 
 ARCH = "mamba2-130m"
@@ -241,3 +245,138 @@ def test_serve_cli_runs_the_hybrid_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "arch=recurrentgemma-9b-smoke  device=cpu" in out
     assert "simulated SoC:" in out
+
+
+# --------------------------------------------------------------------------
+# the deprecated generate() shim and checkpoint/restore (twins of
+# tests/test_serve.py), fp32 smoke configs against the reference engine
+# --------------------------------------------------------------------------
+def _engines(arch, seed=0, **kw):
+    jcfg = dataclasses.replace(j_smoke(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    jparams = j_values(j_init(jax.random.PRNGKey(seed), jcfg))
+    tparams = model_tree(jax.tree.map(np.asarray, jparams), device="cpu")
+    return (JEngine(jcfg, jparams, **kw),
+            ServeEngine(tcfg, tparams, device="cpu", **kw), jcfg)
+
+
+def _generate_both(arch, n, max_new, seed=0, batch_seed=0, **kw):
+    from repro.data.synthetic import make_batch as j_make_batch
+
+    jeng, teng, jcfg = _engines(arch, seed, **kw)
+    batch = j_make_batch(jcfg, n, 16, seed=batch_seed)
+    batch.pop("labels")
+    batch = {k: np.asarray(v) for k, v in batch.items()}
+    with pytest.warns(DeprecationWarning, match="deprecated"):
+        want = jeng.generate(batch, max_new=max_new)
+    with pytest.warns(DeprecationWarning, match="deprecated"):
+        got = teng.generate(batch, max_new=max_new)
+    return got, want
+
+
+def test_generate_shim_matches_reference():
+    got, want = _generate_both("qwen2-0.5b", 3, 8, cache_len=64, eos_id=0)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+    assert got.steps == want.steps
+
+
+def test_generate_shim_parity_with_queueing():
+    """max_slots below the batch size queues the shim's requests."""
+    got, want = _generate_both("qwen2-0.5b", 4, 6, batch_seed=2,
+                               cache_len=64, max_slots=2, eos_id=0)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b",
+                                  "whisper-tiny"])
+def test_generate_hybrid_ssm_and_encoder_decoder(arch):
+    """Across cache families (SSM state, recurrent hybrid, whisper's
+    frames through the extras path)."""
+    got, want = _generate_both(arch, 2, 4, seed=1, batch_seed=1,
+                               cache_len=64, eos_id=0)
+    assert got.tokens.shape[0] == 2
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+
+
+def test_generate_shim_warns_at_the_callers_line():
+    import warnings
+
+    _, teng, _ = _engines("qwen2-0.5b", cache_len=16, max_slots=2,
+                          eos_id=0)
+    batch = {"tokens": np.full((1, 4), 3, np.int64)}
+    fn = lambda: teng.generate(batch, 2)  # noqa: E731
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+        fn()
+    deps = [w for w in log if issubclass(w.category, DeprecationWarning)]
+    assert len(deps) == 1
+    assert deps[0].filename == __file__
+    assert deps[0].lineno == fn.__code__.co_firstlineno
+
+
+def _trace_requests(cfg, n=4, seed=3):
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, tokens=tuple(int(x) for x in
+                                        rng.integers(3, cfg.vocab_size, 12)),
+                    max_new=6, arrival_s=i * 2e-5) for i in range(n)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_restore_resumes_bit_identical(dtype):
+    """Snapshot after 5 steps, restore into a fresh engine: the same
+    tokens, cycles and stats as an unbroken run; in bf16 the caches
+    round-trip as host tensors of their own dtype."""
+    from repro_torch.models import init_params
+    from repro_torch.types import param_values
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"), dtype=dtype)
+    params = param_values(init_params(0, cfg, device="cpu"))
+    kw = dict(cache_len=32, max_slots=2, eos_id=0, device="cpu")
+
+    def engine():
+        return ServeEngine(cfg, params, **kw)
+
+    ref = engine()
+    for r in _trace_requests(cfg):
+        ref.submit(r)
+    ref.run()
+    eng = engine()
+    for r in _trace_requests(cfg):
+        eng.submit(r)
+    for _ in range(5):
+        eng.step()
+    snap = eng.checkpoint()
+    assert any(t.dtype == getattr(torch, dtype) and t.device.type == "cpu"
+               for t in tree_leaves(snap["caches"]))
+    fresh = engine()
+    fresh.restore(snap)
+    while fresh.queue or fresh._active_slot_ids():
+        fresh.step()
+    assert [f["tokens"] for f in fresh.finished] == \
+        [f["tokens"] for f in ref.finished]
+    assert [r.cycles for r in fresh.step_log] == \
+        [r.cycles for r in ref.step_log[5:]]
+    assert fresh.stats() == ref.stats()
+    # the snapshot is unchanged by the resumed run: restoring it again
+    # resumes again
+    again = engine()
+    again.restore(snap)
+    again.run()
+    assert again.finished == fresh.finished
+
+
+def test_restore_rejects_mismatched_config():
+    from repro_torch.models import init_params
+    from repro_torch.types import param_values
+
+    cfg = get_smoke_config("qwen2-0.5b")
+    params = param_values(init_params(0, cfg, device="cpu"))
+    eng = ServeEngine(cfg, params, cache_len=32, eos_id=0, device="cpu")
+    eng.submit(Request(rid=0, tokens=(3, 4, 5), max_new=2))
+    snap = eng.checkpoint()
+    other = ServeEngine(cfg, params, cache_len=64, eos_id=0, device="cpu")
+    with pytest.raises(ValueError, match="fingerprint"):
+        other.restore(snap)
