@@ -76,16 +76,19 @@ port's paths through them:
   checked as granite-3-8b, its first decode logits held against the
   bf16 cache's; and the SSD kernel with 2 and 8 SSM groups at
   mamba2-130m's widths, one launch a group;
-* training: the swa backward kernels (``csrc/swa_bwd.cu``) held to the
+* training: the swa backward kernels (``csrc/swa_bwd.cu``: bf16 on the
+  tensor cores up to D 128, from the forward's log-sum-exp, which is
+  held to the plain one; fp32 and D 256 on the FMA grids) held to the
   plain backward at every arch shape, qwen2-0.5b's training shape, a
-  ragged S at every head dim and a soft-capped band, in bf16 and fp32;
-  then qwen2-0.5b at full width and depth trained through
-  ``repro_torch.train.loop.train`` (batch 4 x 1024, 12 AdamW steps,
-  async checkpoints every 4, a failure injected at step 6): losses
-  finite and falling, the resumed steps' losses equal to an unbroken
-  run's, the backward kernel once a layer a step and no plain
-  attention, and one step through the kernels held to the same step
-  through the plain attention and autograd.
+  ragged S at every head dim and a soft-capped band, in bf16 and fp32,
+  and two bf16 launches bit-equal; then qwen2-0.5b at full width and
+  depth trained through ``repro_torch.train.loop.train`` (batch 4 x
+  1024, 12 AdamW steps, async checkpoints every 4, a failure injected
+  at step 6): losses finite and falling, the resumed steps' losses
+  equal to an unbroken run's, the backward kernel once a layer a step
+  on the tensor cores and no plain attention, and one step through the
+  kernels held to the same step through the plain attention and
+  autograd.
 
 Before the paths it times every kernel beside its plain version, a
 PyTorch library call where one computes the same function, and its
@@ -2364,7 +2367,7 @@ def time_swa(dev) -> dict:
     print(f"  host time per launch (no synchronise): tc {out['host_us']['tc']:.1f}"
           f" µs (three TMA descriptors encoded), fma "
           f"{out['host_us']['fma']:.1f} µs")
-    report = check_ptxas("swa", ("swa_tc_kernel",), len(K.HEAD_DIMS),
+    report = check_ptxas("swa", ("swa_tc_kernel",), 2 * len(K.HEAD_DIMS),
                          " at launch (setmaxnreg: producer 40, consumers 232)")
     print("  dynamic shared memory by D: " + ", ".join(
         f"{dim}: {K.tc_smem_bytes(dim)}" for dim in K.HEAD_DIMS))
@@ -2855,12 +2858,19 @@ def where_time_goes(dev) -> dict:
 # causal), a ragged S at every head dim with a band narrower than S, and
 # grok's softcap over a band
 SWA_TRAIN = (4, 1024, 14, 2, 64, 1024, 0.0)
+# a D 128 training shape (granite's and mixtral's heads: 32 over 8 of 128),
+# timed beside SWA_TRAIN
+SWA_TRAIN_D128 = (4, 1024, 32, 8, 128, 1024, 0.0)
 SWA_BWD_CASES = [tuple(v) for v in SWA_ARCHS.values()] + [SWA_TRAIN] \
     + [(2, 200, 4, 2, d, 50, 0.0) for d in (16, 32, 64, 128, 256)] \
     + [(1, 300, 16, 1, 256, 128, 30.0), (2, 333, 48, 8, 128, 100, 30.0)]
 # relative to max|grad| of each gradient: fp32 summation order, and the
 # gradients' one bf16 rounding (tests/test_torch_swa_bwd.py)
 SWA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the bf16 forward's log-sum-exp against the plain one (absolute): fp32
+# sums of up to 5120 terms in another order and exp2 / log2 of the special
+# function unit; an error e would scale every P of the row by exp(e)
+SWA_LSE_TOL = 1e-3
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 12
 TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 6, 4
@@ -2898,58 +2908,45 @@ def swa_bwd_rel(got, want) -> float:
                for g, w in zip(got, want))
 
 
-def check_swa_bwd(dev) -> dict:
-    """The swa backward kernels (through ``swa_attention``'s autograd
-    Function) against ``swa_attention_bwd_plain`` on the same q, k, v,
-    o and dO, at every ``SWA_BWD_CASES`` shape in bf16 and fp32; then
-    the bf16 backward timed at qwen2-0.5b's training shape beside the
-    plain backward, its bound and scaled_dot_product_attention's
-    backward (``is_causal``, KV heads expanded outside the timing)."""
-    from repro_torch.kernels import _build
+def plain_lse(q, k, window, scale, softcap=0.0, block=256):
+    """Each row's log-sum-exp of its scaled, capped in-band scores in
+    fp32 (B, Hq, S): the plain counterpart of the bf16 forward's lse."""
+    b, s, hq, d = q.shape
+    g = hq // k.shape[2]
+    qf = q.float().reshape(b, s, k.shape[2], g, d)
+    kf = k.float()
+    pos = torch.arange(s, device=q.device)
+    out = []
+    for i0 in range(0, s, block):
+        i1 = min(i0 + block, s)
+        j0 = max(0, i0 - window + 1)
+        sc = torch.einsum("blkgd,btkd->bkglt", qf[:, i0:i1], kf[:, j0:i1]) * scale
+        if softcap > 0:
+            sc = softcap * torch.tanh(sc / softcap)
+        qp, kp = pos[i0:i1, None], pos[None, j0:i1]
+        sc = torch.where((qp >= kp) & (qp - kp < window), sc, -torch.inf)
+        out.append(torch.logsumexp(sc, dim=-1))
+    return torch.cat(out, dim=-1).reshape(b, hq, s)
+
+
+def time_swa_bwd(name, shape, gen, dev) -> dict:
+    """The bf16 backward at ``shape`` (full causal, D <= 128: the
+    tensor-core route) beside its plain version, its bound and
+    scaled_dot_product_attention's backward (``is_causal``, KV heads
+    expanded outside the timing); its three kernels' split; and the
+    forward with and without its lse, in turns."""
     from repro_torch.kernels.swa import kernel as K
     from repro_torch.kernels.swa import ops
 
-    phase("swa backward against its plain version")
-    print("  dynamic shared memory by D: " + ", ".join(
-        f"{dim}: {K.bwd_smem_bytes(dim)}" for dim in K.HEAD_DIMS))
-    gen = torch.Generator(device=dev).manual_seed(6)
-    worst_rel, worst_abs = 0.0, 0.0
-    before = K.bwd_launches
-    for b, s, hq, hkv, d, window, cap in SWA_BWD_CASES:
-        for dtype in DTYPES:
-            q, k, v = swa_inputs(b, s, hq, hkv, d, dtype, gen, dev)
-            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            o = ops.swa_attention(*leaves, window=window, softcap=cap)
-            got = torch.autograd.grad(o, leaves, do)
-            want = ops.swa_attention_bwd_plain(q, k, v, o.detach(), do,
-                                               window=window, softcap=cap)
-            torch.cuda.synchronize()
-            rel = swa_bwd_rel(got, want)
-            err = max(max_err(g, w) for g, w in zip(got, want))
-            print(f"  swa_bwd b {b} s {s} hq {hq} hkv {hkv} d {d} window "
-                  f"{window} softcap {cap:g} {str(dtype)[6:]}: max err "
-                  f"{rel:.2e} of max|grad| ({err:.2e} abs)")
-            if rel > SWA_BWD_TOL[dtype]:
-                raise AssertionError(f"swa_bwd off by {rel:.3e} of max|grad| "
-                                     f"at {(b, s, hq, hkv, d, window, cap)} "
-                                     f"{dtype}")
-            worst_rel = max(worst_rel, rel)
-            worst_abs = max(worst_abs, err)
-            del q, k, v, do, leaves, o, got, want
-    n = 2 * len(SWA_BWD_CASES)
-    if K.bwd_launches - before != n:
-        raise AssertionError(f"swa_bwd launched {K.bwd_launches - before} "
-                             f"times for {n} checks")
-
-    b, s, hq, hkv, d, window, cap = SWA_TRAIN
+    b, s, hq, hkv, d, window, cap = shape
     q, k, v = swa_inputs(b, s, hq, hkv, d, torch.bfloat16, gen, dev)
     do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
-    o = K.swa_attention_kernel(q, k, v, window=window, scale=d ** -0.5)
+    o, lse = K.swa_attention_kernel(q, k, v, window=window, scale=d ** -0.5,
+                                    with_lse=True)
 
     def kernel():
         return K.swa_attention_bwd_kernel(q, k, v, o, do, window=window,
-                                          scale=d ** -0.5)
+                                          scale=d ** -0.5, lse=lse)
 
     def plain():
         return ops.swa_attention_bwd_plain(q, k, v, o, do, window=window)
@@ -2965,24 +2962,134 @@ def check_swa_bwd(dev) -> dict:
         return torch.autograd.grad(out_lib, (qh, kh, vh), do_h,
                                    retain_graph=True)
 
+    def forward(with_lse):
+        return lambda: K.swa_attention_kernel(q, k, v, window=window,
+                                              scale=d ** -0.5,
+                                              with_lse=with_lse)
+
     tm = {"ms": queued_ms(kernel, 10), "event_ms": cuda_ms(kernel, 5),
           "plain_ms": cuda_ms(plain, 3),
           "library_ms": queued_ms(sdpa_bwd, 10),
-          "max_abs_err": worst_abs, "max_rel_err": worst_rel}
+          "max_abs_err": max(max_err(g, w) for g, w in zip(kernel(), plain())),
+          # what writing the lse costs the forward: without, with, without, with
+          "forward_ms": [queued_ms(forward(w), 20) for w in (False, True) * 2]}
     flops, nbytes = swa_bwd_bound(tm, b, s, hq, hkv, d, window)
-    print(f"swa_bwd qwen2-0.5b training shape b {b} s {s} hq {hq} hkv "
-          f"{hkv} d {d} full causal bf16: kernels {tm['ms']:.4f} ms of "
+    print(f"swa_bwd {name} b {b} s {s} hq {hq} hkv {hkv} d {d} full causal "
+          f"bf16 ({K.bwd_route(q.dtype, d)}): kernels {tm['ms']:.4f} ms of "
           f"device time (events {tm['event_ms']:.4f}), plain "
           f"{tm['plain_ms']:.4f} ms, scaled_dot_product_attention backward "
           f"(is_causal=True) {tm['library_ms']:.4f} ms, bound "
           f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}: {flops / 1e9:.2f} "
-          f"GFLOP in band, {nbytes / 1e6:.1f} MB)")
-    tm["ptxas"] = ptxas_report(_build.report("swa_bwd"), "swa_bwd")
-    for name, rec in sorted(tm["ptxas"].items()):
+          f"GFLOP in band, {nbytes / 1e6:.1f} MB); kernel vs plain max abs "
+          f"err {tm['max_abs_err']:.2e}")
+    print("  the forward without / with its lse, in turns: " + ", ".join(
+        f"{x:.4f}" for x in tm["forward_ms"]) + " ms")
+    tm["split_ms"] = {part: device_ms(kernel, 5, f"swa_bwd_{part}", expect=5)
+                      for part in ("tc_dq", "tc_dkdv", "reduce")}
+    print("  by kernel (profiler): " + ", ".join(
+        f"{part} {ms_or_not(ms)}" for part, ms in tm["split_ms"].items())
+        + " ms")
+    return tm
+
+
+def check_swa_bwd(dev) -> dict:
+    """The swa backward kernels (through ``swa_attention``'s autograd
+    Function) against ``swa_attention_bwd_plain`` on the same q, k, v,
+    o and dO, at every ``SWA_BWD_CASES`` shape in bf16 and fp32, each by
+    the route ``bwd_route`` gives it; the bf16 forward's log-sum-exp
+    against the plain one at every bf16 case on the tensor-core route;
+    two bf16 backward launches at ``SWA_TRAIN`` bit-equal; then the bf16
+    backward timed at ``SWA_TRAIN`` and ``SWA_TRAIN_D128`` beside the
+    plain backward, its bound and SDPA's backward, and the new kernels'
+    ptxas report, which must show no spills."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.swa import kernel as K
+    from repro_torch.kernels.swa import ops
+
+    phase("swa backward against its plain version")
+    print("  dynamic shared memory by D: " + ", ".join(
+        f"{dim}: {K.bwd_smem_bytes(dim)}" for dim in K.HEAD_DIMS))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst_rel, worst_abs, worst_lse = 0.0, 0.0, 0.0
+    before = K.bwd_launches
+    routes = dict(K.bwd_launches_by_path)
+    want_routes = {"tc": 0, "fma": 0}
+    for b, s, hq, hkv, d, window, cap in SWA_BWD_CASES:
+        for dtype in DTYPES:
+            route = K.bwd_route(dtype, d)
+            want_routes[route] += 1
+            q, k, v = swa_inputs(b, s, hq, hkv, d, dtype, gen, dev)
+            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = ops.swa_attention(*leaves, window=window, softcap=cap)
+            got = torch.autograd.grad(o, leaves, do)
+            want = ops.swa_attention_bwd_plain(q, k, v, o.detach(), do,
+                                               window=window, softcap=cap)
+            torch.cuda.synchronize()
+            rel = swa_bwd_rel(got, want)
+            err = max(max_err(g, w) for g, w in zip(got, want))
+            lse_note = ""
+            if route == "tc":
+                _, lse = K.swa_attention_kernel(q, k, v, window=window,
+                                                scale=d ** -0.5, softcap=cap,
+                                                with_lse=True)
+                lse_err = max_err(lse, plain_lse(q, k, window, d ** -0.5, cap))
+                worst_lse = max(worst_lse, lse_err)
+                lse_note = f"; forward lse max abs err {lse_err:.2e}"
+                if lse_err > SWA_LSE_TOL:
+                    raise AssertionError(f"swa forward lse off by {lse_err:.3e}"
+                                         f" at {(b, s, hq, hkv, d, window, cap)}")
+            print(f"  swa_bwd b {b} s {s} hq {hq} hkv {hkv} d {d} window "
+                  f"{window} softcap {cap:g} {str(dtype)[6:]} ({route}): max "
+                  f"err {rel:.2e} of max|grad| ({err:.2e} abs){lse_note}")
+            if rel > SWA_BWD_TOL[dtype]:
+                raise AssertionError(f"swa_bwd off by {rel:.3e} of max|grad| "
+                                     f"at {(b, s, hq, hkv, d, window, cap)} "
+                                     f"{dtype}")
+            worst_rel = max(worst_rel, rel)
+            worst_abs = max(worst_abs, err)
+            del q, k, v, do, leaves, o, got, want
+    n = 2 * len(SWA_BWD_CASES)
+    ran = {r: K.bwd_launches_by_path[r] - routes[r] for r in routes}
+    if K.bwd_launches - before != n or ran != want_routes:
+        raise AssertionError(f"swa_bwd launched {K.bwd_launches - before} "
+                             f"times ({ran}) for {n} checks ({want_routes})")
+
+    # no atomics: two launches on the same inputs are bit-equal
+    b, s, hq, hkv, d, window, cap = SWA_TRAIN
+    q, k, v = swa_inputs(b, s, hq, hkv, d, torch.bfloat16, gen, dev)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = K.swa_attention_kernel(q, k, v, window=window, scale=d ** -0.5,
+                                    with_lse=True)
+    runs = [K.swa_attention_bwd_kernel(q, k, v, o, do, window=window,
+                                       scale=d ** -0.5, lse=lse)
+            for _ in range(2)]
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    print(f"  swa_bwd at the training shape, two bf16 launches bit-equal: "
+          f"{same}")
+    if not same:
+        raise AssertionError("swa_bwd: two launches on the same inputs differ")
+    del q, k, v, do, o, lse, runs
+
+    tm = time_swa_bwd("qwen2-0.5b training shape", SWA_TRAIN, gen, dev)
+    tm["d128"] = time_swa_bwd("D 128 training shape", SWA_TRAIN_D128, gen,
+                              dev)
+    tm["max_abs_err"] = max(worst_abs, tm["max_abs_err"],
+                            tm["d128"]["max_abs_err"])
+    tm["max_rel_err"] = worst_rel
+    tm["lse_max_abs_err"] = worst_lse
+    tm["deterministic"] = same
+    tm["ptxas"] = check_ptxas(
+        "swa_bwd", ("swa_bwd_tc", "swa_bwd_reduce"), 2 * 4 + 1,
+        " at launch (setmaxnreg: producer 24, consumers 240; the reduce 256 "
+        "threads)")
+    fma = ptxas_report(_build.report("swa_bwd"), "swa_bwd_d")
+    for name, rec in sorted(fma.items()):
         print(f"  ptxas {name}: {rec.get('registers')} registers, "
               f"{rec.get('stack')} bytes stack, spill stores "
               f"{rec.get('spill_stores')}, spill loads "
               f"{rec.get('spill_loads')}")
+    tm["ptxas"].update(fma)
     return tm
 
 
@@ -3125,6 +3232,7 @@ def train_path(dev) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     ops.swa_attention_plain = counted(fwd_plain)
     ops.swa_attention_bwd_plain = counted(bwd_plain)
+    tc_before = K.bwd_launches_by_path["tc"]
     try:
         K.launches, K.bwd_launches = 0, 0
         broken, broken_s = run("broken", TRAIN_CKPT_EVERY, failure_hook)
@@ -3134,6 +3242,7 @@ def train_path(dev) -> tuple[dict, dict]:
         whole, whole_s = run("whole", 10 * steps, None)
         launches["swa"] += K.launches
         launches["swa_bwd"] += K.bwd_launches
+        tc_runs = K.bwd_launches_by_path["tc"] - tc_before
     finally:
         ops.swa_attention_plain = fwd_plain
         ops.swa_attention_bwd_plain = bwd_plain
@@ -3144,7 +3253,8 @@ def train_path(dev) -> tuple[dict, dict]:
           f"{broken.restarts} restart, latest checkpoint {last}), unbroken "
           f"run {whole_s:.1f} s; peak {peak_gb:.1f} GB; swa launches "
           f"{launches['swa']}, swa_bwd launches {launches['swa_bwd']} "
-          f"({cfg.num_layers} x {ran} steps); plain attention calls "
+          f"({cfg.num_layers} x {ran} steps; {tc_runs} on the tensor-core "
+          f"route); plain attention calls "
           f"{plain_calls[0]}")
     losses = broken.losses
     first, final = np.mean(losses[:4]), np.mean(losses[-4:])
@@ -3157,8 +3267,8 @@ def train_path(dev) -> tuple[dict, dict]:
         "resumed losses equal the unbroken run's":
             losses[:TRAIN_FAIL_AT] == whole.losses[:TRAIN_FAIL_AT]
             and losses[TRAIN_FAIL_AT:] == whole.losses[TRAIN_CKPT_EVERY:],
-        "swa_bwd once a layer a step":
-            launches["swa_bwd"] == cfg.num_layers * ran,
+        "swa_bwd once a layer a step, on the tensor cores":
+            launches["swa_bwd"] == cfg.num_layers * ran == tc_runs,
         "swa forward twice a layer a step (remat)":
             launches["swa"] == 2 * cfg.num_layers * ran,
         "no plain attention": plain_calls[0] == 0,

@@ -285,15 +285,6 @@ __device__ __forceinline__ void pool_item(const InT* src, uint32_t pitch, const 
   }
 }
 
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // Issue the bulk copies of item i (the pool row runs) into a ring stage.
 template <typename InT>
 __device__ __forceinline__ void issue(const InT* x, int i, uint32_t stage, uint32_t bar,
@@ -303,7 +294,7 @@ __device__ __forceinline__ void issue(const InT* x, int i, uint32_t stage, uint3
   hopper::mbar_expect_tx(bar, bytes * a.pool);
   const InT* row = x + row_offset(it, a);
   for (int r = 0; r < a.pool; ++r)
-    bulk_load(stage + r * a.run, row + (int64_t)r * a.W * a.C, bytes, bar);
+    hopper::bulk_load(stage + r * a.run, row + (int64_t)r * a.W * a.C, bytes, bar);
 }
 
 // The ring path: one thread keeps up to `stages` items' rows in flight by

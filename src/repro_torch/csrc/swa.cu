@@ -67,14 +67,23 @@
 // starts later) adds exp(0) terms that the first in-band tile scales by
 // exp(-1e30 - m) = 0, as the TPU kernel's -1e30 fill does.
 //
+// When the caller passes an lse buffer (training does; serving passes
+// null), the bf16 kernel also writes each row's log-sum-exp, (m + log2 l)
+// ln 2, fp32 (B, Hq, S): the tensor-core backward (swa_bwd.cu) reads it
+// instead of walking the band a second time.  The kernel is built with
+// and without that store (template LSE): testing the pointer at run time
+// instead cost the serving kernel 3-13% (grok-1's softcap shape most).
+//
 // Built by repro_torch/kernels/_build.py with plain nvcc (no PyTorch
 // headers).  The mbarrier, TMA and wgmma helpers and the tensor-map
 // encoder (reached through cudaGetDriverEntryPoint, so nothing links
-// libcuda) come from hopper.cuh, shared with convcore.cu.
+// libcuda) come from hopper.cuh, shared with convcore.cu; the tile
+// layout, the two wgmma products and the tensor maps from attn_tc.cuh,
+// shared with swa_bwd.cu.
 #include <cuda_bf16.h>
 #include <math.h>
 
-#include "hopper.cuh"
+#include "attn_tc.cuh"
 
 namespace {
 
@@ -276,165 +285,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int s, i
 namespace tc {
 
 using namespace hopper;
+using namespace attn_tc;
 
-constexpr int BM = 64;                        // query rows per consumer warpgroup
-constexpr int BN = 64;                        // keys per tile
+constexpr int BM = ROWS;                      // query rows per consumer warpgroup
+constexpr int BN = ROWS;                      // keys per tile
 constexpr int CONSUMERS = 2;                  // consumer warpgroups: 128 rows a block
 constexpr int STAGES = 2;                     // K/V ring
 constexpr int THREADS = 128 * (CONSUMERS + 1);  // + one producer warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
-struct Shape {
-  static constexpr int SW = D < 64 ? D : 64;         // columns in one swizzled row
-  static constexpr int SWB = 2 * SW;                  // its bytes: 128, 64 or 32
-  static constexpr int CHUNKS = D / SW;               // column chunks of a tile
-  static constexpr int CHUNK = BN * SWB;              // bytes of one chunk (64 rows)
-  static constexpr int TILE = CHUNKS * CHUNK;         // bytes of a 64-row tile
-  // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
-  static constexpr uint64_t LAYOUT = SWB == 128 ? 1 : SWB == 64 ? 2 : 3;
-  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
-      SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                 : SWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+struct Shape : Tile<D> {
   // Q tiles, K and V rings, barriers, and 1 KB to align the base to the
   // swizzle atom
-  static constexpr int SMEM = (CONSUMERS + 2 * STAGES) * TILE + 8 * (1 + 2 * STAGES) + 1024;
+  static constexpr int SMEM =
+      (CONSUMERS + 2 * STAGES) * Tile<D>::TILE + 8 * (1 + 2 * STAGES) + 1024;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The two products, with their operand lists written out (generated):
-// wgmma_ss_n64: S (64 x 64 keys, fp32) {=, +=} Q (64 x 16, shared, K-major)
-//   . K (64 keys x 16, shared, K-major)^T, accumulating when `acc` != 0;
-// wgmma_rs: O (64 x N, fp32) += P (64 x 16 keys, bf16 registers)
-//   . V (16 keys x N, shared, MN-major: the transpose bit), N = D.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 
 // One key tile for one consumer warpgroup: S = Q K^T on the tensor cores,
 // scale / softcap / mask and the online softmax in fp32 on the fragment,
@@ -447,19 +314,12 @@ __device__ __forceinline__ void tile_step(float (&o)[D / 2], float (&m)[2], floa
                                           uint32_t qtile, uint32_t ktile, uint32_t vtile,
                                           bool masked, int qrow, int c0, int kc, int window,
                                           float scale, float softcap) {
-  using SH = Shape<D>;
   float s[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   pin(s);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    // 16 columns = 32 bytes of a swizzled row; a new chunk every SWB bytes
-    const uint32_t off = (kk * 32 / SH::SWB) * SH::CHUNK + (kk * 32) % SH::SWB;
-    wgmma_ss_n64(s, smem_desc(qtile + off, 16, 8 * SH::SWB, SH::LAYOUT),
-                 smem_desc(ktile + off, 16, 8 * SH::SWB, SH::LAYOUT), kk);
-  }
+  ss_product<D>(s, qtile, ktile);
   wgmma_commit();
   wgmma_wait<0>();
   pin(s);
@@ -513,19 +373,18 @@ __device__ __forceinline__ void tile_step(float (&o)[D / 2], float (&m)[2], floa
   }
   pin(o);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs(o, p[kk], smem_desc(vtile + kk * 16 * SH::SWB, SH::CHUNK, 8 * SH::SWB, SH::LAYOUT));
+  rs_product<D>(o, p, vtile);
   wgmma_commit();
   wgmma_wait<0>();
   pin(o);
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 swa_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-              const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int S,
-              int HQ, int HKV, int window, float scale, float softcap) {
+              const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+              float* __restrict__ lse, int S, int HQ, int HKV, int window, float scale,
+              float softcap) {
   using SH = Shape<D>;
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t qs = (smem_u32(smem) + 1023) & ~1023u;  // [CONSUMERS] Q tiles
@@ -609,6 +468,9 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
       const int qpos = qrow + 8 * r;
       if (qpos >= S) continue;
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      // the row's log-sum-exp (natural log), for the backward kernels
+      if (LSE && kc == 0)
+        lse[(static_cast<int64_t>(b) * HQ + h) * S + qpos] = (m[r] + log2f(fmaxf(l[r], 1e-30f))) * LN2;
       __nv_bfloat16* dst = o + ((static_cast<int64_t>(b) * S + qpos) * HQ + h) * D + kc;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -618,25 +480,9 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
   }
 }
 
-// A (B, S, H, D) bf16 tensor as 4-d TMA boxes of SW columns x 64 rows of
-// one head, swizzled as the wgmma descriptors expect; rows past S read 0.
 template <int D>
-bool tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int h) {
-  using SH = Shape<D>;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * D * h, 2ull * D * h * s};  // bytes
-  const cuuint32_t box[4] = {SH::SW, 1, BN, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                   strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, SH::TMA_SWIZZLE,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int s, int hq, int hkv,
-           int window, float scale, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int s, int hq,
+           int hkv, int window, float scale, float softcap, cudaStream_t stream) {
   if (!encoder()) return static_cast<int>(cudaErrorNotSupported);
   const int row_blocks = (s + CONSUMERS * BM - 1) / (CONSUMERS * BM);
   if (row_blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -644,21 +490,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int s, i
   if (!tensor_map<D>(&qm, q, b, s, hq) || !tensor_map<D>(&km, k, b, s, hkv) ||
       !tensor_map<D>(&vm, v, b, s, hkv))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the serving kernel carries no lse code at all
+  const auto kernel = lse ? swa_tc_kernel<D, true> : swa_tc_kernel<D, false>;
   constexpr int smem = Shape<D>::SMEM;
-  const cudaError_t err = cudaFuncSetAttribute(
-      swa_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  swa_tc_kernel<D><<<dim3(hq, row_blocks, b), THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), s, hq, hkv, window, scale, softcap);
+  kernel<<<dim3(hq, row_blocks, b), THREADS, smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, s, hq, hkv, window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
-using Launch = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
-                       float, float, cudaStream_t);
+using TcLaunch = int (*)(const void*, const void*, const void*, void*, float*, int, int, int, int,
+                         int, float, float, cudaStream_t);
+using FmaLaunch = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
+                          float, float, cudaStream_t);
 
-Launch tc_launcher(int d) {
+TcLaunch tc_launcher(int d) {
   switch (d) {
     case 16: return tc::launch<16>;
     case 32: return tc::launch<32>;
@@ -669,7 +519,7 @@ Launch tc_launcher(int d) {
   }
 }
 
-Launch fma_launcher(int d) {
+FmaLaunch fma_launcher(int d) {
   switch (d) {
     case 16: return fma::launch<16>;
     case 32: return fma::launch<32>;
@@ -680,32 +530,34 @@ Launch fma_launcher(int d) {
   }
 }
 
-int checked_launch(Launch fn, const void* q, const void* k, const void* v, void* o, int b, int s,
-                   int hq, int hkv, int window, float scale, float softcap, void* stream) {
-  if (!fn || b <= 0 || s <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || window < 1 || b > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, b, s, hq, hkv, window, scale, softcap, static_cast<cudaStream_t>(stream));
+bool valid(int b, int s, int hq, int hkv, int window) {
+  return b > 0 && s > 0 && hq > 0 && hkv > 0 && hq % hkv == 0 && window >= 1 && b <= 65535;
 }
 
 }  // namespace
 
 // q/o (B, S, Hq, D), k/v (B, S, Hkv, D), contiguous, 16-byte aligned, D in
 // {16, 32, 64, 128, 256}.  Each launches one grid on `stream` and returns
-// its CUDA error (0 on success).  bf16 tensors: the wgmma / TMA kernel.
-extern "C" int swa_tc_launch(const void* q, const void* k, const void* v, void* o, int b, int s,
-                             int hq, int hkv, int d, int window, float scale, float softcap,
-                             void* stream) {
-  return checked_launch(tc_launcher(d), q, k, v, o, b, s, hq, hkv, window, scale,
-                        softcap, stream);
+// its CUDA error (0 on success).  bf16 tensors: the wgmma / TMA kernel,
+// which also writes each row's log-sum-exp to `lse`, fp32 (B, Hq, S), when
+// it is not null.
+extern "C" int swa_tc_launch(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int b, int s, int hq, int hkv, int d, int window, float scale,
+                             float softcap, void* stream) {
+  const TcLaunch fn = tc_launcher(d);
+  if (!fn || !valid(b, s, hq, hkv, window)) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, static_cast<float*>(lse), b, s, hq, hkv, window, scale, softcap,
+            static_cast<cudaStream_t>(stream));
 }
 
 // fp32 tensors: the FMA kernel.
 extern "C" int swa_fma_launch(const void* q, const void* k, const void* v, void* o, int b, int s,
                               int hq, int hkv, int d, int window, float scale, float softcap,
                               void* stream) {
-  if (hq > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  return checked_launch(fma_launcher(d), q, k, v, o, b, s, hq, hkv, window, scale,
-                        softcap, stream);
+  const FmaLaunch fn = fma_launcher(d);
+  if (!fn || !valid(b, s, hq, hkv, window) || hq > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, b, s, hq, hkv, window, scale, softcap, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of the bf16 kernel at head dim d (bytes), or -1.

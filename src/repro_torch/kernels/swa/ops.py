@@ -9,12 +9,14 @@ Neither expands the KV heads to the query heads in memory: query head
 
 With gradients on and an operand that needs one, ``swa_attention``
 runs as a ``torch.autograd.Function`` that saves q, k, v and the output
-and recomputes the probabilities in the backward pass (the
-flash-attention policy the reference writes as ``jax.checkpoint`` per
-query chunk): the backward kernel on the card, the plain backward
-(``swa_attention_bwd_plain``) on the CPU.  The backward is not itself
-differentiable (double backward raises), and forward-mode AD is not
-offered: no path returns a result detached from its inputs.
+(and, on the card's tensor-core route, the rows' log-sum-exp that the
+forward kernel writes) and recomputes the probabilities in the backward
+pass (the flash-attention policy the reference writes as
+``jax.checkpoint`` per query chunk): the backward kernel on the card,
+the plain backward (``swa_attention_bwd_plain``) on the CPU.  The
+backward is not itself differentiable (double backward raises), and
+forward-mode AD is not offered: no path returns a result detached from
+its inputs.
 """
 from __future__ import annotations
 
@@ -142,15 +144,22 @@ class _SwaAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window, scale, softcap, block):
-        o = _forward(q, k, v, window, scale, softcap, block)
-        ctx.save_for_backward(q, k, v, o)
+        lse = None
+        if q.device.type != "cpu" \
+                and K.bwd_route(q.dtype, q.shape[-1]) == "tc":
+            o, lse = K.swa_attention_kernel(
+                *(t.contiguous() for t in (q, k, v)), window=window,
+                scale=scale, softcap=softcap, with_lse=True)
+        else:
+            o = _forward(q, k, v, window, scale, softcap, block)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (window, scale, softcap, block)
         return o
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         window, scale, softcap, block = ctx.args
         if q.device.type == "cpu":
             grads = swa_attention_bwd_plain(q, k, v, o, do, window=window,
@@ -159,7 +168,7 @@ class _SwaAttention(torch.autograd.Function):
         else:
             grads = K.swa_attention_bwd_kernel(
                 *(t.contiguous() for t in (q, k, v, o, do)), window=window,
-                scale=scale, softcap=softcap)
+                scale=scale, softcap=softcap, lse=lse)
         return (*grads, None, None, None, None)
 
 
