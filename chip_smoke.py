@@ -88,7 +88,20 @@ port's paths through them:
   equal to an unbroken run's, the backward kernel once a layer a step
   on the tensor cores and no plain attention, and one step through the
   kernels held to the same step through the plain attention and
-  autograd.
+  autograd;
+* training the SSM family: the ssd backward kernels (``csrc/ssd_bwd.cu``,
+  3xTF32 on the tensor cores) held to the closed-form plain backward in
+  float64 at every ``SSD_SHAPES`` case, a group's launch at 2 and 8 SSM
+  groups and mamba2-130m's training shape, through the op with 2 and 8
+  groups, and two launches bit-equal; then mamba2-130m at full width and
+  depth trained through ``repro_torch.train.loop.train`` (batch 4 x
+  2048, 8 AdamW steps): losses finite, the backward kernel once a layer
+  a step, the forward twice, no plain SSD, and one step through the
+  kernels held to the same step through the plain SSD and its plain
+  backward in fp32 and in bf16;
+* the quickstart twin (``repro_torch.quickstart``) on the card: the
+  paper numbers equal to the anchors, 20 training steps of qwen2's
+  reduced config through the swa kernels, four requests served.
 
 Before the paths it times every kernel beside its plain version, a
 PyTorch library call where one computes the same function, and its
@@ -3093,10 +3106,17 @@ def check_swa_bwd(dev) -> dict:
     return tm
 
 
-def train_step_split(step_fn, state, batch) -> dict:
+SWA_KINDS = {"swa": ("swa_tc_kernel", "swa_fma_kernel"),
+             "swa_bwd": ("swa_bwd_",)}
+SSD_KINDS = {"ssd": ("ssd_y_kernel", "ssd_state_kernel"),
+             "ssd_bwd": ("ssd_bwd_",)}
+
+
+def train_step_split(step_fn, state, batch, kinds=SWA_KINDS) -> dict:
     """One train step's wall time and device time by kind from a
-    torch.profiler trace (ms): the swa forward and backward kernels and
-    the matrix products by kernel name; the cross entropy (its forward
+    torch.profiler trace (ms): ``kinds``' kernels (kind -> substrings of
+    their names; the swa forward and backward by default) and the
+    matrix products by kernel name; the cross entropy (its forward
     inside a ``record_function`` range, its backward under autograd's
     Logsumexp/Gather nodes) and the optimizer (a range around
     ``adamw_update``) by range (the CPU range sums its kernels; its GPU
@@ -3129,8 +3149,7 @@ def train_step_split(step_fn, state, batch) -> dict:
         wall = time.perf_counter() - t0
     finally:
         layers.cross_entropy, step_mod.adamw_update = ce, update
-    kernels = {"swa": ("swa_tc_kernel", "swa_fma_kernel"),
-               "swa_bwd": ("swa_bwd_",),
+    kernels = {**kinds,
                "matmul": ("gemm", "nvjet", "xmma", "cutlass", "sm90_")}
     # CPU events by exact name: the two ranges, and autograd's node for
     # each of the cross entropy's backward ops (one level only: the
@@ -3354,6 +3373,428 @@ def train_path(dev) -> tuple[dict, dict]:
         "broken_s": broken_s, "whole_s": whole_s, "phase_s": phase_s}
 
 
+
+# --------------------------------------------------------------------------
+# training the SSM family: the ssd backward kernels and mamba2-130m
+# --------------------------------------------------------------------------
+# mamba2-130m's training shape (bb, l, chunk, h, p, n): 4 x 2048 tokens, 32
+# chunks of 256, 24 heads of 64, state 128
+SSD_TRAIN = (4, 2048, 256, 24, 64, 128)
+# relative to max|g| of each gradient, against the plain backward in float64:
+# the forward's own 1e-4 (SSD_TOL)
+SSD_BWD_TOL = 1e-4
+SSM_TRAIN_ARCH = "mamba2-130m"
+# 2048 tokens: Mamba-2's pretraining context (arXiv:2405.21060)
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4, 2048, 8
+
+
+def ssd_bwd_rel(got, want) -> list:
+    """|g - g_plain| / max|g_plain| of each gradient."""
+    return [float((a.double() - w).abs().max()
+                  / w.abs().max().clamp_min(1e-300))
+            for a, w in zip(got, want)]
+
+
+def ssd_bwd_operands(shape, gen, dev):
+    """The chunked fp32 kernel operands of seeded SSD inputs at ``shape``
+    with seeded cotangents: (xc, dtc, cum, bc, cc, gy, gst)."""
+    from repro_torch.kernels.ssd import ops
+
+    bb, l, chunk, h, p, n = shape
+    chunked = ops._chunked(*ssd_inputs(bb, l, h, p, n, gen, dev), chunk)
+    nc, q = chunked[0].shape[1], chunked[0].shape[2]
+    gy = torch.randn((bb, nc, q, h, p), generator=gen, device=dev)
+    gst = torch.randn((bb, nc, h, n, p), generator=gen, device=dev)
+    return (*chunked, gy, gst)
+
+
+def ssd_bwd_bound(out: dict, cells, q, h, p, n) -> tuple[int, int]:
+    """The SSD backward's least time into ``out`` (``bound_ms``,
+    ``bound_by``), counted as ``time_ssd`` counts: the causal (l >= s)
+    pairs of C.B^T, gC and gB's gCB products (once a cell), of dS = gy
+    x^T and S^T gy a head, ~10 FLOP a pair and head for E, S, P, Q, gCB
+    and the sums, U = B gst, the state term of gB and r per head, over
+    3xTF32's 495 / 3 TFLOP/s; or the bytes of x, dt, cum, B, C, gy, gst
+    read and gx, gdt, gcum, gB, gC written over HBM.  Returns (FLOPs,
+    bytes)."""
+    pairs = q * (q + 1) // 2
+    flops = cells * (6 * pairs * n + h * (4 * pairs * p + 10 * pairs
+                                          + 4 * q * n * p + 2 * q * p))
+    nbytes = 4 * cells * (3 * q * h * p + 4 * q * h + 4 * q * n + h * n * p)
+    rate = TF32_OPS_PER_S / 3
+    out["bound_ms"] = max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+    out["bound_by"] = "operations" if flops / rate >= \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    return flops, nbytes
+
+
+def time_ssd_bwd(dev) -> dict:
+    """The SSD backward at mamba2-130m's training shape (``SSD_TRAIN``)
+    beside the plain backward (fp32) and its bound; no PyTorch call
+    computes it.  Its four grids' split by the profiler."""
+    from repro_torch.kernels.ssd import kernel as K
+    from repro_torch.kernels.ssd import ref
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    operands = ssd_bwd_operands(SSD_TRAIN, gen, dev)
+    xc = operands[0]
+    bb, nc, q, h, p = xc.shape
+    n = operands[3].shape[-1]
+
+    def kernel():
+        return K.ssd_intra_chunk_bwd_kernel(*operands)
+
+    tm = {"ms": queued_ms(kernel, 10), "event_ms": cuda_ms(kernel, 5),
+          "plain_ms": cuda_ms(lambda: ref.ssd_intra_chunk_bwd_ref(*operands),
+                              3),
+          "library_ms": None,
+          "profiled_ms": device_ms(kernel, 5, "ssd_bwd_", expect=20)}
+    flops, nbytes = ssd_bwd_bound(tm, bb * nc, q, h, p, n)
+    tm["split_ms"] = {part: device_ms(kernel, 5, f"ssd_bwd_{part}", expect=5)
+                      for part in ("dx", "ds", "bc", "reduce")}
+    print(f"ssd_bwd {bb}x{nc} chunks of {q}, h {h}, p {p}, n {n}: kernels "
+          f"{tm['ms']:.4f} ms of device time (events {tm['event_ms']:.4f}, "
+          f"profiler {ms_or_not(tm['profiled_ms'])}), plain "
+          f"{tm['plain_ms']:.4f} ms, no library call computes it, bound "
+          f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}: {flops / 1e9:.2f} GFLOP "
+          f"causal at {TF32_OPS_PER_S / 3e12:.0f} TFLOP/s (3xTF32), "
+          f"{nbytes / 1e6:.1f} MB)")
+    print("  by kernel (profiler): " + ", ".join(
+        f"{part} {ms_or_not(ms)}" for part, ms in tm["split_ms"].items())
+        + " ms")
+    return tm
+
+
+def check_ssd_bwd(dev) -> dict:
+    """The SSD backward kernels against ``ssd_intra_chunk_bwd_ref`` in
+    float64 on the same operands and cotangents, each of the five
+    gradients within ``SSD_BWD_TOL`` of its max|g|: at every
+    ``SSD_SHAPES`` case, a group's launch at ``SSD_GROUPS`` groups (h / g
+    heads) and the training shape ``SSD_TRAIN`` through the wrapper;
+    with ``SSD_GROUPS`` groups through the op's autograd Function (one
+    backward launch a group; the gradients of x, dt, A, B and C against
+    the plain op's); two launches at the training shape bit-equal; then
+    the backward timed, and its ptxas report, which must show no
+    spills."""
+    from repro_torch.kernels.ssd import kernel as K
+    from repro_torch.kernels.ssd import ops, ref
+
+    phase("ssd backward against its plain version in float64")
+    print(f"  dynamic shared memory: {K.bwd_smem_bytes()}")
+    gen = torch.Generator(device=dev).manual_seed(40)
+    worst_rel, worst_abs = 0.0, 0.0
+    # a group's launch of grouped SSD is the kernel over its h / g heads
+    bb, l, chunk, h, p, n = SSD_SHAPES[3]
+    group_shapes = [(bb, l, chunk, h // g, p, n) for g in SSD_GROUPS]
+    for shape in [*SSD_SHAPES, *group_shapes, SSD_TRAIN]:
+        operands = ssd_bwd_operands(shape, gen, dev)
+        got = K.ssd_intra_chunk_bwd_kernel(*operands)
+        want = ref.ssd_intra_chunk_bwd_ref(*(t.double() for t in operands))
+        torch.cuda.synchronize()
+        rel = ssd_bwd_rel(got, want)
+        err = max(max_err(a, w) for a, w in zip(got, want))
+        print(f"  ssd_bwd bb {shape[0]} l {shape[1]} q "
+              f"{operands[0].shape[2]} h {shape[3]} p {shape[4]} n "
+              f"{shape[5]}: max err / max|g| gx {rel[0]:.2e}, gdt "
+              f"{rel[1]:.2e}, gcum {rel[2]:.2e}, gB {rel[3]:.2e}, gC "
+              f"{rel[4]:.2e} ({err:.2e} abs)")
+        if max(rel) > SSD_BWD_TOL or not all(
+                bool(torch.isfinite(a).all()) for a in got):
+            raise AssertionError(f"ssd_bwd off by {rel} of max|g| at {shape}")
+        worst_rel, worst_abs = max(worst_rel, *rel), max(worst_abs, err)
+        del operands, got, want
+    for g in SSD_GROUPS:
+        args = ssd_inputs(bb, l, h, p, n, gen, dev, groups=g)
+        gy = torch.randn((bb, l // chunk, chunk, h, p), generator=gen,
+                         device=dev)
+        gst = torch.randn((bb, l // chunk, h, n, p), generator=gen,
+                          device=dev)
+
+        def grads(op):
+            leaves = [t.detach().clone().requires_grad_() for t in args]
+            y, states, _ = op(*leaves, chunk=chunk)
+            return torch.autograd.grad((y * gy).sum() + (states * gst).sum(),
+                                       leaves)
+
+        before = K.bwd_launches
+        got = grads(ops.ssd_intra_chunk)
+        launched = K.bwd_launches - before
+        want = grads(ops.ssd_intra_chunk_plain)
+        torch.cuda.synchronize()
+        rel = ssd_bwd_rel(got, want)
+        print(f"  ssd_bwd bb {bb} l {l} h {h} p {p} n {n}, {g} groups "
+              f"({launched} launches) through the op against the plain op "
+              f"(fp32): max err / max|g| x {rel[0]:.2e}, dt {rel[1]:.2e}, A "
+              f"{rel[2]:.2e}, B {rel[3]:.2e}, C {rel[4]:.2e}")
+        if launched != g or max(rel) > SSD_BWD_TOL:
+            raise AssertionError(f"grouped ssd_bwd: {launched} launches for "
+                                 f"{g} groups, off by {rel}")
+
+    # no atomics: two launches on the same inputs are bit-equal
+    operands = ssd_bwd_operands(SSD_TRAIN, gen, dev)
+    runs = [K.ssd_intra_chunk_bwd_kernel(*operands) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"  ssd_bwd at the training shape, two launches bit-equal: {same}")
+    if not same:
+        raise AssertionError("ssd_bwd: two launches on the same inputs differ")
+    del operands, runs
+
+    tm = time_ssd_bwd(dev)
+    tm["max_abs_err"] = worst_abs
+    tm["max_rel_err"] = worst_rel
+    tm["deterministic"] = same
+    tm["ptxas"] = check_ptxas("ssd_bwd", ("ssd_bwd_",), 4)
+    return tm
+
+
+
+def train_ssm_path(dev) -> tuple[dict, dict]:
+    """mamba2-130m at full width and depth (24 layers, d_model 768,
+    d_inner 1536, 24 SSM heads of 64, state 128, chunk 256, vocab 50,280
+    tied; fp32 parameters and moments, bf16 compute, layer remat) trained
+    through ``repro_torch.train.loop.train``: global batch 4 x 2048
+    tokens from the synthetic stream, AdamW (lr 3e-3, warmup 5, decay
+    100), 8 steps, no checkpoints (``train_path`` covers the store).
+    Losses finite; each step launches the ssd forward twice a layer
+    (remat) and its backward once, and never reaches the plain SSD or
+    its plain backward.  Then three timed steps, one profiled step's
+    device-time split, and one step through the kernels against the same
+    step through ``ssd_intra_chunk_plain`` and its plain backward, in
+    fp32 compute (loss, grad norm, every gradient leaf) and in bf16
+    (loss, grad norm; the worst leaf reported), and in bf16 against the
+    same step with the forward kernel and the plain backward (grad norm,
+    every leaf).  Returns ({"ssd": forward launches, "ssd_bwd": backward
+    launches}, the record)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.kernels.ssd import kernel as K
+    from repro_torch.kernels.ssd import ops, ref
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.step import grads_of, make_train_step
+    from repro_torch.types import global_norm, tree_leaves
+
+    cfg = get_config(SSM_TRAIN_ARCH)
+    b, s, steps = SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS
+    phase(f"train_ssm_path: {SSM_TRAIN_ARCH} at full width ({cfg.num_layers} "
+          f"layers, remat {cfg.remat}, {cfg.dtype} compute), batch {b} x {s}, "
+          f"{steps} AdamW steps")
+    t_phase = time.perf_counter()
+    opt = AdamWConfig(lr=3e-3, warmup_steps=5, decay_steps=100)
+    ckpt = ROOT / "build" / "train_ssm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    plain_calls = [0]
+    fwd_plain, bwd_plain = ref.ssd_intra_chunk_ref, ref.ssd_intra_chunk_bwd_ref
+
+    def counted(fn):
+        def wrapped(*args, **kw):
+            plain_calls[0] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    loop_cfg = LoopConfig(total_steps=steps, checkpoint_every=10 * steps,
+                          checkpoint_dir=str(ckpt), async_save=False,
+                          log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    ref.ssd_intra_chunk_ref = counted(fwd_plain)
+    ref.ssd_intra_chunk_bwd_ref = counted(bwd_plain)
+    try:
+        K.launches, K.bwd_launches = 0, 0
+        t0 = time.perf_counter()
+        res = train(cfg, opt, loop_cfg, global_batch=b, seq_len=s,
+                    device=dev, log=lambda line: print(f"  {line}"))
+        run_s = time.perf_counter() - t0
+        launches = {"ssd": K.launches, "ssd_bwd": K.bwd_launches}
+    finally:
+        ref.ssd_intra_chunk_ref, ref.ssd_intra_chunk_bwd_ref = \
+            fwd_plain, bwd_plain
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = res.losses
+    print(f"  {steps} steps in {run_s:.1f} s (init included); peak "
+          f"{peak_gb:.1f} GB; ssd launches {launches['ssd']}, ssd_bwd "
+          f"launches {launches['ssd_bwd']} ({cfg.num_layers} layers x "
+          f"{len(losses)} steps); plain SSD calls {plain_calls[0]}; losses "
+          f"{[round(x, 5) for x in losses]}")
+    checks = {
+        "every loss finite": len(losses) == steps
+        and all(math.isfinite(x) for x in losses),
+        "ssd_bwd once a layer a step":
+            launches["ssd_bwd"] == cfg.num_layers * steps,
+        "ssd forward twice a layer a step (remat)":
+            launches["ssd"] == 2 * cfg.num_layers * steps,
+        "no plain SSD": plain_calls[0] == 0,
+    }
+
+    # step wall and tokens/s: steps 8.. of the run's state
+    stream = SyntheticStream(cfg, b, s, seed=0, device=dev)
+    step_fn = make_train_step(cfg, opt)
+    state = res.state
+    del res
+    walls = []
+    for i in range(steps, steps + TRAIN_TIMED_STEPS):
+        batch = stream.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[len(walls) // 2]
+    split = train_step_split(step_fn, state, stream.batch_at(
+        steps + TRAIN_TIMED_STEPS), SSD_KINDS)
+    print(f"  step wall {wall * 1e3:.1f} ms (median of "
+          f"{TRAIN_TIMED_STEPS}: {[round(w * 1e3, 1) for w in walls]}), "
+          f"{b * s / wall:.0f} tokens/s")
+    if split["device_ms"]:
+        print(f"  profiled step: wall {split['wall_ms']:.1f} ms, device "
+              f"{split['device_ms']:.1f} ms in {split['launches']} device "
+              "events: " + ", ".join(
+                  f"{k} {split[k]:.2f}" for k in (
+                      "ssd", "ssd_bwd", "matmul", "cross_entropy",
+                      "optimizer", "other")) + " ms")
+        for name, ms, n in split["top_kernels"]:
+            print(f"    {ms:8.2f} ms in {n:5d} launches of {name}")
+    else:
+        print("  profiled step: device time not measured (no device "
+              "events in the trace)")
+
+    # one step through the kernels against the same step through the plain
+    # SSD and its plain backward.  In fp32 compute the two differ by the
+    # SSD's own ~1e-7 (3xTF32 against fp32 products) and every leaf is
+    # held.  In the training's bf16, 24 random-weight layers amplify any
+    # such difference of the forward into leaf gaps of 0.05-0.6: the plain
+    # SSD in fp32 against itself in float64 differs as much
+    # (scripts/ssd_grad_gap.py), so there the loss and grad norm are held
+    # against the plain step, and every leaf against the same step with
+    # the forward kernel and the plain backward, which isolates the
+    # backward kernel
+    params = state.params
+    batch = stream.batch_at(0)
+    ssd_intra_chunk = ops.ssd_intra_chunk
+    bwd_kernel = K.ssd_intra_chunk_bwd_kernel
+
+    def kernels(c):
+        before = K.bwd_launches
+        g, m = grads_of(params, batch, c)
+        return g, m, K.bwd_launches - before
+
+    def plain(c):
+        ops.ssd_intra_chunk = ops.ssd_intra_chunk_plain
+        try:
+            return grads_of(params, batch, c)
+        finally:
+            ops.ssd_intra_chunk = ssd_intra_chunk
+
+    def plain_backward(c):
+        K.ssd_intra_chunk_bwd_kernel = bwd_plain
+        try:
+            return grads_of(params, batch, c)
+        finally:
+            K.ssd_intra_chunk_bwd_kernel = bwd_kernel
+
+    def gap(c, got, want, against: str) -> dict:
+        (g_k, m_k, launched), (g_p, m_p) = got, want
+        rels = [float((a.float() - w.float()).norm()
+                      / w.float().norm().clamp_min(1e-30))
+                for a, w in zip(tree_leaves(g_k), tree_leaves(g_p))]
+        worst = max(range(len(rels)), key=rels.__getitem__)
+        out = {"loss": (float(m_k["loss"]), float(m_p["loss"])),
+               "grad_norm": (float(global_norm(g_k)), float(global_norm(g_p))),
+               "worst_leaf_rel": rels[worst],
+               "worst_leaf": (worst, tuple(tree_leaves(g_p)[worst].shape)),
+               "ssd_bwd_launches": launched}
+        print(f"  one {c.dtype} step, kernels vs {against}: loss "
+              f"{out['loss'][0]:.6f} vs {out['loss'][1]:.6f}, grad norm "
+              f"{out['grad_norm'][0]:.5f} vs {out['grad_norm'][1]:.5f}, worst "
+              f"leaf ||g_k - g_p|| / ||g_p|| {rels[worst]:.3e} (leaf {worst} "
+              f"of {len(rels)}, {out['worst_leaf'][1]}; {launched} ssd_bwd "
+              "launches in the kernel step)")
+        return out
+
+    def within(r, loss: bool, leaves: bool) -> bool:
+        (lk, lp), (nk, np_) = r["loss"], r["grad_norm"]
+        return ((abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp) or not loss)
+                and abs(nk - np_) <= TRAIN_GNORM_RTOL * np_
+                and (r["worst_leaf_rel"] <= TRAIN_LEAF_RTOL or not leaves)
+                and r["ssd_bwd_launches"] == cfg.num_layers)
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    got = kernels(c32)
+    compared = {"float32": gap(c32, got, plain(c32), "plain SSD")}
+    got = kernels(cfg)
+    compared[cfg.dtype] = gap(cfg, got, plain(cfg), "plain SSD")
+    compared[f"{cfg.dtype} backward"] = gap(cfg, got, plain_backward(cfg),
+                                            "plain SSD backward")
+    del got
+    checks["fp32 comparison step: loss, grad norm, every leaf"] = within(
+        compared["float32"], True, True)
+    checks["bf16 comparison step: loss and grad norm"] = within(
+        compared[cfg.dtype], True, False)
+    checks["bf16 backward kernel vs plain backward: grad norm, every leaf"] \
+        = within(compared[f"{cfg.dtype} backward"], False, True)
+    del state, params
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"  train_ssm_path took {phase_s:.1f} s")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train_ssm_path: {failed}")
+    return launches, {
+        "losses": losses, "peak_gb": peak_gb, "run_s": run_s,
+        "step_wall_ms": wall * 1e3, "step_walls_ms": [w * 1e3 for w in walls],
+        "tokens_per_s": b * s / wall, "split": split, "compare": compared,
+        "phase_s": phase_s}
+
+
+QUICKSTART_STEPS = 20   # the reference quickstart's training steps
+
+
+def quickstart_path(dev) -> tuple[dict, dict]:
+    """``python -m repro_torch.quickstart`` on the card, part by part:
+    the paper numbers equal to ROADMAP's anchors (rounded as
+    ``paper_chain`` rounds them), 20 steps of qwen2's reduced config
+    through the swa kernels (the backward once a layer a step) with
+    finite losses, and its four requests served.  Returns ({"swa":
+    forward launches, "swa_bwd": backward launches}, the record)."""
+    from repro_torch import quickstart
+    from repro_torch.kernels.swa import kernel as K
+
+    phase("quickstart_path: python -m repro_torch.quickstart on the card")
+    t0 = time.perf_counter()
+    paper = quickstart.paper_experiments()
+    got = (round(paper["fps"], 3),
+           tuple(round(paper["llc_1mib"][b], 4) for b in (32, 64, 128)),
+           round(paper["llc_x4"], 4), round(paper["dram_x4"], 4))
+    want = (7.394, (1.0611, 1.3414, 1.5455), 2.0728, 2.4457)
+    fwd, bwd = K.launches, K.bwd_launches
+    cfg, state, losses = quickstart.train_small_lm(QUICKSTART_STEPS,
+                                                   device=dev)
+    stats = quickstart.serve_small_lm(cfg, state, device=dev)
+    torch.cuda.synchronize()
+    launches = {"swa": K.launches - fwd, "swa_bwd": K.bwd_launches - bwd}
+    phase_s = time.perf_counter() - t0
+    print(f"  paper numbers {got}; swa launches {launches['swa']}, swa_bwd "
+          f"launches {launches['swa_bwd']} ({cfg.num_layers} layers x "
+          f"{QUICKSTART_STEPS} steps); losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; served {stats.requests} requests / "
+          f"{stats.tokens} tokens in {stats.steps} steps; {phase_s:.1f} s")
+    checks = {
+        "paper numbers equal the anchors": got == want,
+        "swa_bwd once a layer a step":
+            launches["swa_bwd"] == QUICKSTART_STEPS * cfg.num_layers,
+        "every loss finite": all(math.isfinite(x) for x in losses),
+        "four requests served": stats.requests == 4,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"quickstart_path: {failed} ({got} vs {want})")
+    return launches, {"paper": got, "losses": losses,
+                      "served": (stats.requests, stats.tokens, stats.steps),
+                      "phase_s": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3368,6 +3809,7 @@ def main() -> int:
     errs["ssd"] = check_ssd(dev)
     errs["swa"] = check_swa(dev)
     timed_bwd = check_swa_bwd(dev)
+    timed_ssd_bwd = check_ssd_bwd(dev)
     # the kernels' timings first: after the serving phases' long traces,
     # profiler windows missed kernels more often
     timed, rows = time_kernels(dev)
@@ -3375,13 +3817,17 @@ def main() -> int:
     timed["swa"] = time_swa(dev)
     timed["swa_archs"] = time_swa_archs(dev)
     timed["swa_bwd"] = timed_bwd
+    timed["ssd_bwd"] = timed_ssd_bwd
     train_launches, trained = train_path(dev)
+    ssm_launches, trained_ssm = train_ssm_path(dev)
+    quick_launches, quick = quickstart_path(dev)
     res, launches, main_errs = main_path(dev)
     engine_times = paper_chain(res, dev)
     sim = sim_path(dev)
     campaign = campaign_path(dev)
     serve_launches, serve = serve_path(dev)
-    launches["ssd"] = serve_launches["ssd"]
+    launches["ssd"] = serve_launches["ssd"] + ssm_launches["ssd"]
+    launches["ssd_bwd"] = ssm_launches["ssd_bwd"]
     main_errs["ssd"] = serve["ssd_max_abs_err"]
     rg_launches, serve_rg = serve_swa_path(dev, "recurrentgemma-9b")
     farm = farm_path(dev)
@@ -3392,13 +3838,15 @@ def main() -> int:
     int8_launches, int8 = int8_kv_path(dev)
     launches["swa"] = rg_launches["swa"] + dense_launches + moe_launches \
         + encdec_launches + vlm_launches + int8_launches \
-        + train_launches["swa"]
-    launches["swa_bwd"] = train_launches["swa_bwd"]
+        + train_launches["swa"] + quick_launches["swa"]
+    launches["swa_bwd"] = train_launches["swa_bwd"] \
+        + quick_launches["swa_bwd"]
     main_errs["swa"] = max(serve_rg["swa_max_abs_err"],
                            dense["swa_max_abs_err"], moe["swa_max_abs_err"],
                            encdec["swa_max_abs_err"], vlm["swa_max_abs_err"],
                            int8["swa_max_abs_err"])
     errs["swa_bwd"] = main_errs["swa_bwd"] = timed_bwd["max_abs_err"]
+    errs["ssd_bwd"] = main_errs["ssd_bwd"] = timed_ssd_bwd["max_abs_err"]
     profiled = where_time_goes(dev)
 
     meta = {
@@ -3412,6 +3860,8 @@ def main() -> int:
                 "src/repro/kernels/swa/kernel.py:78"),
         "swa_bwd": ("src/repro_torch/csrc/swa_bwd.cu",
                     "src/repro/models/attention.py:151"),
+        "ssd_bwd": ("src/repro_torch/csrc/ssd_bwd.cu",
+                    "src/repro/models/ssm.py:67"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -3435,6 +3885,7 @@ def main() -> int:
          "campaign_path": campaign, "farm_path": farm,
          "dense_path": dense, "moe_path": moe, "encdec_path": encdec,
          "vlm_path": vlm, "int8_kv_path": int8, "train_path": trained,
+         "train_ssm_path": trained_ssm, "quickstart_path": quick,
          "profiled": profiled,
          "timed": timed,
          "serve": serve, "serve_recurrentgemma": serve_rg}, indent=1))

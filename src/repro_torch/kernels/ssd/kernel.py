@@ -1,6 +1,7 @@
-"""Mamba-2 SSD intra-chunk step on Hopper: launch wrapper of
-``repro_torch/csrc/ssd.cu`` (which says what bounds it and how it is
-built).
+"""Mamba-2 SSD intra-chunk step on Hopper: launch wrappers of
+``repro_torch/csrc/ssd.cu`` and of its backward,
+``repro_torch/csrc/ssd_bwd.cu`` (which say what bounds them and how
+they are built).
 
 The SSD decomposition splits the linear recurrence into dense
 intra-chunk products — more than 95% of the FLOPs — and a cheap
@@ -73,3 +74,84 @@ def ssd_intra_chunk_kernel(x: torch.Tensor, dt: torch.Tensor,
     _build.check(lib, "ssd", err)
     launches += 1
     return y, states
+
+
+# --------------------------------------------------------------------------
+# the backward pass: repro_torch/csrc/ssd_bwd.cu
+# --------------------------------------------------------------------------
+bwd_launches = 0   # backward wrapper calls that launched the kernels
+
+_BWD_GRIDS = ("ssd_bwd_dx", "ssd_bwd_ds", "ssd_bwd_bc")
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.library("ssd_bwd")
+    lib.ssd_bwd_launch.restype = ctypes.c_int
+    lib.ssd_bwd_launch.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    lib.ssd_bwd_smem_bytes.restype = ctypes.c_int
+    lib.ssd_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    return lib
+
+
+def bwd_smem_bytes() -> dict[str, int]:
+    """Dynamic shared memory of the backward's dx, ds and bc grids
+    (bytes)."""
+    lib = _bwd_library()
+    return {name: lib.ssd_bwd_smem_bytes(i) for i, name in enumerate(_BWD_GRIDS)}
+
+
+def ssd_intra_chunk_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
+                               cum: torch.Tensor, B: torch.Tensor,
+                               C: torch.Tensor, gy: torch.Tensor,
+                               gst: torch.Tensor):
+    """Gradients of ``ssd_intra_chunk_kernel``'s (y_intra, states) given
+    their cotangents: x/gy (bb, nc, q, h, p); dt/cum (bb, nc, q, h); B/C
+    (bb, nc, q, n); gst (bb, nc, h, n, p) (zeros where the states feed
+    nothing); all fp32, contiguous, 16-byte aligned, on one CUDA device.
+
+    Returns (gx, gdt, gcum, gB, gC) in the operands' shapes, fp32,
+    launched on the current stream: the ``ssd_bwd_ds``, ``ssd_bwd_dx``,
+    ``ssd_bwd_bc`` and ``ssd_bwd_reduce`` grids, through fp32 scratch
+    (gCB per cell and the row, column and r partials).  No atomics: two
+    launches on the same inputs are bit-equal."""
+    global bwd_launches
+    tensors = (x, dt, cum, B, C, gy, gst)
+    if x.device.type != "cuda" or any(
+            t.device != x.device or not t.is_contiguous()
+            or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("ssd_intra_chunk_bwd_kernel takes contiguous, "
+                         "16-byte aligned tensors on one CUDA device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("ssd_intra_chunk_bwd_kernel takes fp32 tensors, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    if x.dim() != 5:
+        raise ValueError(f"x must be (bb, nc, q, h, p), got {tuple(x.shape)}")
+    bb, nc, q, h, p = x.shape
+    n = B.shape[-1]
+    if dt.shape != (bb, nc, q, h) or cum.shape != (bb, nc, q, h) \
+            or B.shape != (bb, nc, q, n) or C.shape != (bb, nc, q, n) \
+            or gy.shape != x.shape or gst.shape != (bb, nc, h, n, p):
+        raise ValueError("ssd_intra_chunk_bwd_kernel shapes: x/gy (bb, nc, "
+                         "q, h, p), dt/cum (bb, nc, q, h), B/C (bb, nc, q, "
+                         "n), gst (bb, nc, h, n, p); got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    grads = tuple(torch.empty_like(t) for t in (x, dt, cum, B, C))
+    if x.numel() == 0 or B.numel() == 0:
+        return tuple(g.zero_() for g in grads)
+    cells, tiles = bb * nc, -(-q // 64)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    gcb = torch.empty((cells, q, q), **f32)
+    rowp = torch.empty((cells, 2 * tiles, h, q), **f32)
+    colq = torch.empty((cells, 4 * tiles, h, q), **f32)
+    rpart = torch.empty((cells, -(-p // 64), h, q), **f32)
+    gx, gdt, gcum, gB, gC = grads
+    lib = _bwd_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.ssd_bwd_launch(
+        *(t.data_ptr() for t in (x, dt, cum, B, C, gy, gst, gx, gdt, gcum,
+                                 gB, gC, gcb, rowp, colq, rpart)),
+        cells, q, h, p, n, stream)
+    _build.check(lib, "ssd_bwd", err)
+    bwd_launches += 1
+    return grads

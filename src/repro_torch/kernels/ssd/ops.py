@@ -10,10 +10,19 @@ With G > 1 SSM groups (B/C of shape (Bb, L, G, N)) group ``gi`` owns the
 contiguous heads ``gi*H/G .. (gi+1)*H/G - 1`` (the reference's head
 order); both take one call per group over its heads and concatenate the
 results in head order.
+
+Differentiable: where an operand needs a gradient, each group's call
+runs as the autograd Function ``_SsdIntraChunk`` over the chunked fp32
+operands (x, dt, cum, B, C), whose backward is the backward kernel
+(``kernel.ssd_intra_chunk_bwd_kernel``) on the card and the closed-form
+plain backward (``ref.ssd_intra_chunk_bwd_ref``) otherwise.  The
+gradients of dt and A through ``cum = cumsum(dt * A)`` and of the
+group slices and chunk reshapes are PyTorch autograd's.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.ssd import kernel as K
 from repro_torch.kernels.ssd import ref
@@ -64,17 +73,48 @@ def _per_group(step, x, dt, A, B, C, chunk: int):
     return torch.cat(y, dim=3), torch.cat(states, dim=2), torch.cat(cum, 3)
 
 
-def _plain_step(x, dt, A, B, C, chunk):
-    xc, dtc, cum, bc, cc = _chunked(x, dt, A, B, C, chunk)
-    y, states = ref.ssd_intra_chunk_ref(xc, dtc, cum, bc, cc)
-    return y, states, cum
+def _forward(operands, kernel: bool):
+    if kernel:
+        return K.ssd_intra_chunk_kernel(*(_aligned(t) for t in operands))
+    return ref.ssd_intra_chunk_ref(*operands)
 
 
-def _kernel_step(x, dt, A, B, C, chunk):
-    xc, dtc, cum, bc, cc = _chunked(x, dt, A, B, C, chunk)
-    y, states = K.ssd_intra_chunk_kernel(
-        *(_aligned(t) for t in (xc, dtc, cum, bc, cc)))
-    return y, states, cum
+class _SsdIntraChunk(torch.autograd.Function):
+    """One group's intra-chunk step over its chunked fp32 operands (xc,
+    dtc, cum, bc, cc) with its backward pass: the kernels where
+    ``kernel``, else the plain versions."""
+
+    @staticmethod
+    def forward(ctx, xc, dtc, cum, bc, cc, kernel):
+        ctx.save_for_backward(xc, dtc, cum, bc, cc)
+        ctx.kernel = kernel
+        return _forward((xc, dtc, cum, bc, cc), kernel)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gst):
+        operands = (*ctx.saved_tensors, gy, gst)
+        if ctx.kernel:
+            grads = K.ssd_intra_chunk_bwd_kernel(
+                *(_aligned(t) for t in operands))
+        else:
+            grads = ref.ssd_intra_chunk_bwd_ref(*operands)
+        return (*grads, None)
+
+
+def _step(kernel: bool):
+    def step(x, dt, A, B, C, chunk):
+        operands = _chunked(x, dt, A, B, C, chunk)
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in operands):
+            y, states = _SsdIntraChunk.apply(*operands, kernel)
+        else:
+            y, states = _forward(operands, kernel)
+        return y, states, operands[2]
+    return step
+
+
+_plain_step, _kernel_step = _step(False), _step(True)
 
 
 def _device_type(x: torch.Tensor) -> str:
@@ -94,18 +134,12 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     multiple of G; one kernel launch per group).  Returns (y_intra (bb,
     nc, q, h, p), states (bb, nc, h, n, p), cum (bb, nc, q, h)), fp32,
     with cum the within-chunk decay prefix the inter-chunk scan
-    needs.  On a CUDA tensor that needs a gradient it raises: the kernel
-    has no backward pass yet."""
+    needs.  Differentiable in x, dt, A, B and C (the backward kernel on
+    the card)."""
     dev = _device_type(x)
     if dev == "cpu":
         return ssd_intra_chunk_plain(x, dt, A, B, C, chunk=chunk)
     if dev != "cuda":
         raise ValueError(f"ssd_intra_chunk runs on cuda (kernel) or cpu "
                          f"(plain version), not {dev}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, B, C)):
-        raise NotImplementedError(
-            "ssd_intra_chunk has no backward kernel yet (ROADMAP, Queue 1: "
-            "the ssd backward kernel): on the card an SSM arch cannot "
-            "train; the kernel's output would carry no gradient")
     return _per_group(_kernel_step, x, dt, A, B, C, chunk)

@@ -6,13 +6,13 @@ Presets:
 * ``--preset smoke``  (default) — reduced model, quick on the CPU;
 * ``--preset 100m``   — a ~100M-param qwen2-family model;
 * ``--arch <id>`` / ``--full-config`` — any of the ten archs, reduced or
-  at its full published size (on the card an SSM arch cannot train yet:
-  the ssd kernel has no backward pass).
+  at its full published size.
 
 Deterministic resumable data, atomic checkpoints, a watchdog/straggler
 log and an optional simulated failure.  The model trains on
 ``--device`` (``cuda`` unless asked otherwise; attention through the
-swa forward and backward kernels there).
+swa forward and backward kernels there, SSM layers through the ssd
+forward and backward kernels).
 
 Run:  PYTHONPATH=src python -m repro_torch.train [--device cpu] [--steps 30]
 """

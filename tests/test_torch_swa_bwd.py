@@ -410,18 +410,45 @@ def test_swa_attention_is_differentiable_through_its_function():
 
 
 def test_ssd_refuses_a_gradient_on_the_card(monkeypatch):
-    """The ssd kernel has no backward yet: asked for a gradient on a
-    CUDA tensor, ``ssd_intra_chunk`` raises naming ROADMAP's item
-    instead of returning a detached result (here the device check is
-    made to answer "cuda" for CPU tensors)."""
+    """On a CUDA tensor that needs a gradient ``ssd_intra_chunk``
+    refuses the plain versions (set to None here) and hands the
+    backward to the ssd backward kernel (here the device check is made
+    to answer "cuda" for CPU tensors, and the kernels' wrappers are
+    counting stand-ins over the plain versions): one forward and one
+    backward launch, and the gradients of the plain op."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((1, 8, 2, 4), np.float32))
     dt = torch.from_numpy(rng.random((1, 8, 2), np.float32))
     a = -torch.ones(2)
     bc = torch.from_numpy(rng.standard_normal((1, 8, 4), np.float32))
+    leaf = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(ssd_ops.ssd_intra_chunk_plain(
+        leaf, dt, a, bc, bc, chunk=4)[0].sum(), leaf)
+    calls = {"fwd": 0, "bwd": 0}
+    plain_fwd, plain_bwd = ssd_ref.ssd_intra_chunk_ref, \
+        ssd_ref.ssd_intra_chunk_bwd_ref
+
+    def fwd(*args):
+        calls["fwd"] += 1
+        return plain_fwd(*args)
+
+    def bwd(*args):
+        calls["bwd"] += 1
+        return plain_bwd(*args)
+
     monkeypatch.setattr(ssd_ops, "_device_type", lambda t: "cuda")
-    with pytest.raises(NotImplementedError, match="ssd backward"):
-        ssd_ops.ssd_intra_chunk(x.requires_grad_(), dt, a, bc, bc, chunk=4)
+    monkeypatch.setattr(ssd_kernel, "ssd_intra_chunk_kernel", fwd)
+    monkeypatch.setattr(ssd_kernel, "ssd_intra_chunk_bwd_kernel", bwd)
+    monkeypatch.setattr(ssd_ref, "ssd_intra_chunk_ref", None)
+    monkeypatch.setattr(ssd_ref, "ssd_intra_chunk_bwd_ref", None)
+    leaf = x.clone().requires_grad_()
+    (got,) = torch.autograd.grad(ssd_ops.ssd_intra_chunk(
+        leaf, dt, a, bc, bc, chunk=4)[0].sum(), leaf)
+    assert calls == {"fwd": 1, "bwd": 1}
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # --------------------------------------------------------------------------
@@ -478,10 +505,20 @@ def test_kernel_backward_is_deterministic_on_card(dtype):
 
 @pytest.mark.gpu
 def test_ssd_refuses_a_gradient_on_card():
+    """On the card the op's gradient goes through the ssd backward
+    kernel (one launch) and not the plain backward, within 1e-4 of
+    max|g| of the plain op's."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+
     dev = _card()
     x = torch.randn(1, 8, 2, 4, device=dev, requires_grad=True)
     dt = torch.rand(1, 8, 2, device=dev)
     bc = torch.randn(1, 8, 4, device=dev)
-    with pytest.raises(NotImplementedError, match="ssd backward"):
-        ssd_ops.ssd_intra_chunk(x, dt, -torch.ones(2, device=dev), bc, bc,
-                                chunk=4)
+    a = -torch.ones(2, device=dev)
+    before = ssd_kernel.bwd_launches
+    (got,) = torch.autograd.grad(ssd_ops.ssd_intra_chunk(
+        x, dt, a, bc, bc, chunk=4)[0].sum(), x)
+    assert ssd_kernel.bwd_launches == before + 1
+    (want,) = torch.autograd.grad(ssd_ops.ssd_intra_chunk_plain(
+        x, dt, a, bc, bc, chunk=4)[0].sum(), x)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

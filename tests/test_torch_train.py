@@ -443,9 +443,13 @@ def test_train_step_runs_through_the_kernels_on_card(monkeypatch):
 
 
 @pytest.mark.gpu
-def test_resumed_run_equals_an_unbroken_one_on_card(tmp_path):
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-130m"])
+def test_resumed_run_equals_an_unbroken_one_on_card(tmp_path, arch):
+    """Through the swa or the ssd forward and backward kernels: no
+    atomics, so the resumed losses and final state equal an unbroken
+    run's bit for bit."""
     dev = _card()
-    cfg = get_smoke_config("qwen2-0.5b")
+    cfg = get_smoke_config(arch)
     opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=50)
     armed = [True]
 
