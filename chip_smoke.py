@@ -90,9 +90,10 @@ port's paths through them:
   kernels held to the same step through the plain attention and
   autograd;
 * training the SSM family: the ssd backward kernels (``csrc/ssd_bwd.cu``,
-  3xTF32 on the tensor cores) held to the closed-form plain backward in
+  3xTF32 on tf32 ``wgmma``) held to the closed-form plain backward in
   float64 at every ``SSD_SHAPES`` case, a group's launch at 2 and 8 SSM
-  groups and mamba2-130m's training shape, through the op with 2 and 8
+  groups, 3 heads at a ragged chunk of 300, p and n off TMA's 16-byte
+  strides and mamba2-130m's training shape, through the op with 2 and 8
   groups, and two launches bit-equal; then mamba2-130m at full width and
   depth trained through ``repro_torch.train.loop.train`` (batch 4 x
   2048, 8 AdamW steps): losses finite, the backward kernel once a layer
@@ -526,8 +527,12 @@ FARM_ANCHORS = {
 }
 
 
+_T0 = time.perf_counter()   # the run's start, for phase()'s clock
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    """Print a phase's heading with the seconds since the run began."""
+    print(f"\n== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3383,6 +3388,11 @@ SSD_TRAIN = (4, 2048, 256, 24, 64, 128)
 # relative to max|g| of each gradient, against the plain backward in float64:
 # the forward's own 1e-4 (SSD_TOL)
 SSD_BWD_TOL = 1e-4
+# beyond SSD_SHAPES and the grouped launches, the backward's own edges:
+# 3 heads at one ragged chunk of 300 (a head group h does not fill and a
+# ragged tile together) and p and n off TMA's 16-byte row strides (the
+# 4-byte copy route)
+SSD_BWD_EDGES = [(1, 300, 256, 3, 64, 128), (1, 96, 32, 3, 10, 20)]
 SSM_TRAIN_ARCH = "mamba2-130m"
 # 2048 tokens: Mamba-2's pretraining context (arXiv:2405.21060)
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4, 2048, 8
@@ -3431,7 +3441,8 @@ def ssd_bwd_bound(out: dict, cells, q, h, p, n) -> tuple[int, int]:
 def time_ssd_bwd(dev) -> dict:
     """The SSD backward at mamba2-130m's training shape (``SSD_TRAIN``)
     beside the plain backward (fp32) and its bound; no PyTorch call
-    computes it.  Its four grids' split by the profiler."""
+    computes it.  Its five grids' split by the profiler, and the FLOPs
+    they issue a cell beside the bound's count."""
     from repro_torch.kernels.ssd import kernel as K
     from repro_torch.kernels.ssd import ref
 
@@ -3448,10 +3459,12 @@ def time_ssd_bwd(dev) -> dict:
           "plain_ms": cuda_ms(lambda: ref.ssd_intra_chunk_bwd_ref(*operands),
                               3),
           "library_ms": None,
-          "profiled_ms": device_ms(kernel, 5, "ssd_bwd_", expect=20)}
+          "profiled_ms": device_ms(kernel, 5, "ssd_bwd_", expect=25)}
     flops, nbytes = ssd_bwd_bound(tm, bb * nc, q, h, p, n)
     tm["split_ms"] = {part: device_ms(kernel, 5, f"ssd_bwd_{part}", expect=5)
-                      for part in ("dx", "ds", "bc", "reduce")}
+                      for part in ("cb", "ds", "dx", "bc", "reduce")}
+    tm["issued_flops_a_cell"] = K.bwd_issued_flops(q, h, p, n)
+    tm["bound_flops_a_cell"] = flops // (bb * nc)
     print(f"ssd_bwd {bb}x{nc} chunks of {q}, h {h}, p {p}, n {n}: kernels "
           f"{tm['ms']:.4f} ms of device time (events {tm['event_ms']:.4f}, "
           f"profiler {ms_or_not(tm['profiled_ms'])}), plain "
@@ -3462,6 +3475,9 @@ def time_ssd_bwd(dev) -> dict:
     print("  by kernel (profiler): " + ", ".join(
         f"{part} {ms_or_not(ms)}" for part, ms in tm["split_ms"].items())
         + " ms")
+    print(f"  FLOPs issued a cell: {tm['issued_flops_a_cell'] / 1e6:.1f} M "
+          f"(whole 64 x 64 tiles, p and n padded to 64) against the bound's "
+          f"{tm['bound_flops_a_cell'] / 1e6:.1f} M")
     return tm
 
 
@@ -3470,7 +3486,8 @@ def check_ssd_bwd(dev) -> dict:
     float64 on the same operands and cotangents, each of the five
     gradients within ``SSD_BWD_TOL`` of its max|g|: at every
     ``SSD_SHAPES`` case, a group's launch at ``SSD_GROUPS`` groups (h / g
-    heads) and the training shape ``SSD_TRAIN`` through the wrapper;
+    heads), ``SSD_BWD_EDGES`` and the training shape ``SSD_TRAIN`` through
+    the wrapper;
     with ``SSD_GROUPS`` groups through the op's autograd Function (one
     backward launch a group; the gradients of x, dt, A, B and C against
     the plain op's); two launches at the training shape bit-equal; then
@@ -3480,13 +3497,19 @@ def check_ssd_bwd(dev) -> dict:
     from repro_torch.kernels.ssd import ops, ref
 
     phase("ssd backward against its plain version in float64")
-    print(f"  dynamic shared memory: {K.bwd_smem_bytes()}")
+    smem = K.bwd_smem_bytes()
+    groups = K.built_head_groups()
+    print(f"  dynamic shared memory of each grid (bytes): {smem}; heads a "
+          f"ds block, a dx block: {groups}")
+    if groups[0] != K.BWD_HEAD_GROUP:
+        raise AssertionError("ssd_bwd: the built ds head group is not the "
+                             "one the wrapper sizes the scratch by")
     gen = torch.Generator(device=dev).manual_seed(40)
     worst_rel, worst_abs = 0.0, 0.0
     # a group's launch of grouped SSD is the kernel over its h / g heads
     bb, l, chunk, h, p, n = SSD_SHAPES[3]
     group_shapes = [(bb, l, chunk, h // g, p, n) for g in SSD_GROUPS]
-    for shape in [*SSD_SHAPES, *group_shapes, SSD_TRAIN]:
+    for shape in [*SSD_SHAPES, *group_shapes, *SSD_BWD_EDGES, SSD_TRAIN]:
         operands = ssd_bwd_operands(shape, gen, dev)
         got = K.ssd_intra_chunk_bwd_kernel(*operands)
         want = ref.ssd_intra_chunk_bwd_ref(*(t.double() for t in operands))
@@ -3543,7 +3566,8 @@ def check_ssd_bwd(dev) -> dict:
     tm["max_abs_err"] = worst_abs
     tm["max_rel_err"] = worst_rel
     tm["deterministic"] = same
-    tm["ptxas"] = check_ptxas("ssd_bwd", ("ssd_bwd_",), 4)
+    tm["smem_bytes"] = smem
+    tm["ptxas"] = check_ptxas("ssd_bwd", ("ssd_bwd_",), 5)
     return tm
 
 

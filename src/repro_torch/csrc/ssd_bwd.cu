@@ -19,80 +19,187 @@
 // autograd (kernels/ssd/ops.py).
 //
 // What bounds it on the H100: operations.  At mamba2-130m's training shape
-// (4 x 2048 tokens: 32 cells of q 256, h 24, p 64, n 128) a cell needs
-// ~437 MFLOP (causal pairs only; C.B^T's recomputations not counted)
-// against ~6 MB of inputs, outputs and scratch.  Every product must hold
-// 1e-4 of max|g| against float64, so, as in the forward (ssd.cu), each is
-// 3xTF32 on mma.sync m16n8k8 with an fp32 partial sum a k8 step (the
-// helpers in ssd_tc.cuh), at 495/3 TFLOP/s.
+// (4 x 2048 tokens: 32 cells of q 256, h 24, p 64, n 128) the causal pairs
+// need 437 MFLOP a cell, 14.00 GFLOP in all, against ~6 MB a cell of
+// inputs, outputs and scratch.  Every product must hold 1e-4 of max|g|
+// against float64, so each is 3xTF32 (hi.hi + hi.lo + lo.hi) with an fp32
+// partial sum a k8 step, at 495/3 TFLOP/s: 0.085 ms.  The grids below
+// issue 484 MFLOP a cell (whole 64 x 64 tiles on the diagonal, p and n
+// padded to 64), 15.50 GFLOP in all.  What holds them back on the card is
+// shared memory and L2: each 64 x 64 x 64 stage moves ~190 KB through
+// shared memory (the landed tiles, their lo planes, the three passes'
+// operand reads) and the tiles re-read per head and tile pair cross L2
+// ~30 MB a cell.
 //
-// Design: four grids, no atomics — every sum over heads, tiles or p tiles
-// runs in a fixed order, so two launches are bit-equal.
-//   * ssd_bwd_dx: a block per (64-row s tile, 64 columns of p, group of
-//     G = 2 heads, cell), s tiles with the most causal l tiles first: the
-//     forward's y kernel transposed.  First U = B_s gst_h over n, 64 at a
-//     time; each row's partial r over this p tile (x brought in with the
-//     last of those units) goes to scratch, and U is scaled by
-//     exp(cum_last - cum_s).  Then for every causal l tile it
-//     rebuilds B_s C_l^T (64 x 64, from 128-wide chunks of n) once for the
-//     G heads and accumulates sum_l CB E gy_h; dt_s is applied once at the
-//     end.  Four warps a head, each 16 rows x 64 columns (at the forward's
-//     two warps of 32 rows, four heads a block, the grid spilled).
-//   * ssd_bwd_ds: a block per causal (l tile, s tile) pair and cell.  It
-//     builds C_l B_s^T once into shared memory, then walks the heads in
-//     order: dS_h = gy_h x_h^T
-//     over p, then P, Q and gCB's term in registers; each warp writes its
-//     rows' sums of P over its 32 columns and its columns' sums of Q over
-//     its 16 rows to scratch, and gCB, summed over the heads in order, goes
-//     to an fp32 (cell, q, q) scratch.
+// Design: five grids, no atomics — every sum over heads, tiles or head
+// groups runs in a fixed order, so two launches are bit-equal.  Every
+// product is wgmma m64n64k8 tf32 (tf32_tc.cuh) on K-major planes.  A tile
+// lands by TMA (128 B swizzle: the planes' layout) and is split once,
+// there: the landed fp32 values are the hi plane (the tensor cores read
+// their top 19 bits), lo = tf32(x - trunc(x)) goes beside them, and a
+// tile stored MN-major (gst in U, gy in S^T gy, B in gC, C and gCB in gB)
+// is transposed in the same pass, so the inner loops only issue products.
+// The tiled grids run one warpgroup a block and two blocks an SM, through
+// two slots (run_stages): stage k + 1 lands while stage k is split and
+// multiplied.
+//   * ssd_bwd_cb: a block per causal (l tile, s tile) pair and cell builds
+//     C_l B_s^T once into an fp32 (cell, qp, qp) scratch that ds and dx read.
+//   * ssd_bwd_ds: a block per pair, head group (HG = 8 heads) and cell:
+//     dS_h = gy_h x_h^T a head, then P, Q and gCB's term in registers; the
+//     rows' sums of P over the s tile and the columns' sums of Q over the l
+//     tile (the four warps' in order) go to scratch, and gCB summed over the
+//     group's heads in order to a (cell, group, qp, qp) scratch.
+//   * ssd_bwd_dx: a block per (s tile, group of HX = 4 heads, cell), the
+//     heads one after another, s tiles with the most causal l tiles first:
+//     U = B_s gst_h over n, 64 at a time; r = x U over p to scratch and U
+//     scaled by exp(cum_last - cum_s); then over the causal l tiles
+//     (C.B^T * E)^T gy_l, its A staged from the C.B^T scratch with the decay
+//     (masked inside the exponent); dt_s applied once at the end.
 //   * ssd_bwd_bc: a block per (64 rows, 64 columns of n, gC or gB, cell):
 //     gC = gCB B over the causal s tiles; gB = gCB^T C over the causal l
-//     tiles, then sum_h (w_h x_h) gst_h^T over the heads in order.
-//   * ssd_bwd_reduce: a block per (head, cell) sums the row, column and r
+//     tiles, then sum_h (w_h x_h) gst_h^T over the heads in order.  gCB's
+//     head-group partials are summed in group order as they are staged
+//     (from L2, by plain loads).
+//   * ssd_bwd_reduce: a block per (head, cell) sums the row and column
 //     partials in tile order, adds the state terms and the last row's
 //     sum_s w r (a fixed tree over the block), and writes gcum and gdt.
-// Every tile arrives by cp.async (16 bytes where the rows allow it, else 4)
-// into a two-slot ring, zero-filled past q, n, p and h.  Masking is inside
-// the exponent, before exp: exp of a non-causal difference would be inf,
-// and inf * 0 a NaN gradient.
+// TMA needs every row stride a multiple of 16 bytes: where p or n is not a
+// multiple of 4, every tile comes by 4-byte cp.async into the same swizzled
+// layout instead, completing on the same mbarriers; the rows of dt and cum
+// (h floats, 12 bytes at h = 3) are always read by plain loads.  Masking is
+// inside the exponent, before exp: exp of a non-causal difference would be
+// inf, and inf * 0 a NaN gradient.
 //
 // Built by repro_torch/kernels/_build.py with plain nvcc (no PyTorch
 // headers), as its own library.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "ssd_tc.cuh"
+#include "tf32_tc.cuh"
 
 namespace {
 
-using namespace ssd_tc;  // T = 64: the tile edge
+using namespace tf32_tc;
 
-constexpr int THREADS = 256;   // 8 warps in every grid
-constexpr int NC = 128;        // chunk of n per C.B^T unit
-constexpr int G = 2;           // heads per dx block: four warps each
-constexpr int LDN = NC + 4;    // 128-wide chunk row stride (rows on g)
-constexpr int LDA = T + 4;     // 64-wide tile read with rows on g
-constexpr int LDB = T + 8;     // 64-wide tile read with rows on t
+constexpr int HG = 8;            // heads of a ds block
+constexpr int HX = 4;            // heads of a dx block, one after another
+constexpr int SLOT = 2 * TILE;   // a stage's two 64 x 64 tiles as they land (the hi planes)
+constexpr int AREA = 3 * SLOT;   // two slots and the stage's lo planes: 96 KB
+constexpr int DEC = 2 * 2 * ROWS;  // per-row floats of a slot's stage (cum or w)
+constexpr int ALIGN = 1024;      // to align the base to the swizzle atom
+constexpr int BARS = 2 * 8;      // a slot's mbarrier each
+constexpr int SPLIT_BAR = 1;     // the named barrier of the transposed splits
+constexpr int CB_SMEM = AREA + BARS + ALIGN;
+constexpr int DS_EXTRA = (HG * 3 * ROWS + 4 * ROWS) * 4;  // cum and dt, the column sums
+constexpr int DS_SMEM = AREA + DS_EXTRA + BARS + ALIGN;
+constexpr int DX_SMEM = AREA + DEC * 4 + BARS + ALIGN;
+constexpr int BC_SMEM = AREA + DEC * 4 + BARS + ALIGN;
 constexpr float NEG = -1e30f;
-static_assert(THREADS / 32 == 4 * G, "four warps a head in the dx kernel");
-
-// dx: a slot holds (B_s, C_l chunks), (a B_s block and the G heads' gst
-// tiles, with their x tiles in the last) or (the G heads' gy tiles with
-// cum_l); then the B_s C_l^T tile
-constexpr int XH = T * LDB + 2 * T;
-constexpr int max3(int a, int b, int c) { return a > b ? (a > c ? a : c) : (b > c ? b : c); }
-constexpr int DX_SLOT = max3(2 * T * LDN, T * LDA + 2 * G * T * LDB, G * XH);
-constexpr int DX_SMEM = (2 * DX_SLOT + T * LDA) * 4;
-// ds: (C_l, B_s chunks) or (gy_h, x_h tiles with cum_l, dt_l, cum_s, dt_s);
-// then the C_l B_s^T tile
-constexpr int DS_SLOT = 2 * T * LDN > 2 * T * LDA + 4 * T ? 2 * T * LDN : 2 * T * LDA + 4 * T;
-constexpr int DS_SMEM = (2 * DS_SLOT + T * LDB) * 4;
-// bc: (gCB, B tiles), (gCB, C tiles) or (x_h, gst_h tiles with cum_s, dt_s)
-constexpr int BC_SLOT = max3(T * LDA + T * LDB, 2 * T * LDB, 2 * T * LDA + 2 * T);
-constexpr int BC_SMEM = 2 * BC_SLOT * 4;
 
 inline __host__ __device__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Everything a grid reads: the TMA maps (when tma), the tensors, the
+// scratch and the sizes.
+struct Args {
+  CUtensorMap xm, gym, gstm, bm, cm, cbm;
+  const float *x, *dt, *cum, *B, *C, *gy, *gst;
+  float *gx, *gdt, *gcum, *gB, *gC;
+  float *cb, *gcbp, *rowp, *colq, *rbuf;
+  int q, h, p, n;
+  int qp, tiles, halves, groups;  // q padded to whole tiles, ceil(q / 64), ceil(n / 64), ceil(h / HG)
+  int tma;
+};
+
+// One 64-row x 32-column box of a tensor: its TMA map and coordinates,
+// and the same box for 4-byte copies (its first element, row stride, and
+// the rows and columns that exist from there).
+struct Box {
+  const CUtensorMap* map;
+  int c0, c1, c2, c3;
+  const float* at;
+  int64_t ld;
+  int rows, cols;
+};
+
+// rows r0.. of one head of a (cells, q, h, p) tensor, columns c0.. of p
+__device__ __forceinline__ Box qhp_box(const Args& a, const CUtensorMap* m, const float* t,
+                                       int cell, int head, int r0, int c0) {
+  return {m, c0, head, r0, cell,
+          t + ((static_cast<int64_t>(cell) * a.q + r0) * a.h + head) * a.p + c0,
+          static_cast<int64_t>(a.h) * a.p, a.q - r0, a.p - c0};
+}
+// rows n0.. (of n) of head `head` of gst (cells, h, n, p), columns c0.. of p
+__device__ __forceinline__ Box gst_box(const Args& a, int cell, int head, int n0, int c0) {
+  return {&a.gstm, c0, n0, head, cell,
+          a.gst + ((static_cast<int64_t>(cell) * a.h + head) * a.n + n0) * a.p + c0, a.p,
+          a.n - n0, a.p - c0};
+}
+// rows r0.., columns c0.. of a (cells, q, n) B or C
+__device__ __forceinline__ Box qn_box(const Args& a, const CUtensorMap* m, const float* t, int cell,
+                                      int r0, int c0) {
+  return {m, c0, r0, cell, 0, t + (static_cast<int64_t>(cell) * a.q + r0) * a.n + c0, a.n,
+          a.q - r0, a.n - c0};
+}
+// rows r0.., columns c0.. of the (cells, qp, qp) C.B^T scratch
+__device__ __forceinline__ Box cb_box(const Args& a, int cell, int r0, int c0) {
+  return {&a.cbm, c0, r0, cell, 0, a.cb + (static_cast<int64_t>(cell) * a.qp + r0) * a.qp + c0,
+          a.qp, a.qp - r0, a.qp - c0};
+}
+
+// A stage's loads all complete on its landed mbarrier: TMA boxes by their
+// bytes (one arrival: the expect_tx), or the producer's 4-byte copies (128
+// arrivals, each when that thread's copies have landed).
+__device__ __forceinline__ void stage_begin(const Args& a, uint32_t bar, int boxes, int tid) {
+  if (a.tma && tid == 0) mbar_expect_tx(bar, boxes * CHUNK);
+}
+__device__ __forceinline__ void load_box(const Args& a, const Box& b, uint8_t* dst, uint32_t bar,
+                                         int tid) {
+  if (a.tma) {
+    if (tid == 0) tma_load_4d(smem_u32(dst), b.map, bar, b.c0, b.c1, b.c2, b.c3);
+  } else {
+    for (int e = tid; e < ROWS * 32; e += WG) {
+      const int r = e >> 5, c = e & 31;
+      const bool ok = r < b.rows && c < b.cols;
+      ssd_tc::cp_async4(reinterpret_cast<float*>(dst + swz(r, c)), ok ? b.at + r * b.ld + c : a.x,
+                        ok ? 4 : 0);
+    }
+  }
+}
+__device__ __forceinline__ void stage_end(const Args& a, uint32_t bar) {
+  if (!a.tma)
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for a slot's phase.  A phase that never completes (a load that can
+// never land) traps after 2^20 tries instead of hanging the card.
+__device__ __forceinline__ void wait_slot(uint32_t bar, uint32_t parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 20)) __trap();
+  }
+}
+
+// the causal (l tile, s tile) pair of block x: l tiles in order, s <= l
+__device__ __forceinline__ void pair_of(int x, int& lt, int& st) {
+  lt = 0;
+  while ((lt + 1) * (lt + 2) / 2 <= x) ++lt;
+  st = x - lt * (lt + 1) / 2;
+}
+
+// the aligned base of dynamic shared memory
+__device__ __forceinline__ uint8_t* aligned(uint8_t* raw) {
+  return raw + ((ALIGN - (smem_u32(raw) & (ALIGN - 1))) & (ALIGN - 1));
+}
 
 // a C fragment pair (columns c, c + 1 of one row) into row-major dst
 __device__ __forceinline__ void store_pair(float* dst, int col, int cols, float v0, float v1) {
@@ -104,585 +211,493 @@ __device__ __forceinline__ void store_pair(float* dst, int col, int cols, float 
   }
 }
 
-// gx[cell, s, head, p] for one (s tile x p tile, head group, cell); the
-// partial r over this p tile to rpart[cell, p tile, head, s].
-__global__ void __launch_bounds__(THREADS, 1)
-ssd_bwd_dx(const float* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ cum, const float* __restrict__ B,
-           const float* __restrict__ C, const float* __restrict__ gy,
-           const float* __restrict__ gst, float* __restrict__ gx, float* __restrict__ rpart,
-           int q, int h, int p, int n, int p_tiles) {
-  extern __shared__ __align__(16) float smem[];
-  float* cbs = smem + 2 * DX_SLOT;  // B_s C_l^T tile [s][l]
+// The stages every tiled grid runs, one warpgroup a block and two blocks
+// an SM: stage k (of K) lands by TMA in slot k % 2, is split there (its lo
+// planes in the block's one lo area), multiplied, and the slot refilled
+// with stage k + 2, which lands while stage k + 1 is split and multiplied.
+// issue(k, tid) starts stage k's loads, split(k, hi, lo, tid) makes its
+// planes, consume(k, planes) runs its products and finish(k) the work
+// that needs no planes.
+struct Slots {
+  uint8_t* sm;
+  uint32_t bars;  // landed: one a slot
+  __device__ uint8_t* hi(int k) const { return sm + (k & 1) * SLOT; }
+  __device__ uint8_t* lo() const { return sm + 2 * SLOT; }
+  __device__ uint32_t landed(int k) const { return bars + 8 * (k & 1); }
+  __device__ uint32_t parity(int k) const { return (k >> 1) & 1; }
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int l_tiles = cdiv(q, T);
-  const int st = static_cast<int>(blockIdx.x) / p_tiles;  // most l tiles first
-  const int pt = blockIdx.x % p_tiles;
-  const int s0 = st * T, p0 = pt * T;
-  const int head0 = blockIdx.y * G;
-  const int64_t bc = blockIdx.z;
-  const float* xb = x + bc * q * h * p;
-  const float* gyb = gy + bc * q * h * p;
-  const float* gstb = gst + bc * h * n * p;
-  const float* dtb = dt + bc * q * h;
-  const float* cumb = cum + bc * q * h;
-  const float* Bb = B + bc * q * n;
-  const float* Cb = C + bc * q * n;
-  const bool vec_n = n % 4 == 0, vec_p = p % 4 == 0;
-
-  const int n_blocks = cdiv(n, T);  // state units: 64 rows of n each
-  const int n_chunks = cdiv(n, NC);  // C.B^T units of an l tile
-
-  // the three kinds of unit, each into slot `slot`; every call site issues
-  // only the kinds that can follow it, then commits
-  auto issue_state = [&](int kb, int slot) {
-    float* dst = smem + slot * DX_SLOT;
-    const int k0 = kb * T;
-    load_tile<T, THREADS>(dst, LDA, Bb, n, s0, q, k0, n, vec_n, tid);
-    for (int hh = 0; hh < G; ++hh) {
-      const int head = head0 + hh;
-      const bool ok = head < h;
-      load_tile<T, THREADS>(dst + T * LDA + hh * T * LDB, LDB,
-                            gstb + static_cast<int64_t>(ok ? head : 0) * n * p, p, k0,
-                            ok ? n : 0, p0, p, vec_p, tid);
-      if (kb == n_blocks - 1)  // the last one also brings x for r
-        load_tile<T, THREADS>(dst + T * LDA + (G + hh) * T * LDB, LDB,
-                              xb + (ok ? head : 0) * p, static_cast<int64_t>(h) * p, s0,
-                              ok ? q : 0, p0, p, vec_p, tid);
-    }
-  };
-  auto issue_cb = [&](int l0, int ch, int slot) {
-    float* dst = smem + slot * DX_SLOT;
-    load_tile<NC, THREADS>(dst, LDN, Bb, n, s0, q, ch * NC, n, vec_n, tid);
-    load_tile<NC, THREADS>(dst + T * LDN, LDN, Cb, n, l0, q, ch * NC, n, vec_n, tid);
-  };
-  auto issue_gy = [&](int l0, int slot) {
-    for (int hh = 0; hh < G; ++hh) {
-      const int head = head0 + hh;
-      const bool ok = head < h;
-      float* dst = smem + slot * DX_SLOT + hh * XH;
-      load_tile<T, THREADS>(dst, LDB, gyb + (ok ? head : 0) * p, static_cast<int64_t>(h) * p,
-                            l0, ok ? q : 0, p0, p, vec_p, tid);
-      load_decay(dst + T * LDB, cumb, dtb, l0, q, h, head, ok, tid);
-    }
-  };
-
-  // B_s C_l^T: this warp's 16 x 32 patch (rows rw + g, + 8)
-  const int rw = 16 * (warp % 4), cw = 32 * (warp / 4);
-  // this warp's head and 16 x 64 patch of gx (rows rh + g, + 8)
-  const int hh = warp / 4, rh = 16 * (warp % 4);
-  const int head = head0 + hh;
-  const bool live = head < h;
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  // U = B_s gst_h, 64 rows of n a unit; units alternate between the slots
-  int u = 0;
-  issue_state(0, 0);
-  cp_async_commit();
-  for (int kb = 0; kb < n_blocks; ++kb, ++u) {
-    if (kb + 1 < n_blocks)
-      issue_state(kb + 1, (u + 1) % 2);
-    else
-      issue_cb(s0, 0, (u + 1) % 2);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* bs = smem + (u % 2) * DX_SLOT;
-    if (live) {
-      const float* gs = bs + T * LDA + hh * T * LDB;
-#pragma unroll 2
-      for (int k = 0; k < T; k += 8) {
-        uint32_t ahi[4], alo[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          split(bs[(rh + g + 8 * (e & 1)) * LDA + k + t + 4 * (e >> 1)], ahi[e], alo[e]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t bhi[2], blo[2];
-          const float* gr = gs + (k + t) * LDB + 8 * j + g;
-          split(gr[0], bhi[0], blo[0]);
-          split(gr[4 * LDB], bhi[1], blo[1]);
-          mma3(acc[j], ahi, alo, bhi, blo);
-        }
-      }
-    }
-    if (live && kb == n_blocks - 1) {
-      // r over this p tile (x U, in column order, then across the 4 lanes
-      // of a row), and U scaled by exp(cum_last - cum_s)
-      const float* xs = bs + T * LDA + (G + hh) * T * LDB;
-      const float cum_last = cumb[static_cast<int64_t>(q - 1) * h + head];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = rh + 8 * r + g;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 xv = *reinterpret_cast<const float2*>(xs + row * LDB + 8 * j + 2 * t);
-          sum = fmaf(xv.x, acc[j][2 * r], sum);
-          sum = fmaf(xv.y, acc[j][2 * r + 1], sum);
-        }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        const int s = s0 + row;
-        const int64_t at = static_cast<int64_t>(min(s, q - 1)) * h + head;
-        if (t == 0 && s < q)
-          rpart[((bc * p_tiles + pt) * h + head) * static_cast<int64_t>(q) + s] = sum;
-        const float ex = s < q ? expf(cum_last - cumb[at]) : 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[j][2 * r] *= ex;
-          acc[j][2 * r + 1] *= ex;
-        }
-      }
-    }
-    __syncthreads();
+__device__ __forceinline__ Slots make_slots(const Args& a, uint8_t* sm, int extra_bytes) {
+  Slots r{sm, smem_u32(sm + AREA + extra_bytes)};
+  if (threadIdx.x == 0) {
+    mbar_init(r.landed(0), a.tma ? 1 : WG);
+    mbar_init(r.landed(1), a.tma ? 1 : WG);
+    mbar_fence_init();
   }
+  return r;
+}
 
-  // cum_s of this warp's rows (any row past q is masked below)
-  float cum_s[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    cum_s[r] = cumb[static_cast<int64_t>(min(s0 + rh + 8 * r + g, q - 1)) * h + head0 +
-                    (live ? hh : 0)];
-
-  // sum over the causal l tiles of (B_s C_l^T * E) gy_h
-  for (int lt = st; lt < l_tiles; ++lt) {
-    const int l0 = lt * T;
-    float cb[4][4] = {};
-    for (int ch = 0; ch < n_chunks; ++ch, ++u) {
-      if (ch + 1 < n_chunks)
-        issue_cb(l0, ch + 1, (u + 1) % 2);
-      else
-        issue_gy(l0, (u + 1) % 2);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const float* bs = smem + (u % 2) * DX_SLOT;
-      const float* cs = bs + T * LDN;
-#pragma unroll 2
-      for (int k = 0; k < NC; k += 8) {
-        uint32_t ahi[4], alo[4];
-        split(bs[(rw + g) * LDN + k + t], ahi[0], alo[0]);
-        split(bs[(rw + g + 8) * LDN + k + t], ahi[1], alo[1]);
-        split(bs[(rw + g) * LDN + k + t + 4], ahi[2], alo[2]);
-        split(bs[(rw + g + 8) * LDN + k + t + 4], ahi[3], alo[3]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t bhi[2], blo[2];
-          const float* cr = cs + (cw + 8 * j + g) * LDN + k + t;
-          split(cr[0], bhi[0], blo[0]);
-          split(cr[4], bhi[1], blo[1]);
-          mma3(cb[j], ahi, alo, bhi, blo);
-        }
-      }
-      if (ch == n_chunks - 1) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = cw + 8 * j + 2 * t;
-          *reinterpret_cast<float2*>(cbs + (rw + g) * LDA + c) = make_float2(cb[j][0], cb[j][1]);
-          *reinterpret_cast<float2*>(cbs + (rw + g + 8) * LDA + c) =
-              make_float2(cb[j][2], cb[j][3]);
-        }
-      }
-      __syncthreads();
-    }
-    if (lt + 1 < l_tiles) issue_cb(l0 + T, 0, (u + 1) % 2);
-    cp_async_commit();
-    cp_async_wait<1>();
+template <class Issue, class Split, class Consume, class Finish>
+__device__ __forceinline__ void run_stages(const Slots& r, int K, Issue issue, Split split,
+                                           Consume consume, Finish finish) {
+  const int tid = threadIdx.x;
+  for (int k = 0; k < min(K, 2); ++k)
+    issue(k, tid);
+  __syncthreads();
+  for (int k = 0; k < K; ++k) {
+    wait_slot(r.landed(k), r.parity(k));
+    split(k, r.hi(k), r.lo(), tid);
+    fence_planes();
     __syncthreads();
-    if (live) {
-      const float* gys = smem + (u % 2) * DX_SLOT + hh * XH;
-      const float* cum_l = gys + T * LDB;
-#pragma unroll 1
-      for (int k = 0; k < T; k += 8) {
-        // (B_s C_l^T * E) as the A fragment
-        uint32_t ahi[4], alo[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = rh + g + 8 * (e & 1), c = k + t + 4 * (e >> 1);
-          const int s = s0 + r, l = l0 + c;
-          const float seg = (l >= s && l < q && s < q) ? cum_l[c] - cum_s[e & 1] : NEG;
-          split(cbs[r * LDA + c] * expf(seg), ahi[e], alo[e]);
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t bhi[2], blo[2];
-          const float* gr = gys + (k + t) * LDB + 8 * j + g;
-          split(gr[0], bhi[0], blo[0]);
-          split(gr[4 * LDB], bhi[1], blo[1]);
-          mma3(acc[j], ahi, alo, bhi, blo);
-        }
-      }
-    }
-    __syncthreads();
-    ++u;
+    consume(k, Planes{smem_u32(r.hi(k)), smem_u32(r.lo())});
+    __syncthreads();  // slot k and the lo planes are free
+    if (k + 2 < K) issue(k + 2, tid);
+    finish(k);
   }
+}
 
-  if (!live) return;
-  float* gxb = gx + bc * q * h * p;
+// the planes of a stage's second tile
+__device__ __forceinline__ Planes second(Planes p) { return {p.hi + TILE, p.lo + TILE}; }
+
+// C_l B_s^T of one causal pair of a cell, over n 64 at a time, to
+// cb[cell, l, s] (the whole tile: rows and columns past q are zeros).
+__global__ void __launch_bounds__(WG, 2) ssd_bwd_cb(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = aligned(smem_raw);
+  const Slots slots = make_slots(a, sm, 0);
+  const int tid = threadIdx.x, w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  int lt, st;
+  pair_of(blockIdx.x, lt, st);
+  const int cell = blockIdx.y, l0 = lt * ROWS, s0 = st * ROWS;
+
+  float acc[32];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int s = s0 + rh + 8 * r + g;
-    if (s >= q) continue;
-    const float d = dtb[static_cast<int64_t>(s) * h + head];
-    float* dst = gxb + (static_cast<int64_t>(s) * h + head) * p;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  run_stages(
+      slots, a.halves,
+      [&](int k, int) {  // C_l (A) and B_s (B) over 64 columns of n
+        const uint32_t bar = slots.landed(k);
+        uint8_t* hi = slots.hi(k);
+        stage_begin(a, bar, 4, tid);
+        for (int c = 0; c < 2; ++c) {
+          load_box(a, qn_box(a, &a.cm, a.C, cell, l0, 64 * k + 32 * c), hi + c * CHUNK, bar, tid);
+          load_box(a, qn_box(a, &a.bm, a.B, cell, s0, 64 * k + 32 * c), hi + TILE + c * CHUNK, bar,
+                   tid);
+        }
+        stage_end(a, bar);
+      },
+      [&](int, uint8_t* hi, uint8_t* lo, int) { split_natural<SLOT>(hi, lo, tid); },
+      [&](int, Planes p) { product_ss(acc, p, second(p)); }, [](int) {});
+
+  float* out = a.cb + (static_cast<int64_t>(cell) * a.qp + l0) * a.qp + s0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = 16 * w + g + 8 * i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(out + static_cast<int64_t>(row) * a.qp + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  }
+}
+
+// For one causal (l tile, s tile) pair, head group and cell: per head the
+// sums of P over the s tile to rowp[cell, s tile, head, l] and of Q over
+// the l tile to colq[cell, l tile, head, s]; gCB's tile summed over the
+// group's heads in order to gcbp[cell, group, l, s].
+__global__ void __launch_bounds__(WG, 2) ssd_bwd_ds(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = aligned(smem_raw);
+  float* dec = reinterpret_cast<float*>(sm + AREA);  // [HG][cum_l, cum_s, dt_s][64]
+  float* red = dec + HG * 3 * ROWS;                   // [4 warps][64 columns]
+  const Slots slots = make_slots(a, sm, DS_EXTRA);
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  int lt, st;
+  pair_of(blockIdx.x, lt, st);
+  const int grp = blockIdx.y, cell = blockIdx.z, l0 = lt * ROWS, s0 = st * ROWS;
+  const int q = a.q, h = a.h, head0 = grp * HG, heads = min(HG, h - head0);
+  const bool full = lt > st && l0 + ROWS <= q;  // a tile below the diagonal, all inside q
+
+  // the group's cum and dt at the pair's rows and columns (plain loads)
+  for (int e = tid; e < HG * 3 * ROWS; e += WG) {
+    const int k = e / (3 * ROWS), which = (e % (3 * ROWS)) / ROWS, i = e % ROWS;
+    const int row = (which ? s0 : l0) + i;
+    const bool ok = k < heads && row < q;
+    dec[e] = ok ? (which == 2 ? a.dt : a.cum)[(static_cast<int64_t>(cell) * q + row) * h + head0 + k]
+                : 0.f;
+  }
+  // this thread's C.B^T values, in the accumulator's layout
+  float cbv[32];
+  const float* cbt = a.cb + (static_cast<int64_t>(cell) * a.qp + l0) * a.qp + s0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int col = p0 + 8 * j + 2 * t;
-      store_pair(dst + col, col, p, acc[j][2 * r] * d, acc[j][2 * r + 1] * d);
+      const float2 v = *reinterpret_cast<const float2*>(
+          cbt + static_cast<int64_t>(16 * w + g + 8 * i) * a.qp + 8 * j + 2 * t);
+      cbv[4 * j + 2 * i] = v.x;
+      cbv[4 * j + 2 * i + 1] = v.y;
     }
-  }
-}
 
-// For one causal (l tile, s tile) pair of a cell: gCB's tile (summed over
-// the heads in order) to gcb[cell, l, s]; per head the sums of P over each
-// warp's 32 columns to rowp[cell, 2 s tile + half, head, l] and of Q over
-// each warp's 16 rows to colq[cell, 4 l tile + quarter, head, s].
-__global__ void __launch_bounds__(THREADS)
-ssd_bwd_ds(const float* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ cum, const float* __restrict__ B,
-           const float* __restrict__ C, const float* __restrict__ gy,
-           float* __restrict__ gcb, float* __restrict__ rowp, float* __restrict__ colq, int q,
-           int h, int p, int n) {
-  extern __shared__ __align__(16) float smem[];
-  float* cbs = smem + 2 * DS_SLOT;  // C_l B_s^T tile [l][s]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int l_tiles = cdiv(q, T);
-  int lt = 0;
-  while ((lt + 1) * (lt + 2) / 2 <= static_cast<int>(blockIdx.x)) ++lt;
-  const int st = static_cast<int>(blockIdx.x) - lt * (lt + 1) / 2;
-  const int l0 = lt * T, s0 = st * T;
-  const int64_t bc = blockIdx.y;
-  const float* xb = x + bc * q * h * p;
-  const float* gyb = gy + bc * q * h * p;
-  const float* dtb = dt + bc * q * h;
-  const float* cumb = cum + bc * q * h;
-  const float* Bb = B + bc * q * n;
-  const float* Cb = C + bc * q * n;
-  const bool vec_n = n % 4 == 0, vec_p = p % 4 == 0;
-
-  const int n_chunks = cdiv(n, NC);
-  const int p_chunks = cdiv(p, T);
-  const int units = n_chunks + h * p_chunks;
-
-  auto issue = [&](int u) {
-    if (u < units) {
-      float* slot = smem + (u % 2) * DS_SLOT;
-      if (u < n_chunks) {
-        load_tile<NC, THREADS>(slot, LDN, Cb, n, l0, q, u * NC, n, vec_n, tid);
-        load_tile<NC, THREADS>(slot + T * LDN, LDN, Bb, n, s0, q, u * NC, n, vec_n, tid);
-      } else {
-        const int v = u - n_chunks, head = v / p_chunks, pc = (v % p_chunks) * T;
-        const int64_t hs = static_cast<int64_t>(h) * p;
-        load_tile<T, THREADS>(slot, LDA, gyb + head * p, hs, l0, q, pc, p, vec_p, tid);
-        load_tile<T, THREADS>(slot + T * LDA, LDA, xb + head * p, hs, s0, q, pc, p, vec_p, tid);
-        float* dec = slot + 2 * T * LDA;
-        load_decay(dec, cumb, dtb, l0, q, h, head, true, tid);
-        load_decay(dec + 2 * T, cumb, dtb, s0, q, h, head, true, tid);
-      }
-    }
-    cp_async_commit();
-  };
-
-  // this warp's 16 x 32 patch: rows rw + g (+ 8) of l, columns cw + 8 j + 2 t (+ 1) of s
-  const int rw = 16 * (warp % 4), cw = 32 * (warp / 4);
-  float cb[4][4] = {};
-
-  issue(0);
-  int u = 0;
-  for (; u < n_chunks; ++u) {
-    issue(u + 1);
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* cs = smem + (u % 2) * DS_SLOT;
-    const float* bs = cs + T * LDN;
-#pragma unroll 1
-    for (int k = 0; k < NC; k += 8) {
-      uint32_t ahi[4], alo[4];
-      split(cs[(rw + g) * LDN + k + t], ahi[0], alo[0]);
-      split(cs[(rw + g + 8) * LDN + k + t], ahi[1], alo[1]);
-      split(cs[(rw + g) * LDN + k + t + 4], ahi[2], alo[2]);
-      split(cs[(rw + g + 8) * LDN + k + t + 4], ahi[3], alo[3]);
+  float gcb[32], ds[32];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t bhi[2], blo[2];
-        const float* br = bs + (cw + 8 * j + g) * LDN + k + t;
-        split(br[0], bhi[0], blo[0]);
-        split(br[4], bhi[1], blo[1]);
-        mma3(cb[j], ahi, alo, bhi, blo);
-      }
-    }
-    if (u == n_chunks - 1) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cw + 8 * j + 2 * t;
-        *reinterpret_cast<float2*>(cbs + (rw + g) * LDB + c) = make_float2(cb[j][0], cb[j][1]);
-        *reinterpret_cast<float2*>(cbs + (rw + g + 8) * LDB + c) =
-            make_float2(cb[j][2], cb[j][3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float gcbr[4][4] = {};
-  for (int head = 0; head < h; ++head) {
-    float ds[4][4] = {};
-    for (int pc = 0; pc < p_chunks; ++pc, ++u) {
-      issue(u + 1);
-      cp_async_wait<1>();
-      __syncthreads();
-      const float* gys = smem + (u % 2) * DS_SLOT;
-      const float* xs = gys + T * LDA;
-#pragma unroll 1
-      for (int k = 0; k < T; k += 8) {
-        uint32_t ahi[4], alo[4];
-        split(gys[(rw + g) * LDA + k + t], ahi[0], alo[0]);
-        split(gys[(rw + g + 8) * LDA + k + t], ahi[1], alo[1]);
-        split(gys[(rw + g) * LDA + k + t + 4], ahi[2], alo[2]);
-        split(gys[(rw + g + 8) * LDA + k + t + 4], ahi[3], alo[3]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t bhi[2], blo[2];
-          const float* xr = xs + (cw + 8 * j + g) * LDA + k + t;
-          split(xr[0], bhi[0], blo[0]);
-          split(xr[4], bhi[1], blo[1]);
-          mma3(ds[j], ahi, alo, bhi, blo);
+  for (int i = 0; i < 32; ++i) gcb[i] = 0.f;
+  run_stages(
+      slots, heads,
+      [&](int k, int) {  // gy_l (A) and x_s (B) of one head
+        const uint32_t bar = slots.landed(k);
+        uint8_t* hi = slots.hi(k);
+        stage_begin(a, bar, 4, tid);
+        for (int c = 0; c < 2; ++c) {
+          load_box(a, qhp_box(a, &a.gym, a.gy, cell, head0 + k, l0, 32 * c), hi + c * CHUNK, bar,
+                   tid);
+          load_box(a, qhp_box(a, &a.xm, a.x, cell, head0 + k, s0, 32 * c), hi + TILE + c * CHUNK,
+                   bar, tid);
         }
-      }
-      if (pc == p_chunks - 1) {
-        const float* dec = xs + T * LDA;  // cum_l, dt_l, cum_s, dt_s
-        float row[2] = {0.f, 0.f}, col[4][2];
+        stage_end(a, bar);
+      },
+      [&](int, uint8_t* hi, uint8_t* lo, int) { split_natural<SLOT>(hi, lo, tid); },
+      [&](int, Planes p) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          col[j][0] = col[j][1] = 0.f;
+        for (int i = 0; i < 32; ++i) ds[i] = 0.f;
+        product_ss(ds, p, second(p));
+      },
+      [&](int k) {
+        // P, Q and gCB's term at this thread's (l, s): rows 16 w + g (+ 8),
+        // columns 8 j + 2 t (+ 1); only a tile on the diagonal or past q
+        // needs the mask
+        const int head = head0 + k;
+        const float* dk = dec + k * 3 * ROWS;
+        float row[2] = {0.f, 0.f}, col[16];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int lr = rw + g + 8 * (e >> 1), sc = cw + 8 * j + 2 * t + (e & 1);
-            const int l = l0 + lr, s = s0 + sc;
-            const float seg = (l >= s && l < q && s < q) ? dec[lr] - dec[2 * T + sc] : NEG;
-            const float ex = expf(seg), d = dec[3 * T + sc];
-            const float qv = ds[j][e] * cbs[lr * LDB + sc] * ex;
-            gcbr[j][e] = fmaf(ds[j][e] * ex, d, gcbr[j][e]);
-            row[e >> 1] = fmaf(qv, d, row[e >> 1]);
-            col[j][e & 1] += qv;
-          }
+        for (int j = 0; j < 8; ++j) {
+          const float2 cs = *reinterpret_cast<const float2*>(dk + ROWS + 8 * j + 2 * t);
+          const float2 dd = *reinterpret_cast<const float2*>(dk + 2 * ROWS + 8 * j + 2 * t);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * j + 2 * i + c;
+              const int lr = 16 * w + g + 8 * i, sc = 8 * j + 2 * t + c;
+              float seg = dk[lr] - (c ? cs.y : cs.x);
+              if (!full) {
+                const int l = l0 + lr, s = s0 + sc;
+                seg = (l >= s && l < q && s < q) ? seg : NEG;
+              }
+              const float ex = __expf(seg), d = c ? dd.y : dd.x;
+              const float qv = ds[e] * cbv[e] * ex;
+              gcb[e] = fmaf(ds[e] * ex, d, gcb[e]);
+              row[i] = fmaf(qv, d, row[i]);
+              col[2 * j + c] = i ? col[2 * j + c] + qv : qv;
+            }
         }
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          row[r] += __shfl_xor_sync(0xffffffffu, row[r], 1);
-          row[r] += __shfl_xor_sync(0xffffffffu, row[r], 2);
-          const int l = l0 + rw + g + 8 * r;
+        for (int i = 0; i < 2; ++i) {
+          float r = row[i];
+          r += __shfl_xor_sync(0xffffffffu, r, 1);
+          r += __shfl_xor_sync(0xffffffffu, r, 2);
+          const int l = l0 + 16 * w + g + 8 * i;
           if (t == 0 && l < q)
-            rowp[((bc * 2 * l_tiles + 2 * st + warp / 4) * h + head) * static_cast<int64_t>(q) +
-                 l] = row[r];
+            a.rowp[((static_cast<int64_t>(cell) * a.tiles + st) * h + head) * q + l] = r;
+        }
+        // the columns' sums over the warp's 16 rows by reduce-scatter
+        // across the 8 lanes of a column group: three rounds, each keeping
+        // half of the values; lane (g, t) ends with columns 8 jg + 2 t
+        // (+ 1), jg = 4 g0 + 2 g1 + g2 (g's bits), summed over its 8 lanes
+        // in a fixed order
+        const int b0 = g & 1, b1 = (g >> 1) & 1, b2 = (g >> 2) & 1;
+        float h8[8], h4[4], h2[2];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float give = b0 ? col[e] : col[8 + e], keep = b0 ? col[8 + e] : col[e];
+          h8[e] = keep + __shfl_xor_sync(0xffffffffu, give, 4);
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int e = 0; e < 4; ++e) {
+          const float give = b1 ? h8[e] : h8[4 + e], keep = b1 ? h8[4 + e] : h8[e];
+          h4[e] = keep + __shfl_xor_sync(0xffffffffu, give, 8);
+        }
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            float v = col[j][c];
-            v += __shfl_xor_sync(0xffffffffu, v, 4);
-            v += __shfl_xor_sync(0xffffffffu, v, 8);
-            v += __shfl_xor_sync(0xffffffffu, v, 16);
-            const int s = s0 + cw + 8 * j + 2 * t + c;
-            if (g == 0 && s < q)
-              colq[((bc * 4 * l_tiles + 4 * lt + warp % 4) * h + head) *
-                       static_cast<int64_t>(q) + s] = v;
-          }
-      }
-      __syncthreads();
-    }
-  }
+        for (int e = 0; e < 2; ++e) {
+          const float give = b2 ? h4[e] : h4[2 + e], keep = b2 ? h4[2 + e] : h4[e];
+          h2[e] = keep + __shfl_xor_sync(0xffffffffu, give, 16);
+        }
+        *reinterpret_cast<float2*>(red + w * ROWS + 8 * (4 * b0 + 2 * b1 + b2) + 2 * t) =
+            make_float2(h2[0], h2[1]);
+        __syncthreads();
+        if (tid < ROWS && s0 + tid < q)
+          a.colq[((static_cast<int64_t>(cell) * a.tiles + lt) * h + head) * q + s0 + tid] =
+              red[tid] + red[ROWS + tid] + red[2 * ROWS + tid] + red[3 * ROWS + tid];
+      });
 
-  float* gb = gcb + bc * q * q;
+  float* out = a.gcbp + ((static_cast<int64_t>(cell) * a.groups + grp) * a.qp + l0) * a.qp + s0;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int l = l0 + rw + g + 8 * r;
-    if (l >= q) continue;
+  for (int i = 0; i < 2; ++i) {
+    const int row = 16 * w + g + 8 * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int s = s0 + cw + 8 * j + 2 * t;
-      store_pair(gb + static_cast<int64_t>(l) * q + s, s, q, gcbr[j][2 * r], gcbr[j][2 * r + 1]);
-    }
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(out + static_cast<int64_t>(row) * a.qp + 8 * j + 2 * t) =
+          make_float2(gcb[4 * j + 2 * i], gcb[4 * j + 2 * i + 1]);
   }
 }
 
-// gC (which = 0: rows l) or gB (which = 1: rows s) for one (64-row tile x
-// 64 columns of n, which, cell).
-__global__ void __launch_bounds__(THREADS)
-ssd_bwd_bc(const float* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ cum, const float* __restrict__ B,
-           const float* __restrict__ C, const float* __restrict__ gst,
-           const float* __restrict__ gcb, float* __restrict__ gB, float* __restrict__ gC, int q,
-           int h, int p, int n, int n_tiles) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int l_tiles = cdiv(q, T);
-  const int rt = static_cast<int>(blockIdx.x) / n_tiles;
-  const int r0 = rt * T, n0 = (blockIdx.x % n_tiles) * T;
-  const bool is_b = blockIdx.y == 1;
-  const int64_t bc = blockIdx.z;
-  const float* xb = x + bc * q * h * p;
-  const float* gstb = gst + bc * h * n * p;
-  const float* dtb = dt + bc * q * h;
-  const float* cumb = cum + bc * q * h;
-  const float* Bb = B + bc * q * n;
-  const float* Cb = C + bc * q * n;
-  const float* gb = gcb + bc * q * q;
-  const bool vec_n = n % 4 == 0, vec_p = p % 4 == 0, vec_q = q % 4 == 0;
+// gx[cell, s, head, :] for one (s tile, group of HX heads, cell), the heads
+// one after another through the slots; r over p to rbuf[cell, head, s].
+__global__ void __launch_bounds__(WG, 2) ssd_bwd_dx(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = aligned(smem_raw);
+  float* dec = reinterpret_cast<float*>(sm + AREA);  // [slot][cum_l, cum_s][64]
+  const Slots slots = make_slots(a, sm, DEC * 4);
+  const int tid = threadIdx.x, w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const int st = blockIdx.x, cell = blockIdx.z, s0 = st * ROWS;
+  const int q = a.q, h = a.h, head0 = blockIdx.y * HX, heads = min(HX, h - head0);
+  const int per = a.halves + a.tiles - st;  // stages a head: U over n, then the l tiles
+  const float* cumb = a.cum + static_cast<int64_t>(cell) * q * h;
 
-  // gC: the causal s tiles 0..rt; gB: the causal l tiles rt.., then the
-  // heads' p chunks
-  const int p_chunks = cdiv(p, T);
-  const int tiles = is_b ? l_tiles - rt : rt + 1;
-  const int units = tiles + (is_b ? h * p_chunks : 0);
+  float acc[32];
+  run_stages(
+      slots, heads * per,
+      // U stages: B_s (A) and gst_h (64 rows of n x p, transposed into B);
+      // l stages: the C.B^T tile [l][s] (transposed into A with the decay)
+      // and gy_l (transposed into B), with cum_l and cum_s
+      [&](int k, int) {
+        const uint32_t bar = slots.landed(k);
+        uint8_t* hi = slots.hi(k);
+        const int head = head0 + k / per, kk = k % per;
+        stage_begin(a, bar, 4, tid);
+        if (kk < a.halves) {
+          for (int c = 0; c < 2; ++c) {
+            load_box(a, qn_box(a, &a.bm, a.B, cell, s0, 64 * kk + 32 * c), hi + c * CHUNK, bar,
+                     tid);
+            load_box(a, gst_box(a, cell, head, 64 * kk, 32 * c), hi + TILE + c * CHUNK, bar, tid);
+          }
+        } else {
+          const int l0 = (st + kk - a.halves) * ROWS;
+          for (int c = 0; c < 2; ++c) {
+            load_box(a, cb_box(a, cell, l0, s0 + 32 * c), hi + c * CHUNK, bar, tid);
+            load_box(a, qhp_box(a, &a.gym, a.gy, cell, head, l0, 32 * c), hi + TILE + c * CHUNK,
+                     bar, tid);
+          }
+          const int row = (tid < ROWS ? l0 : s0) + tid % ROWS;
+          dec[(k & 1) * 2 * ROWS + tid] =
+              row < q ? cumb[static_cast<int64_t>(row) * h + head] : 0.f;
+        }
+        stage_end(a, bar);
+      },
+      [&](int k, uint8_t* hi, uint8_t* lo, int) {
+        const int kk = k % per;
+        if (kk < a.halves) {
+          split_natural<TILE>(hi, lo, tid);
+          split_transposed(hi + TILE, lo + TILE, tid, SPLIT_BAR);
+        } else {
+          // A = (C.B^T * E)^T: plane row s, k = l, masked inside the
+          // exponent; B = gy_l^T, in the same pass
+          const int l0 = (st + kk - a.halves) * ROWS;
+          const float* cl = dec + (k & 1) * 2 * ROWS;
+          split_transposed2(
+              hi, lo,
+              [&](int r, int c, float v) {
+                const int l = l0 + r, s = s0 + c;
+                const float seg = (l >= s && l < q && s < q) ? cl[r] - cl[ROWS + c] : NEG;
+                return v * __expf(seg);
+              },
+              hi + TILE, lo + TILE, tid, SPLIT_BAR);
+        }
+      },
+      [&](int k, Planes p) {
+        if (k % per == 0) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+        }
+        product_ss(acc, p, second(p));
+      },
+      [&](int k) {
+        const int head = head0 + k / per, kk = k % per;
+        if (kk == a.halves - 1) {
+          // r over p (x U, in column order, then across the 4 lanes of a
+          // row), and U scaled by exp(cum_last - cum_s)
+          const float cum_last = cumb[static_cast<int64_t>(q - 1) * h + head];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int s = s0 + 16 * w + g + 8 * i;
+            const int64_t at = static_cast<int64_t>(min(s, q - 1)) * h + head;
+            const float* xr = a.x + (static_cast<int64_t>(cell) * q * h + at) * a.p;
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int col = 8 * j + 2 * t + c;
+                sum = fmaf(s < q && col < a.p ? xr[col] : 0.f, acc[4 * j + 2 * i + c], sum);
+              }
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            if (t == 0 && s < q) a.rbuf[(static_cast<int64_t>(cell) * h + head) * q + s] = sum;
+            const float ex = s < q ? expf(cum_last - cumb[at]) : 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              acc[4 * j + 2 * i] *= ex;
+              acc[4 * j + 2 * i + 1] *= ex;
+            }
+          }
+        }
+        if (kk == per - 1) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int s = s0 + 16 * w + g + 8 * i;
+            if (s >= q) continue;
+            const int64_t at = (static_cast<int64_t>(cell) * q + s) * h + head;
+            const float d = a.dt[at];
+            float* dst = a.gx + at * a.p;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int col = 8 * j + 2 * t;
+              store_pair(dst + col, col, a.p, acc[4 * j + 2 * i] * d,
+                         acc[4 * j + 2 * i + 1] * d);
+            }
+          }
+        }
+      });
+}
 
-  auto issue = [&](int u) {
-    if (u < units) {
-      float* slot = smem + (u % 2) * BC_SLOT;
-      if (u < tiles && !is_b) {
-        load_tile<T, THREADS>(slot, LDA, gb, q, r0, q, u * T, q, vec_q, tid);
-        load_tile<T, THREADS>(slot + T * LDA, LDB, Bb, n, u * T, q, n0, n, vec_n, tid);
-      } else if (u < tiles) {
-        const int l0 = (rt + u) * T;
-        load_tile<T, THREADS>(slot, LDB, gb, q, l0, q, r0, q, vec_q, tid);
-        load_tile<T, THREADS>(slot + T * LDB, LDB, Cb, n, l0, q, n0, n, vec_n, tid);
+// gCB's tile [r0.., c0..] summed over the head groups in order, split into
+// A planes: as stored (rows r0 + row, k = c0 + k) or transposed (rows
+// c0 + row, k = r0 + k, from gCB[r0 + k][c0 + row]).  Each group's eight
+// loads a thread are in flight together.
+__device__ __forceinline__ void stage_gcb(const Args& a, int cell, int r0, int c0, bool transpose,
+                                          uint8_t* hi, uint8_t* lo, int tid) {
+  const int64_t plane = static_cast<int64_t>(a.qp) * a.qp;
+  const float* base = a.gcbp + static_cast<int64_t>(cell) * a.groups * plane;
+  float4 v[8];
+  for (int gi = 0; gi < a.groups; ++gi) {
+    const float* src = base + gi * plane;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int i = tid + WG * m;
+      float4 u;
+      if (!transpose) {
+        u = *reinterpret_cast<const float4*>(src + static_cast<int64_t>(r0 + (i >> 4)) * a.qp +
+                                             c0 + 4 * (i & 15));
       } else {
-        const int v = u - tiles, head = v / p_chunks, pc = (v % p_chunks) * T;
-        load_tile<T, THREADS>(slot, LDA, xb + head * p, static_cast<int64_t>(h) * p, r0, q, pc,
-                              p, vec_p, tid);
-        load_tile<T, THREADS>(slot + T * LDA, LDA, gstb + static_cast<int64_t>(head) * n * p, p,
-                              n0, n, pc, p, vec_p, tid);
-        load_decay(slot + 2 * T * LDA, cumb, dtb, r0, q, h, head, true, tid);
+        const float* col = src + static_cast<int64_t>(r0 + 4 * (i >> 6)) * a.qp + c0 + (i & 63);
+        u = make_float4(col[0], col[a.qp], col[2 * a.qp], col[3 * a.qp]);
+      }
+      if (gi == 0) {
+        v[m] = u;
+      } else {
+        v[m].x += u.x;
+        v[m].y += u.y;
+        v[m].z += u.z;
+        v[m].w += u.w;
       }
     }
-    cp_async_commit();
-  };
-
-  // this warp's 16 x 32 patch: rows rw + g (+ 8), columns cw + 8 j + 2 t (+ 1) of n
-  const int rw = 16 * (warp % 4), cw = 32 * (warp / 4);
-  float acc[4][4] = {};
-
-  issue(0);
-  for (int u = 0; u < units; ++u) {
-    issue(u + 1);
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* a = smem + (u % 2) * BC_SLOT;
-    if (u < tiles && !is_b) {
-      // gCB[l][s] rows on g; B[s][n] rows on t
-      const float* bt = a + T * LDA;
-#pragma unroll 2
-      for (int k = 0; k < T; k += 8) {
-        uint32_t ahi[4], alo[4];
-        split(a[(rw + g) * LDA + k + t], ahi[0], alo[0]);
-        split(a[(rw + g + 8) * LDA + k + t], ahi[1], alo[1]);
-        split(a[(rw + g) * LDA + k + t + 4], ahi[2], alo[2]);
-        split(a[(rw + g + 8) * LDA + k + t + 4], ahi[3], alo[3]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t bhi[2], blo[2];
-          const float* br = bt + (k + t) * LDB + cw + 8 * j + g;
-          split(br[0], bhi[0], blo[0]);
-          split(br[4 * LDB], bhi[1], blo[1]);
-          mma3(acc[j], ahi, alo, bhi, blo);
-        }
-      }
-    } else if (u < tiles) {
-      // gCB[l][s] read transposed (A[s][l], rows on t); C[l][n] rows on t
-      const float* ct = a + T * LDB;
-#pragma unroll 2
-      for (int k = 0; k < T; k += 8) {
-        uint32_t ahi[4], alo[4];
-        split(a[(k + t) * LDB + rw + g], ahi[0], alo[0]);
-        split(a[(k + t) * LDB + rw + g + 8], ahi[1], alo[1]);
-        split(a[(k + t + 4) * LDB + rw + g], ahi[2], alo[2]);
-        split(a[(k + t + 4) * LDB + rw + g + 8], ahi[3], alo[3]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t bhi[2], blo[2];
-          const float* cr = ct + (k + t) * LDB + cw + 8 * j + g;
-          split(cr[0], bhi[0], blo[0]);
-          split(cr[4 * LDB], bhi[1], blo[1]);
-          mma3(acc[j], ahi, alo, bhi, blo);
-        }
-      }
-    } else {
-      // (w_h x_h)[s][p] rows on g; gst_h[n][p] read as B[p][n] (rows on g)
-      const int head = (u - tiles) / p_chunks;
-      const float* gs = a + T * LDA;
-      const float* dec = gs + T * LDA;  // cum_s, dt_s
-      const float cum_last = cumb[static_cast<int64_t>(q - 1) * h + head];
-      const float w0 = expf(cum_last - dec[rw + g]) * dec[T + rw + g];
-      const float w1 = expf(cum_last - dec[rw + g + 8]) * dec[T + rw + g + 8];
-#pragma unroll 2
-      for (int k = 0; k < T; k += 8) {
-        uint32_t ahi[4], alo[4];
-        split(a[(rw + g) * LDA + k + t] * w0, ahi[0], alo[0]);
-        split(a[(rw + g + 8) * LDA + k + t] * w1, ahi[1], alo[1]);
-        split(a[(rw + g) * LDA + k + t + 4] * w0, ahi[2], alo[2]);
-        split(a[(rw + g + 8) * LDA + k + t + 4] * w1, ahi[3], alo[3]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t bhi[2], blo[2];
-          const float* gr = gs + (cw + 8 * j + g) * LDA + k + t;
-          split(gr[0], bhi[0], blo[0]);
-          split(gr[4], bhi[1], blo[1]);
-          mma3(acc[j], ahi, alo, bhi, blo);
-        }
-      }
-    }
-    __syncthreads();
   }
-
-  float* out = (is_b ? gB : gC) + bc * q * n;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + rw + g + 8 * r;
+  for (int m = 0; m < 8; ++m) {
+    const int i = tid + WG * m;
+    const int row = transpose ? i & 63 : i >> 4, k4 = transpose ? 4 * (i >> 6) : 4 * (i & 15);
+    *reinterpret_cast<float4*>(hi + swz(row, k4)) = v[m];
+    *reinterpret_cast<uint4*>(lo + swz(row, k4)) = lo4(v[m]);
+  }
+}
+
+// gC (blockIdx.y = 0: rows l) or gB (1: rows s) for one (64-row tile x 64
+// columns of n, cell).
+__global__ void __launch_bounds__(WG, 2) ssd_bwd_bc(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = aligned(smem_raw);
+  float* wrow = reinterpret_cast<float*>(sm + AREA);  // [slot][64]: w_s of a head stage
+  const Slots slots = make_slots(a, sm, DEC * 4);
+  const int tid = threadIdx.x, w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const int rt = blockIdx.x / a.halves, n0 = (blockIdx.x % a.halves) * ROWS;
+  const bool is_b = blockIdx.y == 1;
+  const int cell = blockIdx.z, r0 = rt * ROWS, q = a.q, h = a.h;
+  const int causal = is_b ? a.tiles - rt : rt + 1;  // gB: l tiles rt.., gC: s tiles ..rt
+  const float* cumb = a.cum + static_cast<int64_t>(cell) * q * h;
+  const float* dtb = a.dt + static_cast<int64_t>(cell) * q * h;
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  run_stages(
+      slots, causal + (is_b ? h : 0),
+      // causal stages: the B_s or C_l tile over the block's n (transposed
+      // into B; A is gCB, staged from L2); head stages: gst_h (B) and x_s
+      // (A, times w_s)
+      [&](int k, int) {
+        const uint32_t bar = slots.landed(k);
+        uint8_t* hi = slots.hi(k);
+        if (k < causal) {
+          const int t0 = (is_b ? rt + k : k) * ROWS;
+          stage_begin(a, bar, 2, tid);
+          for (int c = 0; c < 2; ++c)
+            load_box(a, qn_box(a, is_b ? &a.cm : &a.bm, is_b ? a.C : a.B, cell, t0, n0 + 32 * c),
+                     hi + c * CHUNK, bar, tid);
+        } else {
+          const int hd = k - causal;
+          stage_begin(a, bar, 4, tid);
+          for (int c = 0; c < 2; ++c) {
+            load_box(a, gst_box(a, cell, hd, n0, 32 * c), hi + c * CHUNK, bar, tid);
+            load_box(a, qhp_box(a, &a.xm, a.x, cell, hd, r0, 32 * c), hi + TILE + c * CHUNK, bar,
+                     tid);
+          }
+          if (tid < ROWS) {
+            const int s = r0 + tid;
+            const float cum_last = cumb[static_cast<int64_t>(q - 1) * h + hd];
+            wrow[(k & 1) * ROWS + tid] =
+                s < q ? expf(cum_last - cumb[static_cast<int64_t>(s) * h + hd]) *
+                            dtb[static_cast<int64_t>(s) * h + hd]
+                      : 0.f;
+          }
+        }
+        stage_end(a, bar);
+      },
+      [&](int k, uint8_t* hi, uint8_t* lo, int) {
+        if (k < causal) {
+          split_transposed(hi, lo, tid, SPLIT_BAR);
+          const int t0 = (is_b ? rt + k : k) * ROWS;
+          if (is_b)
+            stage_gcb(a, cell, t0, r0, true, hi + TILE, lo + TILE, tid);
+          else
+            stage_gcb(a, cell, r0, t0, false, hi + TILE, lo + TILE, tid);
+        } else {
+          split_natural<TILE>(hi, lo, tid);
+          split_natural<TILE>(hi + TILE, lo + TILE, tid, wrow + (k & 1) * ROWS);
+        }
+      },
+      [&](int, Planes p) { product_ss(acc, second(p), p); }, [](int) {});
+
+  float* out = (is_b ? a.gB : a.gC) + static_cast<int64_t>(cell) * q * a.n;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 16 * w + g + 8 * i;
     if (row >= q) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + cw + 8 * j + 2 * t;
-      store_pair(out + static_cast<int64_t>(row) * n + col, col, n, acc[j][2 * r],
-                 acc[j][2 * r + 1]);
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      store_pair(out + static_cast<int64_t>(row) * a.n + col, col, a.n, acc[4 * j + 2 * i],
+                 acc[4 * j + 2 * i + 1]);
     }
   }
 }
 
 // gcum and gdt of one (head, cell) from the partials, in tile order.
-__global__ void __launch_bounds__(THREADS)
-ssd_bwd_reduce(const float* __restrict__ dt, const float* __restrict__ cum,
-               const float* __restrict__ rowp, const float* __restrict__ colq,
-               const float* __restrict__ rpart, float* __restrict__ gdt,
-               float* __restrict__ gcum, int q, int h, int p_tiles) {
+__global__ void __launch_bounds__(256) ssd_bwd_reduce(const __grid_constant__ Args a) {
+  constexpr int THREADS = 256;
   __shared__ float red[THREADS];
-  const int tid = threadIdx.x, head = blockIdx.x;
-  const int64_t bc = blockIdx.y;
-  const int l_tiles = cdiv(q, T);
-  const float* dtb = dt + bc * q * h;
-  const float* cumb = cum + bc * q * h;
+  const int tid = threadIdx.x, head = blockIdx.x, cell = blockIdx.y;
+  const int q = a.q, h = a.h, L = a.tiles;
+  const float* dtb = a.dt + static_cast<int64_t>(cell) * q * h;
+  const float* cumb = a.cum + static_cast<int64_t>(cell) * q * h;
+  const float* r = a.rbuf + (static_cast<int64_t>(cell) * h + head) * q;
   const float cum_last = cumb[static_cast<int64_t>(q - 1) * h + head];
-  auto part = [&](const float* base, int parts, int i, int l) {
-    return base[((bc * parts + i) * h + head) * static_cast<int64_t>(q) + l];
-  };
-  auto r_of = [&](int l) {
-    float r = 0.f;
-    for (int i = 0; i < p_tiles; ++i) r += part(rpart, p_tiles, i, l);
-    return r;
+  auto part = [&](const float* base, int i, int l) {
+    return base[((static_cast<int64_t>(cell) * L + i) * h + head) * q + l];
   };
 
   float wr = 0.f;
   for (int l = tid; l < q; l += THREADS) {
     const int64_t at = static_cast<int64_t>(l) * h + head;
-    wr = fmaf(expf(cum_last - cumb[at]) * dtb[at], r_of(l), wr);
+    wr = fmaf(expf(cum_last - cumb[at]) * dtb[at], r[l], wr);
   }
   red[tid] = wr;
   __syncthreads();
@@ -693,63 +708,132 @@ ssd_bwd_reduce(const float* __restrict__ dt, const float* __restrict__ cum,
   const float total = red[0];
 
   for (int l = tid; l < q; l += THREADS) {
-    const int lt = l / T;
+    const int lt = l / ROWS;
     float rows = 0.f, cols = 0.f;
-    for (int i = 0; i < 2 * (lt + 1); ++i) rows += part(rowp, 2 * l_tiles, i, l);
-    for (int i = 4 * lt; i < 4 * l_tiles; ++i) cols += part(colq, 4 * l_tiles, i, l);
-    const int64_t at = (bc * q + l) * h + head;
-    const float d = dt[at], ex = expf(cum_last - cum[at]), r = r_of(l);
-    gdt[at] = fmaf(ex, r, cols);
-    float gc = rows - d * cols - ex * d * r;
+    for (int i = 0; i <= lt; ++i) rows += part(a.rowp, i, l);
+    for (int i = lt; i < L; ++i) cols += part(a.colq, i, l);
+    const int64_t at = static_cast<int64_t>(l) * h + head;
+    const float d = dtb[at], ex = expf(cum_last - cumb[at]);
+    const int64_t o = static_cast<int64_t>(cell) * q * h + at;
+    a.gdt[o] = fmaf(ex, r[l], cols);
+    float gc = rows - d * cols - ex * d * r[l];
     if (l == q - 1) gc += total;
-    gcum[at] = gc;
+    a.gcum[o] = gc;
   }
+}
+
+// A 4-d fp32 TMA map of 32-column x `rows` boxes (box {32, b1, b2, b3}),
+// 128 B swizzle, zeros outside the tensor.
+bool map4(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
+          const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, strides,
+                   box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool encode_maps(Args& a, int bc) {
+  using u64 = cuuint64_t;
+  const u64 q = a.q, h = a.h, p = a.p, n = a.n, qp = a.qp, cells = bc;
+  const cuuint32_t qhp_box[4] = {32, 1, ROWS, 1}, rows_box[4] = {32, ROWS, 1, 1};
+  const u64 qhp_dims[4] = {p, h, q, cells}, qhp_str[3] = {4 * p, 4 * h * p, 4 * q * h * p};
+  const u64 gst_dims[4] = {p, n, h, cells}, gst_str[3] = {4 * p, 4 * n * p, 4 * h * n * p};
+  const u64 qn_dims[4] = {n, q, cells, 1}, qn_str[3] = {4 * n, 4 * q * n, 4 * cells * q * n};
+  const u64 cb_dims[4] = {qp, qp, cells, 1}, cb_str[3] = {4 * qp, 4 * qp * qp, 4 * cells * qp * qp};
+  return map4(&a.xm, a.x, qhp_dims, qhp_str, qhp_box) &&
+         map4(&a.gym, a.gy, qhp_dims, qhp_str, qhp_box) &&
+         map4(&a.gstm, a.gst, gst_dims, gst_str, rows_box) &&
+         map4(&a.bm, a.B, qn_dims, qn_str, rows_box) && map4(&a.cm, a.C, qn_dims, qn_str, rows_box) &&
+         map4(&a.cbm, a.cb, cb_dims, cb_str, rows_box);
 }
 
 }  // namespace
 
 // x / gy (BC, q, h, p), dt / cum (BC, q, h), B / C (BC, q, n), gst (BC, h,
-// n, p) fp32 contiguous and 16-byte aligned, BC = batch * chunks; writes gx
-// (BC, q, h, p), gdt / gcum (BC, q, h), gB / gC (BC, q, n) through the
-// scratch gcb (BC, q, q), rowp (BC, 2 L, h, q), colq (BC, 4 L, h, q) and
-// rpart (BC, P, h, q), L = ceil(q / 64), P = ceil(p / 64).  Launches the
-// four grids on `stream`; returns the CUDA error of the launches.
+// n, p) fp32 contiguous and 16-byte aligned, BC = batch * chunks, p <= 64;
+// writes gx (BC, q, h, p), gdt / gcum (BC, q, h), gB / gC (BC, q, n)
+// through the scratch cb (BC, qp, qp), gcbp (BC, G, qp, qp), rowp and colq
+// (BC, L, h, q) and rbuf (BC, h, q), L = ceil(q / 64), qp = 64 L, G =
+// ceil(h / 8).  Launches the five grids on `stream`; returns the first
+// CUDA error (0 on success).
 extern "C" int ssd_bwd_launch(const float* x, const float* dt, const float* cum, const float* B,
                               const float* C, const float* gy, const float* gst, float* gx,
-                              float* gdt, float* gcum, float* gB, float* gC, float* gcb,
-                              float* rowp, float* colq, float* rpart, int bc, int q, int h, int p,
-                              int n, void* stream) {
-  if (bc <= 0 || q <= 0 || h <= 0 || p <= 0 || n <= 0 || h > 65535 || bc > 65535)
+                              float* gdt, float* gcum, float* gB, float* gC, float* cb,
+                              float* gcbp, float* rowp, float* colq, float* rbuf, int bc, int q,
+                              int h, int p, int n, void* stream) {
+  if (bc <= 0 || q <= 0 || h <= 0 || p <= 0 || p > 64 || n <= 0 || h > 65535 || bc > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.x = x, a.dt = dt, a.cum = cum, a.B = B, a.C = C, a.gy = gy, a.gst = gst;
+  a.gx = gx, a.gdt = gdt, a.gcum = gcum, a.gB = gB, a.gC = gC;
+  a.cb = cb, a.gcbp = gcbp, a.rowp = rowp, a.colq = colq, a.rbuf = rbuf;
+  a.q = q, a.h = h, a.p = p, a.n = n;
+  a.tiles = cdiv(q, ROWS), a.qp = ROWS * a.tiles, a.halves = cdiv(n, ROWS);
+  a.groups = cdiv(h, HG);
+  // TMA takes row strides in multiples of 16 bytes
+  a.tma = p % 4 == 0 && n % 4 == 0;
+  if (a.tma && (!encoder() || !encode_maps(a, bc))) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      cudaFuncSetAttribute(ssd_bwd_dx, cudaFuncAttributeMaxDynamicSharedMemorySize, DX_SMEM);
+      cudaFuncSetAttribute(ssd_bwd_cb, cudaFuncAttributeMaxDynamicSharedMemorySize, CB_SMEM);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_bwd_ds, cudaFuncAttributeMaxDynamicSharedMemorySize, DS_SMEM);
   if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_dx, cudaFuncAttributeMaxDynamicSharedMemorySize, DX_SMEM);
+  if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_bwd_bc, cudaFuncAttributeMaxDynamicSharedMemorySize, BC_SMEM);
+  // the whole of the SM's shared memory, so that two blocks fit
+  constexpr auto CARVE = cudaFuncAttributePreferredSharedMemoryCarveout;
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(ssd_bwd_cb, CARVE, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(ssd_bwd_ds, CARVE, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(ssd_bwd_dx, CARVE, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(ssd_bwd_bc, CARVE, cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int l_tiles = cdiv(q, T), p_tiles = cdiv(p, T), n_tiles = cdiv(n, T);
-  ssd_bwd_ds<<<dim3(l_tiles * (l_tiles + 1) / 2, bc), THREADS, DS_SMEM, st>>>(
-      x, dt, cum, B, C, gy, gcb, rowp, colq, q, h, p, n);
+  const int pairs = a.tiles * (a.tiles + 1) / 2;
+  ssd_bwd_cb<<<dim3(pairs, bc), WG, CB_SMEM, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_dx<<<dim3(l_tiles * p_tiles, cdiv(h, G), bc), THREADS, DX_SMEM, st>>>(
-      x, dt, cum, B, C, gy, gst, gx, rpart, q, h, p, n, p_tiles);
+  ssd_bwd_ds<<<dim3(pairs, a.groups, bc), WG, DS_SMEM, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_bc<<<dim3(l_tiles * n_tiles, 2, bc), THREADS, BC_SMEM, st>>>(
-      x, dt, cum, B, C, gst, gcb, gB, gC, q, h, p, n, n_tiles);
+  ssd_bwd_dx<<<dim3(a.tiles, cdiv(h, HX), bc), WG, DX_SMEM, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_reduce<<<dim3(h, bc), THREADS, 0, st>>>(dt, cum, rowp, colq, rpart, gdt, gcum, q, h,
-                                                  p_tiles);
+  ssd_bwd_bc<<<dim3(a.tiles * a.halves, 2, bc), WG, BC_SMEM, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_reduce<<<dim3(h, bc), 256, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory of the dx, ds and bc grids (bytes).
+// Dynamic shared memory of the cb, ds, dx and bc grids (bytes).
 extern "C" int ssd_bwd_smem_bytes(int which) {
-  return which == 0 ? DX_SMEM : which == 1 ? DS_SMEM : BC_SMEM;
+  return which == 0 ? CB_SMEM : which == 1 ? DS_SMEM : which == 2 ? DX_SMEM : BC_SMEM;
+}
+
+// Heads of a ds block (which = 0; the wrapper sizes gCB's head-group
+// scratch by it) and of a dx block (1).
+extern "C" int ssd_bwd_head_group(int which) { return which ? HX : HG; }
+
+// Blocks of the cb, ds, dx and bc grids (which = 0..3) that fit one SM, or
+// a negative CUDA error.
+extern "C" int ssd_bwd_blocks_per_sm(int which) {
+  int n = 0;
+  const void* fns[4] = {reinterpret_cast<const void*>(ssd_bwd_cb),
+                        reinterpret_cast<const void*>(ssd_bwd_ds),
+                        reinterpret_cast<const void*>(ssd_bwd_dx),
+                        reinterpret_cast<const void*>(ssd_bwd_bc)};
+  const int smem[4] = {CB_SMEM, DS_SMEM, DX_SMEM, BC_SMEM};
+  if (which < 0 || which > 3) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(fns[which], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem[which]);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fns[which], cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fns[which], WG, smem[which]);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 extern "C" const char* ssd_bwd_error_string(int err) {

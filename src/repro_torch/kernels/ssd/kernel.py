@@ -81,24 +81,78 @@ def ssd_intra_chunk_kernel(x: torch.Tensor, dt: torch.Tensor,
 # --------------------------------------------------------------------------
 bwd_launches = 0   # backward wrapper calls that launched the kernels
 
-_BWD_GRIDS = ("ssd_bwd_dx", "ssd_bwd_ds", "ssd_bwd_bc")
+_BWD_GRIDS = ("ssd_bwd_cb", "ssd_bwd_ds", "ssd_bwd_dx", "ssd_bwd_bc")
+BWD_TILE = 64        # the tile edge of every backward grid
+BWD_HEAD_GROUP = 8   # heads of a ssd_bwd_ds block (the C side's HG)
+BWD_MAX_P = 64       # one 64-wide tile of p: dS's depth, U's and gx's width
+
+
+def bwd_plan(cells: int, q: int, h: int, p: int, n: int) -> dict:
+    """The sizes ``ssd_bwd_launch`` works in: the tiles of q (``tiles``,
+    q padded to ``qp``), the 64-column halves of n (``halves``), the head
+    groups of ``ssd_bwd_ds`` (``groups``), and the scratch the grids
+    need (shapes, fp32)."""
+    t = BWD_TILE
+    tiles = -(-q // t)
+    groups = -(-h // BWD_HEAD_GROUP)
+    return {
+        "tiles": tiles, "qp": t * tiles, "halves": -(-n // t), "groups": groups,
+        "scratch": {"cb": (cells, t * tiles, t * tiles),
+                    "gcbp": (cells, groups, t * tiles, t * tiles),
+                    "rowp": (cells, tiles, h, q), "colq": (cells, tiles, h, q),
+                    "rbuf": (cells, h, q)}}
+
+
+def bwd_issued_flops(q: int, h: int, p: int, n: int) -> int:
+    """FLOPs the backward's products issue for one cell, counted as the
+    bound counts them (2 M N K, one pass of the three): whole 64 x 64
+    tiles, p and every 64-wide k stage padded to 64."""
+    plan = bwd_plan(1, q, h, p, n)
+    tiles, halves = plan["tiles"], plan["halves"]
+    pairs = tiles * (tiles + 1) // 2
+    stage = 2 * BWD_TILE ** 3          # one 64 x 64 x 64 product
+    stages = (pairs * halves              # cb: C.B^T over n
+              + pairs * h                 # ds: dS = gy x^T
+              + h * (tiles * halves + pairs)  # dx: U = B gst, S^T gy
+              + 2 * pairs * halves        # bc: gC, gB's gCB^T C
+              + tiles * halves * h)       # bc: gB's state term
+    return stages * stage
 
 
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.library("ssd_bwd")
     lib.ssd_bwd_launch.restype = ctypes.c_int
-    lib.ssd_bwd_launch.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 \
+    lib.ssd_bwd_launch.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     lib.ssd_bwd_smem_bytes.restype = ctypes.c_int
     lib.ssd_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.ssd_bwd_head_group.restype = ctypes.c_int
+    lib.ssd_bwd_head_group.argtypes = [ctypes.c_int]
     return lib
 
 
 def bwd_smem_bytes() -> dict[str, int]:
-    """Dynamic shared memory of the backward's dx, ds and bc grids
+    """Dynamic shared memory of the backward's cb, ds, dx and bc grids
     (bytes)."""
     lib = _bwd_library()
     return {name: lib.ssd_bwd_smem_bytes(i) for i, name in enumerate(_BWD_GRIDS)}
+
+
+def bwd_blocks_per_sm() -> dict[str, int]:
+    """Blocks of each tiled backward grid that fit one SM of this card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = _bwd_library()
+    lib.ssd_bwd_blocks_per_sm.restype = ctypes.c_int
+    lib.ssd_bwd_blocks_per_sm.argtypes = [ctypes.c_int]
+    return {name: lib.ssd_bwd_blocks_per_sm(i) for i, name in enumerate(_BWD_GRIDS)}
+
+
+def built_head_groups() -> tuple[int, int]:
+    """The built library's heads per ``ssd_bwd_ds`` block (must equal
+    ``BWD_HEAD_GROUP``, by which the wrapper sizes the scratch) and per
+    ``ssd_bwd_dx`` block."""
+    lib = _bwd_library()
+    return lib.ssd_bwd_head_group(0), lib.ssd_bwd_head_group(1)
 
 
 def ssd_intra_chunk_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
@@ -108,13 +162,15 @@ def ssd_intra_chunk_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
     """Gradients of ``ssd_intra_chunk_kernel``'s (y_intra, states) given
     their cotangents: x/gy (bb, nc, q, h, p); dt/cum (bb, nc, q, h); B/C
     (bb, nc, q, n); gst (bb, nc, h, n, p) (zeros where the states feed
-    nothing); all fp32, contiguous, 16-byte aligned, on one CUDA device.
+    nothing); all fp32, contiguous, 16-byte aligned, on one CUDA device;
+    p at most 64.
 
     Returns (gx, gdt, gcum, gB, gC) in the operands' shapes, fp32,
-    launched on the current stream: the ``ssd_bwd_ds``, ``ssd_bwd_dx``,
-    ``ssd_bwd_bc`` and ``ssd_bwd_reduce`` grids, through fp32 scratch
-    (gCB per cell and the row, column and r partials).  No atomics: two
-    launches on the same inputs are bit-equal."""
+    launched on the current stream: the ``ssd_bwd_cb``, ``ssd_bwd_ds``,
+    ``ssd_bwd_dx``, ``ssd_bwd_bc`` and ``ssd_bwd_reduce`` grids, through
+    fp32 scratch (``bwd_plan``: C·Bᵀ and gCB's head-group partials per
+    cell, the row and column partials and r).  No atomics: two launches
+    on the same inputs are bit-equal."""
     global bwd_launches
     tensors = (x, dt, cum, B, C, gy, gst)
     if x.device.type != "cuda" or any(
@@ -136,21 +192,20 @@ def ssd_intra_chunk_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
                          "q, h, p), dt/cum (bb, nc, q, h), B/C (bb, nc, q, "
                          "n), gst (bb, nc, h, n, p); got "
                          f"{[tuple(t.shape) for t in tensors]}")
+    if p > BWD_MAX_P:
+        raise ValueError(f"ssd_intra_chunk_bwd_kernel takes p <= {BWD_MAX_P}"
+                         f" (one tile of the head dim), got p = {p}")
     grads = tuple(torch.empty_like(t) for t in (x, dt, cum, B, C))
     if x.numel() == 0 or B.numel() == 0:
         return tuple(g.zero_() for g in grads)
-    cells, tiles = bb * nc, -(-q // 64)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    gcb = torch.empty((cells, q, q), **f32)
-    rowp = torch.empty((cells, 2 * tiles, h, q), **f32)
-    colq = torch.empty((cells, 4 * tiles, h, q), **f32)
-    rpart = torch.empty((cells, -(-p // 64), h, q), **f32)
-    gx, gdt, gcum, gB, gC = grads
+    cells = bb * nc
+    plan = bwd_plan(cells, q, h, p, n)
+    scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
+               for shape in plan["scratch"].values()]
     lib = _bwd_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_bwd_launch(
-        *(t.data_ptr() for t in (x, dt, cum, B, C, gy, gst, gx, gdt, gcum,
-                                 gB, gC, gcb, rowp, colq, rpart)),
+        *(t.data_ptr() for t in (*tensors, *grads, *scratch)),
         cells, q, h, p, n, stream)
     _build.check(lib, "ssd_bwd", err)
     bwd_launches += 1

@@ -157,11 +157,19 @@ def _tf32(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def _trunc_tf32(x):
+    """What the tensor cores read of an fp32 word as tf32: its top 19
+    bits (the mantissa truncated to 10 bits)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
 def _mma(acc, a, b, passes):
-    """acc + a @ b as ssd_tc.cuh's products: per k8 step 3xTF32 (lo.hi +
+    """acc + a @ b as tf32_tc.cuh's products: per k8 step 3xTF32 (lo.hi +
     hi.lo, then + hi.hi) or one TF32 product into a fresh fp32 partial
-    sum, each step's partial added to acc in fp32, in k order."""
-    ahi, bhi = _tf32(a), _tf32(b)
+    sum, each step's partial added to acc in fp32, in k order; hi is the
+    fp32 operand as the tensor cores read it (truncated to tf32), lo =
+    tf32(x - hi) rounded to nearest."""
+    ahi, bhi = _trunc_tf32(a), _trunc_tf32(b)
     alo, blo = _tf32(a - ahi), _tf32(b - bhi)
     for k in range(0, a.shape[-1], 8):
         ks = slice(k, k + 8)
@@ -174,13 +182,17 @@ def _mma(acc, a, b, passes):
 
 
 def _emulate_bwd_kernels(x, dt, cum, B, C, gy, gst, passes=3):
-    """ssd_bwd.cu's four grids on fp32 operands (x/gy (bb, nc, q, h, p),
+    """ssd_bwd.cu's five grids on fp32 operands (x/gy (bb, nc, q, h, p),
     dt/cum (bb, nc, q, h), B/C (bb, nc, q, n), gst (bb, nc, h, n, p)),
-    tile by tile: q, p and n padded with zeros to whole 64-wide tiles."""
+    tile by tile: q padded with zeros to whole 64-row tiles, p to 64 and
+    n to whole 64-column halves, every product a 64-deep stage of k8
+    steps (``_mma``)."""
     bb, nc, q, h, p = x.shape
     n = B.shape[-1]
-    tiles = -(-q // TILE)
-    qp, pp, np_ = tiles * TILE, -(-p // TILE) * TILE, -(-n // TILE) * TILE
+    plan = t_kernel.bwd_plan(bb * nc, q, h, p, n)
+    tiles, qp, groups = plan["tiles"], plan["qp"], plan["groups"]
+    hg = t_kernel.BWD_HEAD_GROUP
+    pp, np_ = TILE, plan["halves"] * TILE
 
     def pad(t, dims):
         return torch.nn.functional.pad(t, [v for d in reversed(dims)
@@ -209,46 +221,53 @@ def _emulate_bwd_kernels(x, dt, cum, B, C, gy, gst, passes=3):
         seg = cumh[..., rows(lt), None] - cumh[..., None, rows(st)]
         return torch.exp(torch.where(ok, seg, torch.tensor(-1e30)))
 
-    # ssd_bwd_ds: per causal (l, s) tile pair, C_l B_s^T once, the heads in
-    # order; row sums of P by 32-column half, column sums of Q by 16-row
-    # quarter; gCB summed over the heads in order
-    gcb = torch.zeros(bb, nc, qp, qp)
-    rowp = torch.zeros(bb, nc, h, 2 * tiles, qp)
-    colq = torch.zeros(bb, nc, h, 4 * tiles, qp)
-    for lt in range(tiles):
-        for st in range(lt + 1):
-            cb = _mma(None, Cp[:, :, rows(lt)], Bp[:, :, rows(st)]
-                      .transpose(-1, -2), passes)[:, :, None]
-            ds = _mma(None, gyh[..., rows(lt), :],
-                      xh[..., rows(st), :].transpose(-1, -2), passes)
-            e = decay(lt, st)
-            d = dth[..., None, rows(st)]
-            qq = ds * cb * e
-            pq = qq * d
-            for half in range(2):
-                rowp[..., 2 * st + half, rows(lt)] = \
-                    pq[..., 32 * half:32 * half + 32].sum(-1)
-            for quarter in range(4):
-                colq[..., 4 * lt + quarter, rows(st)] = \
-                    qq[..., 16 * quarter:16 * quarter + 16, :].sum(-2)
-            term = ds * e * d
-            tile = torch.zeros(bb, nc, TILE, TILE)
-            for hd in range(h):
-                tile = tile + term[:, :, hd]
-            gcb[:, :, rows(lt), rows(st)] = tile
+    pairs = [(lt, st) for lt in range(tiles) for st in range(lt + 1)]
 
-    # ssd_bwd_dx: U = B_s gst_h, r over p, U scaled by exp(cum_last - cum_s),
-    # then (B_s C_l^T * E) gy_h over the causal l tiles, times dt_s
+    # ssd_bwd_cb: C_l B_s^T once a causal pair, over n in k8 steps
+    cb = torch.zeros(bb, nc, qp, qp)
+    for lt, st in pairs:
+        cb[:, :, rows(lt), rows(st)] = _mma(
+            None, Cp[:, :, rows(lt)], Bp[:, :, rows(st)].transpose(-1, -2),
+            passes)
+
+    # ssd_bwd_ds: per pair and head group, dS = gy_l x_s^T a head; row sums
+    # of P over the s tile, column sums of Q over the l tile (each warp's
+    # 16 rows, then the four warps in order); gCB summed over the group's
+    # heads in order, then over the groups in order as bc stages it
+    gcbp = torch.zeros(bb, nc, groups, qp, qp)
+    rowp = torch.zeros(bb, nc, h, tiles, qp)
+    colq = torch.zeros(bb, nc, h, tiles, qp)
+    for lt, st in pairs:
+        ds = _mma(None, gyh[..., rows(lt), :],
+                  xh[..., rows(st), :].transpose(-1, -2), passes)
+        e = decay(lt, st)
+        d = dth[..., None, rows(st)]
+        qq = ds * cb[:, :, None, rows(lt), rows(st)] * e
+        rowp[..., st, rows(lt)] = (qq * d).sum(-1)
+        warps = [qq[..., 16 * w:16 * w + 16, :].sum(-2) for w in range(4)]
+        colq[..., lt, rows(st)] = ((warps[0] + warps[1]) + warps[2]) + warps[3]
+        term = ds * e * d
+        for grp in range(groups):
+            tile = torch.zeros(bb, nc, TILE, TILE)
+            for hd in range(grp * hg, min(h, (grp + 1) * hg)):
+                tile = tile + term[:, :, hd]
+            gcbp[:, :, grp, rows(lt), rows(st)] = tile
+    gcb = gcbp[:, :, 0]
+    for grp in range(1, groups):
+        gcb = gcb + gcbp[:, :, grp]
+
+    # ssd_bwd_dx: U = B_s gst_h over n, r over p, U scaled by
+    # exp(cum_last - cum_s), then (C.B^T * E)^T gy_l over the causal l
+    # tiles from cb's scratch, times dt_s
     gx = torch.zeros(bb, nc, h, qp, pp)
-    rpart = torch.zeros(bb, nc, h, qp)
+    rbuf = torch.zeros(bb, nc, h, qp)
     for st in range(tiles):
         acc = _mma(None, Bp[:, :, None, rows(st)], gstp, passes)
-        rpart[..., rows(st)] = (xh[..., rows(st), :] * acc).sum(-1)
+        rbuf[..., rows(st)] = (xh[..., rows(st), :] * acc).sum(-1)
         acc = acc * ex[..., rows(st), None]
         for lt in range(st, tiles):
-            cbt = _mma(None, Bp[:, :, rows(st)],
-                       Cp[:, :, rows(lt)].transpose(-1, -2), passes)
-            a = cbt[:, :, None] * decay(lt, st).transpose(-1, -2)
+            a = cb[:, :, None, rows(lt), rows(st)].transpose(-1, -2) \
+                * decay(lt, st).transpose(-1, -2)
             acc = _mma(acc, a, gyh[..., rows(lt), :], passes)
         gx[..., rows(st), :] = acc * dth[..., rows(st), None]
 
@@ -267,11 +286,8 @@ def _emulate_bwd_kernels(x, dt, cum, B, C, gy, gst, passes=3):
             acc = _mma(acc, gcb[:, :, rows(lt), rows(rt)].transpose(-1, -2),
                        Cp[:, :, rows(lt)], passes)
         for hd in range(h):
-            for pc in range(0, pp, TILE):
-                wx = xh[:, :, hd, rows(rt), pc:pc + TILE] \
-                    * w[:, :, hd, rows(rt), None]
-                acc = _mma(acc, wx, gstp[:, :, hd, :, pc:pc + TILE]
-                           .transpose(-1, -2), passes)
+            wx = xh[:, :, hd, rows(rt)] * w[:, :, hd, rows(rt), None]
+            acc = _mma(acc, wx, gstp[:, :, hd].transpose(-1, -2), passes)
         gB[:, :, rows(rt)] = acc
 
     # ssd_bwd_reduce: the partials in tile order, the state terms, and the
@@ -280,15 +296,15 @@ def _emulate_bwd_kernels(x, dt, cum, B, C, gy, gst, passes=3):
     gdt = torch.zeros(bb, nc, h, qp)
     for lt in range(tiles):
         rs = torch.zeros(bb, nc, h, TILE)
-        for i in range(2 * (lt + 1)):
+        for i in range(lt + 1):
             rs = rs + rowp[..., i, rows(lt)]
         cs = torch.zeros(bb, nc, h, TILE)
-        for i in range(4 * lt, 4 * tiles):
+        for i in range(lt, tiles):
             cs = cs + colq[..., i, rows(lt)]
-        d, e, r = dth[..., rows(lt)], ex[..., rows(lt)], rpart[..., rows(lt)]
+        d, e, r = dth[..., rows(lt)], ex[..., rows(lt)], rbuf[..., rows(lt)]
         gdt[..., rows(lt)] = cs + e * r
         gcum[..., rows(lt)] = rs - d * cs - e * d * r
-    gcum[..., q - 1] += (w * rpart)[..., :q].sum(-1)
+    gcum[..., q - 1] += (w * rbuf)[..., :q].sum(-1)
 
     def unpad_h(t, last_dim=None):
         t = t[..., :q, :last_dim] if last_dim else t[..., :q]
@@ -321,6 +337,118 @@ def test_kernel_tiling_fits_the_tolerance(bb, l, chunk, h, p, n):
         assert max(_rel(a, w) for a, w in zip(one, want)) > KERNEL_TOL
 
 
+# ssd_bwd_launch's grids as the C side builds and decodes them (the spec
+# to keep in step with ssd_bwd.cu's launch and its kernels' block index)
+DX_HEADS = 4   # heads of a ssd_bwd_dx block, one after another (HX)
+
+
+def _grids(plan: dict, cells: int, h: int) -> dict:
+    """Each grid's (x, y, z) blocks."""
+    tiles, halves = plan["tiles"], plan["halves"]
+    pairs = tiles * (tiles + 1) // 2
+    return {"ssd_bwd_cb": (pairs, cells, 1),
+            "ssd_bwd_ds": (pairs, plan["groups"], cells),
+            "ssd_bwd_dx": (tiles, -(-h // DX_HEADS), cells),
+            "ssd_bwd_bc": (tiles * halves, 2, cells),
+            "ssd_bwd_reduce": (h, cells, 1)}
+
+
+def _pair_of(x: int) -> tuple[int, int]:
+    """The causal (l tile, s tile) pair of block x of the cb and ds grids:
+    l tiles in order, s <= l."""
+    lt = 0
+    while (lt + 1) * (lt + 2) // 2 <= x:
+        lt += 1
+    return lt, x - lt * (lt + 1) // 2
+
+
+def _block_work(plan: dict, cells: int, h: int):
+    """What each block computes: yields (grid, block, items) with items
+    the (cell, head, l tile, s tile) products of ds and dx, the (cell, l
+    tile, s tile) C.B^T tiles of cb, and the (cell, gC or gB, row tile, n
+    half) outputs of bc with the causal tiles and heads they walk."""
+    tiles, halves, hg = plan["tiles"], plan["halves"], t_kernel.BWD_HEAD_GROUP
+    pairs = tiles * (tiles + 1) // 2
+    for cell in range(cells):
+        for x in range(pairs):
+            yield "ssd_bwd_cb", (x, cell, 0), [(cell,) + _pair_of(x)]
+    for cell in range(cells):
+        for grp in range(plan["groups"]):
+            for x in range(pairs):
+                lt, st = _pair_of(x)
+                heads = range(grp * hg, min(h, (grp + 1) * hg))
+                yield "ssd_bwd_ds", (x, grp, cell), \
+                    [(cell, hd, lt, st) for hd in heads]
+    for cell in range(cells):
+        for grp in range(-(-h // DX_HEADS)):
+            for st in range(tiles):
+                heads = range(grp * DX_HEADS, min(h, (grp + 1) * DX_HEADS))
+                yield "ssd_bwd_dx", (st, grp, cell), \
+                    [(cell, hd, lt, st) for hd in heads
+                     for lt in range(st, tiles)]
+    for cell in range(cells):
+        for which in range(2):
+            for x in range(tiles * halves):
+                rt, nh = divmod(x, halves)
+                walk = ([("s", st) for st in range(rt + 1)] if which == 0 else
+                        [("l", lt) for lt in range(rt, tiles)]
+                        + [("head", hd) for hd in range(h)])
+                yield "ssd_bwd_bc", (x, which, cell), \
+                    [(cell, "gB" if which else "gC", rt, nh, walk)]
+
+
+@pytest.mark.parametrize("cells,q,h,p,n", [
+    (2, 300, 3, 64, 128),    # one ragged chunk of 300 at 3 heads (g = 8)
+    (3, 256, 24, 64, 128),   # mamba2-130m's chunk, heads, p and n
+    (1, 40, 12, 16, 24),     # 12 heads (g = 2): a head group h does not fill
+    (2, 96, 13, 10, 20),     # p and n off TMA's 16-byte strides
+])
+def test_bwd_launch_plan_covers_every_product_once(cells, q, h, p, n):
+    """The backward's grids, decoded block by block as ssd_bwd.cu decodes
+    them over the wrapper's plan: cb builds each causal C.B^T tile of each
+    cell once; ds and dx each take every (cell, head, l tile, s tile)
+    product of a causal pair once (by head groups of ``BWD_HEAD_GROUP``
+    and ``DX_HEADS``); bc writes each (cell, gC or gB, row tile, n half)
+    once, walking its causal tiles, and for gB every head, in order; the
+    scratch holds every tile."""
+    plan = t_kernel.bwd_plan(cells, q, h, p, n)
+    grids = _grids(plan, cells, h)
+    tiles, hg = plan["tiles"], t_kernel.BWD_HEAD_GROUP
+    assert plan["qp"] == TILE * tiles and tiles * TILE - TILE < q <= tiles * TILE
+    assert (plan["groups"] - 1) * hg < h <= plan["groups"] * hg
+    assert plan["halves"] * TILE >= n > (plan["halves"] - 1) * TILE
+    pairs = [(lt, st) for lt in range(tiles) for st in range(lt + 1)]
+    seen = {name: [] for name in grids}
+    blocks = {name: set() for name in grids}
+    for grid, block, items in _block_work(plan, cells, h):
+        assert all(0 <= b < d for b, d in zip(block, grids[grid]))
+        assert block not in blocks[grid]
+        blocks[grid].add(block)
+        seen[grid] += items
+    for grid in ("ssd_bwd_cb", "ssd_bwd_ds", "ssd_bwd_dx", "ssd_bwd_bc"):
+        x, y, z = grids[grid]
+        assert len(blocks[grid]) == x * y * z, grid
+    assert sorted(seen["ssd_bwd_cb"]) == sorted(
+        (c, lt, st) for c in range(cells) for lt, st in pairs)
+    products = sorted((c, hd, lt, st) for c in range(cells) for hd in range(h)
+                      for lt, st in pairs)
+    assert sorted(seen["ssd_bwd_ds"]) == products
+    assert sorted(seen["ssd_bwd_dx"]) == products
+    outputs = {(c, which, rt, nh): walk
+               for c, which, rt, nh, walk in seen["ssd_bwd_bc"]}
+    assert len(outputs) == len(seen["ssd_bwd_bc"]) == \
+        cells * 2 * tiles * plan["halves"]
+    for (c, which, rt, nh), walk in outputs.items():
+        want = ([("s", st) for st in range(rt + 1)] if which == "gC" else
+                [("l", lt) for lt in range(rt, tiles)]
+                + [("head", hd) for hd in range(h)])
+        assert walk == want
+    assert plan["scratch"]["gcbp"] == (cells, plan["groups"], plan["qp"],
+                                       plan["qp"])
+    assert plan["scratch"]["rowp"] == plan["scratch"]["colq"] == \
+        (cells, tiles, h, q)
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -334,6 +462,9 @@ def _card():
 @pytest.mark.parametrize("bb,l,chunk,h,p,n", SHAPES + [
     (4, 512, 256, 24, 64, 128),   # mamba2-130m full width
     (4, 300, 256, 24, 64, 128),   # one chunk of 300
+    (1, 300, 256, 3, 64, 128),    # 3 heads and q 300: a ragged head group
+                                  # and a ragged tile together
+    (1, 96, 32, 3, 10, 20),       # p and n off TMA's 16-byte row strides
 ])
 def test_kernels_match_plain_backward_on_card(bb, l, chunk, h, p, n):
     dev = _card()
@@ -346,6 +477,21 @@ def test_kernels_match_plain_backward_on_card(bb, l, chunk, h, p, n):
     assert t_kernel.bwd_launches == before + 1
     for name, a, w in zip(NAMES, got, want):
         assert _rel(a.cpu(), w.cpu()) <= KERNEL_TOL, name
+
+
+@pytest.mark.gpu
+def test_built_backward_matches_its_plan_on_card():
+    """The built library's head groups are the spec's (ds's sizes gCB's
+    scratch), and each of the four tiled grids fits two blocks (one
+    warpgroup each) on an SM: at most 113 KB of shared memory a block."""
+    _card()
+    assert t_kernel.built_head_groups() == (t_kernel.BWD_HEAD_GROUP,
+                                            DX_HEADS)
+    smem = t_kernel.bwd_smem_bytes()
+    assert tuple(smem) == ("ssd_bwd_cb", "ssd_bwd_ds", "ssd_bwd_dx",
+                           "ssd_bwd_bc")
+    assert all(0 < v <= 113 * 1024 for v in smem.values()), smem
+    assert all(n == 2 for n in t_kernel.bwd_blocks_per_sm().values())
 
 
 @pytest.mark.gpu

@@ -409,7 +409,8 @@ def test_swa_attention_is_differentiable_through_its_function():
         assert t_ops.swa_attention(q, k, v, window=16).grad_fn is None
 
 
-def test_ssd_refuses_a_gradient_on_the_card(monkeypatch):
+def test_ssd_gradient_goes_through_the_backward_kernel_on_cuda_tensors(
+        monkeypatch):
     """On a CUDA tensor that needs a gradient ``ssd_intra_chunk``
     refuses the plain versions (set to None here) and hands the
     backward to the ssd backward kernel (here the device check is made
@@ -504,7 +505,7 @@ def test_kernel_backward_is_deterministic_on_card(dtype):
 
 
 @pytest.mark.gpu
-def test_ssd_refuses_a_gradient_on_card():
+def test_ssd_gradient_goes_through_the_backward_kernel_on_card():
     """On the card the op's gradient goes through the ssd backward
     kernel (one launch) and not the plain backward, within 1e-4 of
     max|g| of the plain op's."""
