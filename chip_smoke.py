@@ -323,8 +323,14 @@ MIXTRAL_STEP_RUNS = [("prefill", 374013952, 1)] + [
     ("mixed", 693409280, 1), ("decode", 460324864, 14),
     ("decode", 345243648, 1)]
 MIXTRAL_ORACLE = (492_017_152, 460_324_864, 0.5)
-# moe_path (b): grok-1-314b at full width, 2 of its 64 layers
+# moe_path (b): grok-1-314b at full width, 2 of its 64 layers; then one
+# decode step from its greedy run's caches split-K over 4 and 8
+# sequence shards (cache_seq -> model on a (1, n) port mesh), held to
+# the dense step: the same greedy token, a logit gap of at most
+# SPLITK_GAP of max|logit| (bf16)
 GROK_LAYERS = 2
+GROK_SPLITK_SHARDS = (4, 8)
+SPLITK_GAP = 1e-2
 # vlm_path: internvl2-26b at full width, 24 of its 48 layers
 VLM_LAYERS = 24
 
@@ -1791,7 +1797,8 @@ def serve_swa_path(dev, arch: str) -> tuple[dict, dict]:
 
 
 def greedy_path(dev, arch: str, layers: int | None = None, *,
-                kv_cache_dtype: str | None = None) -> tuple[int, dict]:
+                kv_cache_dtype: str | None = None,
+                splitk: tuple = ()) -> tuple[int, dict]:
     """One arch at full width (``layers`` cuts the depth), with the SWA
     launch counter at 0 before it: parameters from seed 0, one bf16
     prefill of 2048 tokens through the kernel (a VLM arch's prompt
@@ -1809,7 +1816,8 @@ def greedy_path(dev, arch: str, layers: int | None = None, *,
     are also held against the same run with the bf16 cache as
     tests/test_decode_opt.py's ``rel``, and where an fp32 greedy token
     differed the int8 values that kernel and plain quantised apart are
-    counted before the check fails."""
+    counted before the check fails.  ``splitk`` shard counts run
+    ``splitk_decode`` on the bf16 greedy run's last decode step."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.swa import kernel as swa_kernel
     from repro_torch.kernels.swa import ops as swa_ops
@@ -1849,10 +1857,11 @@ def greedy_path(dev, arch: str, layers: int | None = None, *,
             (1, n_prefix, cfg.d_model)).astype(np.float32)).to(dev)
     kernel_op = swa_ops.swa_attention
 
-    def greedy(c, op, wall=None):
+    def greedy(c, op, wall=None, last=None):
         """Prefill through ``op``, then ``n_dec`` greedy decode steps:
         (first-token logits, the n_dec + 1 tokens, the first decode
-        step's logits)."""
+        step's logits); ``last`` gets the last step's caches, token and
+        position."""
         swa_ops.swa_attention = op
         try:
             torch.cuda.synchronize()
@@ -1863,6 +1872,8 @@ def greedy_path(dev, arch: str, layers: int | None = None, *,
             t1 = time.perf_counter()
             out, first_step = [int(tok)], None
             for i in range(n_dec):
+                if last is not None:
+                    last.update(caches=caches, tok=tok[:, None], t=t + i)
                 step, caches = decode_step(params, caches, tok[:, None],
                                            t + i, c)
                 first_step = step if first_step is None else first_step
@@ -1883,7 +1894,8 @@ def greedy_path(dev, arch: str, layers: int | None = None, *,
 
     swa_kernel.launches = 0
     swa_kernel.launches_by_path.update(tc=0, fma=0)
-    logits, tokens, first_step = greedy(cfg, capture, wall)
+    last: dict = {}
+    logits, tokens, first_step = greedy(cfg, capture, wall, last)
     launches = swa_kernel.launches
     by_path = dict(swa_kernel.launches_by_path)
     peak = torch.cuda.max_memory_allocated()
@@ -1946,14 +1958,81 @@ def greedy_path(dev, arch: str, layers: int | None = None, *,
         "decode_step_1_slot": device_split(
             lambda: decode_step(params, caches, tok, t, cfg), kinds, ranges)}
     print_splits(profiled, "swa")
-    del params, caches
+    split = splitk_decode(params, cfg, last, tokens[-1], splitk) \
+        if splitk else {}
+    del params, caches, last
     torch.cuda.empty_cache()
-    return launches, {"init_s": init_s, **wall, "n_params": n_params,
+    return launches, {**split, "init_s": init_s, **wall,
+                      "n_params": n_params,
                       "peak_memory_bytes": peak, "tokens": tokens,
                       "swa_max_abs_err": swa_worst,
                       "logits_fp32_max_abs_err": worst,
                       "logits_bf16_max_abs_err": bf16_gap,
                       **int8, "profiled": profiled}
+
+
+def splitk_decode(params, cfg, last: dict, want_token: int,
+                  shards: tuple) -> dict:
+    """Split-K decode on the card: the greedy run's last decode step,
+    from its caches, dense and then under ``activate_rules`` on a
+    ("data", "model") port mesh of sizes (1, n) with ``cache_seq ->
+    ("model",)`` for each n of ``shards``.  Each must go through
+    ``_attend_decode_splitk`` with n shards in every layer (the
+    reference falls back to dense where ``cache_len % n``, which must
+    not pass here), give the dense step's greedy token — itself the
+    greedy run's last token — and logits within ``SPLITK_GAP`` of
+    max|logit|."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode_step
+    from repro_torch.sharding import activate_rules
+
+    t0 = time.perf_counter()
+    v = cfg.vocab_size
+    dense = decode_step(params, last["caches"], last["tok"], last["t"],
+                        cfg)[0][:, :v].float()
+    token = int(dense.argmax(dim=1))
+    scale = float(dense.abs().max())
+    if token != want_token:
+        raise AssertionError(f"the dense step from the kept caches gave "
+                             f"{token}, the greedy run {want_token}")
+    real, out = attn_mod._attend_decode_splitk, {}
+    for n in shards:
+        seen = []
+
+        def spy(*args):
+            seen.append(args[5])
+            return real(*args)
+
+        attn_mod._attend_decode_splitk = spy
+        try:
+            with activate_rules(make_mesh((1, n), ("data", "model")),
+                                {"cache_seq": ("model",)}):
+                got = decode_step(params, last["caches"], last["tok"],
+                                  last["t"], cfg)[0][:, :v].float()
+        finally:
+            attn_mod._attend_decode_splitk = real
+        torch.cuda.synchronize()
+        gap = max_err(got, dense)
+        got_token = int(got.argmax(dim=1))
+        out[n] = {"shards_seen": seen, "token": got_token,
+                  "logit_gap": gap, "gap_of_max": gap / scale}
+        print(f"split-K decode over {n} sequence shards: "
+              f"_splitk_shards {seen} (one a layer), token {got_token} "
+              f"(dense {token}), logit gap {gap:.4e} = {gap / scale:.3e} "
+              f"of max|logit| {scale:.4e} (bound {SPLITK_GAP})")
+        if seen != [n] * cfg.num_layers:
+            raise AssertionError(f"split-K ran with {seen} shards, not "
+                                 f"{n} in each of {cfg.num_layers} layers")
+        if got_token != token or not gap <= SPLITK_GAP * scale:
+            raise AssertionError(f"split-K over {n} shards: token "
+                                 f"{got_token} vs {token}, gap {gap:.3e}")
+    seconds = time.perf_counter() - t0
+    print(f"the split-K check added {seconds:.2f} s")
+    return {"splitk": {"cache_len": last["caches"]["blocks"][0]["k"]
+                       .shape[2], "position": int(last["t"]),
+                       "dense_token": token, "max_abs_logit": scale,
+                       "by_shards": out, "seconds": seconds}}
 
 
 def int8_flips(params, batch, cfg, cache_len, kernel_op) -> dict:
@@ -2000,9 +2079,12 @@ def moe_path(dev) -> tuple[int, dict]:
     """The MoE family's path: (a) serving mixtral-8x7b at full width cut
     to 8 of 32 layers (banded attention, D 128, groups of 4), (b)
     grok-1-314b at full width cut to 2 of 64 layers (soft-capped full
-    causal attention, D 128, groups of 6); the SWA launches of both."""
+    causal attention, D 128, groups of 6), then its last decode step
+    split-K over 4 and 8 sequence shards (``splitk_decode``); the SWA
+    launches of both."""
     serve_launches, serve = serve_swa_path(dev, "mixtral-8x7b")
-    grok_launches, grok = greedy_path(dev, "grok-1-314b", GROK_LAYERS)
+    grok_launches, grok = greedy_path(dev, "grok-1-314b", GROK_LAYERS,
+                                      splitk=GROK_SPLITK_SHARDS)
     return serve_launches["swa"] + grok_launches, {
         "mixtral-8x7b": serve, "grok-1-314b": grok,
         "swa_max_abs_err": max(serve["swa_max_abs_err"],

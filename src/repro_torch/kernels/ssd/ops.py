@@ -18,12 +18,18 @@ operands (x, dt, cum, B, C), whose backward is the backward kernel
 plain backward (``ref.ssd_intra_chunk_bwd_ref``) otherwise.  The
 gradients of dt and A through ``cum = cumsum(dt * A)`` and of the
 group slices and chunk reshapes are PyTorch autograd's.
+
+Meta tensors (the dry-run's trace, ``repro_torch.launch.dryrun``) take
+a route of their own, forward and backward: outputs of the kernels'
+shapes and dtypes, and a ``kernels.meta.record`` of the FLOPs and bytes
+the kernels would spend on them; neither kernel nor plain version runs.
 """
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.ssd import kernel as K
 from repro_torch.kernels.ssd import ref
 
@@ -73,48 +79,82 @@ def _per_group(step, x, dt, A, B, C, chunk: int):
     return torch.cat(y, dim=3), torch.cat(states, dim=2), torch.cat(cum, 3)
 
 
-def _forward(operands, kernel: bool):
-    if kernel:
+def _meta_forward(xc, dtc, cum, bc, cc):
+    """The kernel's outputs on meta operands, and its cost: the causal
+    (l >= s) pairs of C.B^T once a chunk and of scores @ x, ~5 FLOP a
+    pair and head for the decay and mask, the per-head state product
+    (chip_smoke.py's ``time_ssd`` count); its operands read and outputs
+    written once."""
+    bb, nc, q, h, p = xc.shape
+    n = bc.shape[-1]
+    cells, pairs = bb * nc, q * (q + 1) // 2
+    meta.record("ssd", cells * (2 * pairs * n + h * (
+        2 * pairs * p + 5 * pairs + 2 * q * n * p)),
+        4 * cells * (2 * q * h * p + h * n * p + 2 * q * n + 2 * q * h))
+    return xc.new_empty(xc.shape), xc.new_empty((bb, nc, h, n, p))
+
+
+def _meta_backward(xc, dtc, cum, bc, cc, gy, gst):
+    """The backward kernel's gradients on meta operands, and its cost:
+    the FLOPs its grids issue (``kernel.bwd_issued_flops``), its
+    operands read and gradients written once."""
+    bb, nc, q, h, p = xc.shape
+    n = bc.shape[-1]
+    cells = bb * nc
+    meta.record("ssd_bwd", cells * K.bwd_issued_flops(q, h, p, n),
+                4 * cells * (3 * q * h * p + 4 * q * h + 4 * q * n
+                             + h * n * p))
+    return tuple(t.new_empty(t.shape) for t in (xc, dtc, cum, bc, cc))
+
+
+def _forward(operands, route: str):
+    if route == "kernel":
         return K.ssd_intra_chunk_kernel(*(_aligned(t) for t in operands))
+    if route == "meta":
+        return _meta_forward(*operands)
     return ref.ssd_intra_chunk_ref(*operands)
 
 
 class _SsdIntraChunk(torch.autograd.Function):
     """One group's intra-chunk step over its chunked fp32 operands (xc,
-    dtc, cum, bc, cc) with its backward pass: the kernels where
-    ``kernel``, else the plain versions."""
+    dtc, cum, bc, cc) with its backward pass, by ``route``: the kernels
+    (``"kernel"``), the plain versions (``"plain"``) or shapes and costs
+    only (``"meta"``)."""
 
     @staticmethod
-    def forward(ctx, xc, dtc, cum, bc, cc, kernel):
+    def forward(ctx, xc, dtc, cum, bc, cc, route):
         ctx.save_for_backward(xc, dtc, cum, bc, cc)
-        ctx.kernel = kernel
-        return _forward((xc, dtc, cum, bc, cc), kernel)
+        ctx.route = route
+        return _forward((xc, dtc, cum, bc, cc), route)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gy, gst):
         operands = (*ctx.saved_tensors, gy, gst)
-        if ctx.kernel:
+        if ctx.route == "kernel":
             grads = K.ssd_intra_chunk_bwd_kernel(
                 *(_aligned(t) for t in operands))
+        elif ctx.route == "meta":
+            grads = _meta_backward(*operands)
         else:
             grads = ref.ssd_intra_chunk_bwd_ref(*operands)
         return (*grads, None)
 
 
-def _step(kernel: bool):
+def _step(route: str):
     def step(x, dt, A, B, C, chunk):
         operands = _chunked(x, dt, A, B, C, chunk)
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in operands):
-            y, states = _SsdIntraChunk.apply(*operands, kernel)
+            y, states = _SsdIntraChunk.apply(*operands, route)
         else:
-            y, states = _forward(operands, kernel)
+            y, states = _forward(operands, route)
         return y, states, operands[2]
     return step
 
 
-_plain_step, _kernel_step = _step(False), _step(True)
+_plain_step, _kernel_step, _meta_step = \
+    _step("plain"), _step("kernel"), _step("meta")
 
 
 def _device_type(x: torch.Tensor) -> str:
@@ -139,7 +179,9 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dev = _device_type(x)
     if dev == "cpu":
         return ssd_intra_chunk_plain(x, dt, A, B, C, chunk=chunk)
+    if dev == "meta":
+        return _per_group(_meta_step, x, dt, A, B, C, chunk)
     if dev != "cuda":
-        raise ValueError(f"ssd_intra_chunk runs on cuda (kernel) or cpu "
-                         f"(plain version), not {dev}")
+        raise ValueError(f"ssd_intra_chunk runs on cuda (kernel), cpu "
+                         f"(plain version) or meta (shapes), not {dev}")
     return _per_group(_kernel_step, x, dt, A, B, C, chunk)

@@ -17,12 +17,18 @@ the plain backward (``swa_attention_bwd_plain``) on the CPU.  The
 backward is not itself differentiable (double backward raises), and
 forward-mode AD is not offered: no path returns a result detached from
 its inputs.
+
+Meta tensors (the dry-run's trace, ``repro_torch.launch.dryrun``) take
+a route of their own, forward and backward: outputs of the kernels'
+shapes and dtypes, and a ``kernels.meta.record`` of the FLOPs and bytes
+the kernels would spend on them; neither kernel nor plain version runs.
 """
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.swa import kernel as K
 from repro_torch.kernels.swa.ref import NEG_INF
 
@@ -129,7 +135,19 @@ def swa_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
             dv.to(v.dtype))
 
 
+def _band_pairs(s: int, window: int) -> int:
+    """(query, key) pairs in the causal band of ``window`` over ``s``
+    positions: sum of min(i + 1, window) for i < s."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
 def _forward(q, k, v, window, scale, softcap, block):
+    if q.device.type == "meta":
+        b, s, hq, d = q.shape
+        meta.record("swa", 4 * d * _band_pairs(s, window) * hq * b,
+                    q.element_size() * 2 * (q.numel() + k.numel()))
+        return q.new_empty(q.shape)
     if q.device.type == "cpu":
         return swa_attention_plain(q, k, v, window=window, scale=scale,
                                    softcap=softcap, block=block)
@@ -145,7 +163,7 @@ class _SwaAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, window, scale, softcap, block):
         lse = None
-        if q.device.type != "cpu" \
+        if q.device.type == "cuda" \
                 and K.bwd_route(q.dtype, q.shape[-1]) == "tc":
             o, lse = K.swa_attention_kernel(
                 *(t.contiguous() for t in (q, k, v)), window=window,
@@ -165,6 +183,11 @@ class _SwaAttention(torch.autograd.Function):
             grads = swa_attention_bwd_plain(q, k, v, o, do, window=window,
                                             scale=scale, softcap=softcap,
                                             block=block)
+        elif q.device.type == "meta":
+            b, s, hq, d = q.shape
+            meta.record("swa_bwd", 10 * d * _band_pairs(s, window) * hq * b,
+                        q.element_size() * 4 * (q.numel() + k.numel()))
+            grads = tuple(t.new_empty(t.shape) for t in (q, k, v))
         else:
             grads = K.swa_attention_bwd_kernel(
                 *(t.contiguous() for t in (q, k, v, o, do)), window=window,
@@ -185,9 +208,10 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     backward kernel on the card)."""
     _check(q, k, v, window)
     dev = q.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"swa_attention runs on cuda (kernel) or cpu "
-                         f"(plain version), not {dev.type}")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"swa_attention runs on cuda (kernel), cpu "
+                         f"(plain version) or meta (shapes), not "
+                         f"{dev.type}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _SwaAttention.apply(q, k, v, window, scale, softcap, block)

@@ -1,2 +1,4 @@
-"""Device meshes of the port: ``mesh.make_sweep_mesh``, the 1-D mesh
-that campaign point batches shard their lanes over."""
+"""Launch tooling of the port: device meshes and the card's constants
+(``mesh``), the abstract input and state specs of a cell (``specs``),
+the tuned presets (``presets``), collective and roofline arithmetic
+(``hlo_analysis``) and the multi-pod dry-run (``dryrun``)."""

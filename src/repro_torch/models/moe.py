@@ -17,6 +17,12 @@ The expert products run over the whole (groups, experts, capacity, d)
 slot tensor, its empty slots included, one expert at a time (each
 expert's weights cast to the compute dtype as it is used, so a layer
 never holds a second copy of all its experts).
+
+Routing groups are independent, so on DTensors the routing, the
+dispatch and the combine run on each device's shard of the groups
+(``sharding.local.on_local_shards``): DTensor has no sharding of a
+gather or scatter by computed index.  The expert products stay DTensor
+products, so their weight gathers are a traced step's collectives.
 """
 from __future__ import annotations
 
@@ -27,20 +33,24 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _act, _dense_init
+from repro_torch.sharding import logical_constraint
+from repro_torch.sharding.local import on_local_shards
 from repro_torch.types import Param
 
 MOE_GROUP = 512  # tokens per routing group
 
 
-def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_moe(gen: torch.Generator, cfg: ModelConfig,
+             dev: torch.device) -> dict:
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     return {
-        "router": Param(_dense_init(gen, (d, e), d), ("embed", "experts")),
-        "w_in": Param(_dense_init(gen, (e, d, ff), d),
+        "router": Param(_dense_init(gen, (d, e), d, dev),
+                        ("embed", "experts")),
+        "w_in": Param(_dense_init(gen, (e, d, ff), d, dev),
                       ("experts", "embed", "mlp")),
-        "w_gate": Param(_dense_init(gen, (e, d, ff), d),
+        "w_gate": Param(_dense_init(gen, (e, d, ff), d, dev),
                         ("experts", "embed", "mlp")),
-        "w_out": Param(_dense_init(gen, (e, ff, d), ff),
+        "w_out": Param(_dense_init(gen, (e, ff, d), ff, dev),
                        ("experts", "mlp", "embed")),
     }
 
@@ -92,6 +102,49 @@ def router_probs(params: dict, xg: torch.Tensor) -> torch.Tensor:
                          .to(torch.float32), dim=-1)
 
 
+def _dispatch(xg: torch.Tensor, probs: torch.Tensor, cfg: ModelConfig,
+              capacity: int):
+    """Route (g, t) tokens xg (g, t, d) by their probabilities and
+    gather each dispatched choice into its expert's capacity slot.
+    Returns (slots (g, E, capacity, d), zeros where no token landed;
+    each choice's slot index (g, t*k) into its own group's E*capacity
+    slots, so the indices hold on any shard of the groups; its fp32
+    combine weight (g, t*k), 0 where it was dropped)."""
+    g, t, d = xg.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    r = route(probs, cfg, capacity)
+    gate = r.gate.to(xg.dtype)
+    # dispatched: fits its expert and its gate survives the cast (the
+    # reference's ``combine > 0``); a choice that does not still holds
+    # its slot position
+    keep = r.fits & (gate > 0)
+    slot = r.expert * capacity + r.pos                       # (g, t, k)
+    per_group = e * capacity
+    grp = torch.arange(g, device=xg.device)[:, None, None]
+    n = g * per_group
+    # every choice is written: a dropped one to a spare row past the end
+    slots = xg.new_zeros((n + 1, d))
+    slots[torch.where(keep, grp * per_group + slot, n).reshape(-1)] = \
+        xg.reshape(g * t, d).repeat_interleave(k, dim=0)
+    w = torch.where(keep, gate.to(torch.float32), 0.0)
+    return (slots[:n].view(g, e, capacity, d),
+            slot.clamp_max(per_group - 1).reshape(g, t * k),
+            w.reshape(g, t * k))
+
+
+def _combine(out: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """Weighted scatter back: each token's k choices picked from its
+    group's expert outputs ``out`` (g, E, c, d) at ``slot`` (g, t*k) and
+    summed in fp32 with their weights ``w``, rounded once -> (g, t, d)."""
+    g, e, c, d = out.shape
+    grp = torch.arange(g, device=out.device)[:, None]
+    picked = out.reshape(g * e * c, d)[(grp * (e * c) + slot).reshape(-1)]
+    y = (picked.to(torch.float32) * w.reshape(-1)[:, None]) \
+        .view(g, -1, k, d).sum(2)
+    return y.to(out.dtype)
+
+
 def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               row_groups: bool = False) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d) in x's dtype.  The B*S tokens are
@@ -106,34 +159,30 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     c = _capacity(group, cfg)
 
-    xg = x.reshape(g, group, d)
-    r = route(router_probs(params, xg), cfg, c)
-    gate = r.gate.to(dt)
-    # dispatched: fits its expert and its gate survives the cast (the
-    # reference's ``combine > 0``); a choice that does not still holds
-    # its slot position
-    keep = (r.fits & (gate > 0)).reshape(-1)
-    grp = torch.arange(g, device=x.device)[:, None, None]
-    slot = ((grp * e + r.expert) * c + r.pos).reshape(-1)      # (g*t*k,)
-    src = torch.arange(tokens, device=x.device).repeat_interleave(k)
-    slots = x.new_zeros((g * e * c, d))
-    slots[slot[keep]] = x.reshape(tokens, d)[src[keep]]
-    slots = slots.view(g, e, c, d)
+    xg = logical_constraint(x.reshape(g, group, d),
+                            "act_batch", None, "act_embed")
+    slots, slot, w = on_local_shards(
+        _dispatch, (xg, router_probs(params, xg)), ((0,), (0,)),
+        ((0,), (0,), (0,)), cfg=cfg, capacity=c)
+    slots = logical_constraint(slots, "act_batch", "act_experts", None,
+                               "act_embed")
 
     act = _act(cfg.act)
-    out = torch.empty_like(slots)
+    outs = []
     for j in range(e):
-        xe = slots[:, j].reshape(g * c, d)
+        # contiguous, so each product is one matrix product over the
+        # groups (on a strided view matmul takes bmm with the weight
+        # expanded, read again for every group)
+        xe = slots[:, j].contiguous()                        # (g, c, d)
         h = act(xe @ params["w_in"][j].to(dt)) * (xe @ params["w_gate"][j]
                                                   .to(dt))
-        out[:, j] = (h @ params["w_out"][j].to(dt)).view(g, c, d)
+        h = logical_constraint(h, "act_batch", None, "act_mlp")
+        outs.append(h @ params["w_out"][j].to(dt))
     del slots
-
-    # weighted scatter back: each token's kept choices, summed in fp32
-    picked = out.view(g * e * c, d)[slot.clamp_max(g * e * c - 1)]
-    w = torch.where(keep, gate.reshape(-1).to(torch.float32), 0.0)
-    y = (picked.to(torch.float32) * w[:, None]).view(tokens, k, d).sum(1)
-    return y.to(dt).reshape(b, s, d)
+    out = torch.stack(outs, dim=1)                           # (g, E, c, d)
+    del outs
+    y = on_local_shards(_combine, (out, slot, w), ((0,),) * 3, ((0,),), k=k)
+    return y.reshape(b, s, d)
 
 
 def load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor,

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _dense_init
+from repro_torch.sharding import logical_constraint
 from repro_torch.types import Param
 
 RGLRU_C = 8.0
@@ -35,9 +36,9 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default
 
 
-def init_rglru(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_rglru(gen: torch.Generator, cfg: ModelConfig,
+               dev: torch.device) -> dict:
     d, w = cfg.d_model, cfg.rglru_width or cfg.d_model
-    dev = gen.device
     # Lambda init so that a = exp(-c*softplus(L)) is distributed in
     # (0.9, 0.999), the Griffin init range.
     u = torch.rand(w, generator=gen, device=dev) * (0.999 - 0.9) + 0.9
@@ -45,16 +46,16 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig) -> dict:
     conv_w = torch.randn((cfg.rglru_conv, w), generator=gen, device=dev) \
         * cfg.rglru_conv ** -0.5
     return {
-        "w_x": Param(_dense_init(gen, (d, w), d), ("embed", "rglru")),
-        "w_y": Param(_dense_init(gen, (d, w), d), ("embed", "rglru")),
+        "w_x": Param(_dense_init(gen, (d, w), d, dev), ("embed", "rglru")),
+        "w_y": Param(_dense_init(gen, (d, w), d, dev), ("embed", "rglru")),
         "conv_w": Param(conv_w, ("conv", "rglru")),
         "conv_b": Param(torch.zeros(w, device=dev), ("rglru",)),
-        "w_a": Param(_dense_init(gen, (w, w), w), ("rglru_in", "rglru")),
+        "w_a": Param(_dense_init(gen, (w, w), w, dev), ("rglru_in", "rglru")),
         "b_a": Param(torch.zeros(w, device=dev), ("rglru",)),
-        "w_i": Param(_dense_init(gen, (w, w), w), ("rglru_in", "rglru")),
+        "w_i": Param(_dense_init(gen, (w, w), w, dev), ("rglru_in", "rglru")),
         "b_i": Param(torch.zeros(w, device=dev), ("rglru",)),
         "lam": Param(lam, ("rglru",)),
-        "w_out": Param(_dense_init(gen, (w, d), w), ("rglru", "embed")),
+        "w_out": Param(_dense_init(gen, (w, d), w, dev), ("rglru", "embed")),
     }
 
 
@@ -113,9 +114,11 @@ def apply_rglru(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     gate = _gelu(x @ params["w_y"].to(dt))
     u_raw = x @ params["w_x"].to(dt)
     u = _causal_conv(u_raw, params["conv_w"].to(dt), params["conv_b"].to(dt))
+    u = logical_constraint(u, "act_batch", "act_seq", "act_rglru")
     a, b = _gates(params, u)
     h_all = linear_scan(a, b)
     y = h_all.to(dt) * gate
+    y = logical_constraint(y, "act_batch", "act_seq", "act_rglru")
     out = y @ params["w_out"].to(dt)
     if return_state:
         k = cfg.rglru_conv

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import _dense_init
+from repro_torch.sharding import logical_constraint
 from repro_torch.types import Param
 
 
@@ -30,15 +31,15 @@ def _conv_channels(cfg: ModelConfig) -> int:
     return cfg.ssm_d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
 
 
-def init_ssm(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_ssm(gen: torch.Generator, cfg: ModelConfig,
+             dev: torch.device) -> dict:
     d, di = cfg.d_model, cfg.ssm_d_inner
     h, n, g = cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_ngroups
     proj_out = 2 * di + 2 * g * n + h
-    dev = gen.device
     conv_w = torch.randn((cfg.ssm_conv, _conv_channels(cfg)), generator=gen,
                          device=dev) / math.sqrt(cfg.ssm_conv)
     return {
-        "in_proj": Param(_dense_init(gen, (d, proj_out), d),
+        "in_proj": Param(_dense_init(gen, (d, proj_out), d, dev),
                          ("embed", "ssm_inner")),
         "conv_w": Param(conv_w, ("conv", "ssm_inner")),
         "conv_b": Param(torch.zeros(_conv_channels(cfg), device=dev),
@@ -48,7 +49,7 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "dt_bias": Param(torch.zeros(h, device=dev), ("ssm_heads",)),
         "D": Param(torch.ones(h, device=dev), ("ssm_heads",)),
         "norm_scale": Param(torch.ones(di, device=dev), ("ssm_inner",)),
-        "out_proj": Param(_dense_init(gen, (di, d), di),
+        "out_proj": Param(_dense_init(gen, (di, d), di, dev),
                           ("ssm_inner", "embed")),
     }
 
@@ -120,12 +121,16 @@ def apply_ssm(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     C = xbc[..., di + g * n:].reshape(*xbc.shape[:2], g, n)
     h, p = cfg.ssm_nheads, cfg.ssm_head_dim
     xh = xs.reshape(*xs.shape[:2], h, p)
+    xh = logical_constraint(xh, "act_batch", "act_seq", "act_heads", None)
     dt = F.softplus(dtraw.to(torch.float32) + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     y, final_state = ssd_chunked(
         xh.to(torch.float32), dt, A, B.to(torch.float32),
         C.to(torch.float32), params["D"], chunk=cfg.ssm_chunk)
-    y = y.reshape(*xs.shape[:2], di).to(dt_)
+    # heads whole across the merge (and its gradient's split): a shard
+    # of d_inner need not hold whole heads
+    y = logical_constraint(y.reshape(*xs.shape[:2], di),
+                           "act_batch", "act_seq", None).to(dt_)
     # gated RMSNorm (mamba-2)
     y = y * F.silu(z)
     yf = y.to(torch.float32)

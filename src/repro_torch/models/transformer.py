@@ -32,6 +32,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.sharding import logical_constraint
 from repro_torch.types import (
     Param,
     is_param,
@@ -84,26 +85,25 @@ def _check_supported(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 # per-block init / apply
 # --------------------------------------------------------------------------
-def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, *,
-               decoder_cross: bool = False) -> dict:
-    dev = gen.device
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+               dev: torch.device, *, decoder_cross: bool = False) -> dict:
     if kind == "ssm":
         return {"norm1": L.init_norm(cfg, dev),
-                "ssm": ssm_mod.init_ssm(gen, cfg)}
+                "ssm": ssm_mod.init_ssm(gen, cfg, dev)}
     if kind == "rec":
         return {"norm1": L.init_norm(cfg, dev),
-                "rec": rglru_mod.init_rglru(gen, cfg),
+                "rec": rglru_mod.init_rglru(gen, cfg, dev),
                 "norm2": L.init_norm(cfg, dev),
-                "mlp": L.init_mlp(gen, cfg)}
+                "mlp": L.init_mlp(gen, cfg, dev)}
     if kind == "attn":
         p = {"norm1": L.init_norm(cfg, dev),
-             "attn": attn_mod.init_attention(gen, cfg),
+             "attn": attn_mod.init_attention(gen, cfg, dev),
              "norm2": L.init_norm(cfg, dev),
-             "mlp": (moe_mod.init_moe(gen, cfg) if cfg.num_experts
-                     else L.init_mlp(gen, cfg))}
+             "mlp": (moe_mod.init_moe(gen, cfg, dev) if cfg.num_experts
+                     else L.init_mlp(gen, cfg, dev))}
         if decoder_cross:
             p["norm_x"] = L.init_norm(cfg, dev)
-            p["xattn"] = attn_mod.init_attention(gen, cfg)
+            p["xattn"] = attn_mod.init_attention(gen, cfg, dev)
         return p
     raise _unported(f"block kind {kind!r}")
 
@@ -197,7 +197,9 @@ def apply_block_decode(params, x, cfg: ModelConfig, kind: str, cache, t, *,
 def _generator(key, device) -> torch.Generator:
     if isinstance(key, torch.Generator):
         return key
-    return torch.Generator(device=device).manual_seed(int(key))
+    # meta tensors are drawn from a CPU generator (no meta generator)
+    return torch.Generator(device="cpu" if device.type == "meta"
+                           else device).manual_seed(int(key))
 
 
 def stack_trees(trees: list):
@@ -222,17 +224,19 @@ def unstack(tree) -> list:
 
 
 def _stack_layers(gen: torch.Generator, cfg: ModelConfig, kind: str,
-                  n: int, *, decoder_cross: bool = False) -> dict:
+                  n: int, dev: torch.device, *,
+                  decoder_cross: bool = False) -> dict:
     """``n`` layers of one kind, initialised in order, their values
     written into preallocated stacked tensors one layer at a time (peak
     memory: the stack plus one layer, not two stacks)."""
-    blk = init_block(gen, cfg, kind, decoder_cross=decoder_cross)
+    blk = init_block(gen, cfg, kind, dev, decoder_cross=decoder_cross)
     stacked = tree_map(
         lambda p: Param(p.value.new_empty((n,) + p.value.shape),
                         ("layers",) + p.axes), blk, is_leaf=is_param)
     for i in range(n):
         if i:
-            blk = init_block(gen, cfg, kind, decoder_cross=decoder_cross)
+            blk = init_block(gen, cfg, kind, dev,
+                             decoder_cross=decoder_cross)
         tree_map(lambda dst, src: dst.value[i].copy_(src.value), stacked,
                  blk, is_leaf=is_param)
         del blk
@@ -240,32 +244,37 @@ def _stack_layers(gen: torch.Generator, cfg: ModelConfig, kind: str,
 
 
 def init_params(key, cfg: ModelConfig, *, device=None) -> dict:
-    """Param-wrapped model parameters, fp32, on ``device`` (``cuda`` when
-    None).  ``key`` is a ``torch.Generator`` or an int seed; the numbers
+    """Param-wrapped model parameters, fp32, on ``device`` (the
+    generator's device when ``key`` is a ``torch.Generator`` and
+    ``device`` is None, else ``cuda`` when None; ``"meta"`` gives shapes
+    and dtypes without storage, as ``launch.specs.abstract_params``
+    uses).  ``key`` is a ``torch.Generator`` or an int seed; the numbers
     differ from ``jax.random``'s — tests carry reference weights across
     with ``repro_torch.convert.model_tree``."""
     from repro_torch.utils.env import default_device
 
     _check_supported(cfg)
-    dev = default_device(device) if not isinstance(key, torch.Generator) \
-        else key.device
+    if device is None and isinstance(key, torch.Generator):
+        dev = key.device
+    else:
+        dev = default_device(device)
     gen = _generator(key, dev)
     pattern, n_full, rem = pattern_split(cfg)
-    p: dict = {"embed": L.init_embeddings(gen, cfg),
+    p: dict = {"embed": L.init_embeddings(gen, cfg, dev),
                "final_norm": L.init_norm(cfg, dev)}
     cross = cfg.is_encoder_decoder
     if n_full:
-        p["blocks"] = tuple(_stack_layers(gen, cfg, kind, n_full,
+        p["blocks"] = tuple(_stack_layers(gen, cfg, kind, n_full, dev,
                                           decoder_cross=cross)
                             for kind in pattern)
     if rem:
         p["rem"] = tuple(init_block(gen, cfg, pattern[j % len(pattern)],
-                                    decoder_cross=cross)
+                                    dev, decoder_cross=cross)
                          for j in range(rem))
     if cross:
         p["encoder"] = {
             "blocks": (_stack_layers(gen, cfg, "attn",
-                                     cfg.num_encoder_layers),),
+                                     cfg.num_encoder_layers, dev),),
             "final_norm": L.init_norm(cfg, dev)}
     return p
 
@@ -300,6 +309,7 @@ def _run_stack(params, x, cfg: ModelConfig, pattern, *, positions=None,
                                    enc_out=enc_out,
                                    collect_cache=collect_cache)
                 out.append(c)
+            x = logical_constraint(x, "act_batch", "act_seq", "act_embed")
             return x, out
 
         for i in range(n_layers):
@@ -331,6 +341,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = L.compute_dtype(cfg)
     pos = torch.arange(frames.shape[1], device=frames.device)
     x = frames.to(dt) + _sinusoid(pos, cfg.d_model).to(dt)
+    x = logical_constraint(x, "act_batch", "act_seq", "act_embed")
     x, _ = _run_stack(params["encoder"], x, cfg, ("attn",), positions=pos,
                       causal=False)
     return L.apply_norm(params["encoder"]["final_norm"], x, cfg)
@@ -388,5 +399,6 @@ def loss_fn(params, batch: dict, cfg: ModelConfig):
     logits = forward(params, batch, cfg, mode="train")
     labels = batch["labels"].to(logits.device)
     loss = L.cross_entropy(logits, labels)
-    acc = (logits.detach().argmax(dim=-1) == labels).to(torch.float32).mean()
+    acc = (L.argmax_vocab(logits.detach()) == labels).to(torch.float32) \
+        .mean()
     return loss, {"loss": loss, "accuracy": acc}

@@ -2,21 +2,26 @@
 ``repro.train.compress``).
 
     q     = round(g / scale),  scale = max|g| / 127   (per tensor)
-    g_hat = dequant(q)
+    g_hat = sum(q) * mean(scale) / n                   (int8 on the wire)
     e'    = g + e - dequant(q)                          (error feedback)
 
 Error feedback makes the compression unbiased over time: the
 quantization residual is added back into the next step's gradient.
 
-On one card no reduction axis is bound, so ``compressed_reduce`` is the
-quantize/dequantize round trip with error feedback — the reference's
-numerics outside ``shard_map``.  The int8 all-reduce over a bound group
-(the reference's ``psum`` of the int8 payload across pods) waits for the
-sharding slice (ROADMAP, Queue 1, item 9): passing ``group`` raises.
+``compressed_reduce`` works in two contexts, as the reference's does:
+
+* over a process group (``group=``, the reference's bound ``shard_map``
+  axis): it all-reduces the int8 payload widened to int32, the scales
+  and the count, and combines them with the reference's float32
+  operations in its order, ``qsum * (ssum / n) / n``, so the result is
+  bit-equal to the reference's ``psum``;
+* without one (one card) it is the quantize/dequantize round trip with
+  error feedback — the reference's numerics outside ``shard_map``.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.types import tree_flatten, tree_unflatten
 
@@ -36,23 +41,28 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def compressed_reduce(grads, ef, *, axis: str, group=None):
-    """Error-feedback int8 round trip of a gradient tree.
+    """Error-feedback int8 reduction of a gradient tree over ``group``
+    (a ``torch.distributed`` process group), or its round trip on one
+    device when ``group`` is None.
 
     Returns (reduced grads fp32, new error feedback).  ``axis`` names
-    the reduction axis as in the reference (unbound on one card);
-    ``group`` — a process group to all-reduce the int8 payload over —
-    is not supported yet."""
-    if group is not None:
-        raise NotImplementedError(
-            f"compressed_reduce over a bound group (axis {axis!r}) waits "
-            "for the sharding slice (ROADMAP, Queue 1, item 9: "
-            "sharding/specs.py); on one card pass no group")
+    the reduction axis as in the reference (the mesh axis ``group``
+    spans)."""
 
     def one(g, e):
         gf = g.to(torch.float32) + (e if e is not None else 0.0)
         q, scale = quantize(gf)
         deq = dequantize(q, scale)
-        return deq, gf - deq
+        if group is None:
+            return deq, gf - deq
+        # the int8 payload accumulated in int32, the scales, the count
+        qsum = q.to(torch.int32)
+        ssum = scale.clone()
+        count = torch.ones((), dtype=torch.int32, device=q.device)
+        for t in (qsum, ssum, count):
+            dist.all_reduce(t, group=group)
+        n = int(count)
+        return qsum.to(torch.float32) * (ssum / n) / n, gf - deq
 
     flat_g, treedef = tree_flatten(grads)
     flat_e = tree_flatten(ef)[0] if ef is not None else [None] * len(flat_g)

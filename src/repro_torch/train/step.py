@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import loss_fn
+from repro_torch.sharding import logical_constraint
 from repro_torch.train import compress as compress_mod
 from repro_torch.train.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.types import tree_flatten, tree_map, tree_unflatten
@@ -64,10 +65,17 @@ def grads_of(params, batch: dict, cfg: ModelConfig):
 
 
 def _split_microbatches(batch: dict, n: int) -> list[dict]:
+    """``n`` microbatches of contiguous rows, as the reference splits
+    them.  A DTensor batch is gathered whole once (DTensor cannot split
+    a sharded dim unevenly) and each microbatch sharded over the batch
+    axes again, so every device works on every microbatch."""
     def split(x):
         b = x.shape[0]
         assert b % n == 0, f"batch {b} not divisible by {n} microbatches"
-        return x.reshape(n, b // n, *x.shape[1:])
+        rest = (None,) * (x.dim() - 1)
+        x = logical_constraint(x, None, *rest)
+        return logical_constraint(x.reshape(n, b // n, *x.shape[1:]),
+                                  None, "act_batch", *rest)
 
     chunks = {k: split(v) for k, v in batch.items()}
     return [{k: v[i] for k, v in chunks.items()} for i in range(n)]

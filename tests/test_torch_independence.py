@@ -73,3 +73,28 @@ def test_address_tensor_is_int64_and_checks_40_bits():
         as_address_tensor([1 << 40], device="cpu")
     with pytest.raises(OverflowError, match="40-bit"):
         as_address_tensor([-1], device="cpu")
+
+
+_IMPORT_LAUNCH = """
+import os
+before = dict(os.environ)
+import torch.distributed as dist
+import repro_torch.launch.dryrun
+import repro_torch.sharding
+import repro_torch.sharding.local
+assert dict(os.environ) == before, sorted(
+    set(os.environ.items()) ^ set(before.items()))
+assert not dist.is_initialized()
+print("ok")
+"""
+
+
+def test_importing_the_dryrun_and_sharding_changes_no_state():
+    """The reference's dry-run sets XLA_FLAGS when imported; the port's
+    sets no environment variable and starts no process group."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_LAUNCH],
+                         env={"PYTHONPATH": str(SRC), "PATH": "",
+                              "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"

@@ -166,10 +166,23 @@ def test_grouped_intra_chunk_is_the_reference_op_per_group(bb, l, chunk, h,
                                    np.asarray(jcum), **TOL)
 
 
-def test_intra_chunk_runs_on_cuda_or_cpu_only():
+def test_intra_chunk_runs_on_cuda_or_cpu_only(monkeypatch):
+    """cuda runs the kernel, cpu the plain version; meta tensors (the
+    dry-run) only get the outputs' shapes and a cost record, with
+    neither run; any other device raises."""
+    from repro_torch.kernels import meta
+
     args = [torch.from_numpy(a).to("meta")
             for a in _inputs(1, 32, 2, 8, 16, seed=0)]
-    with pytest.raises(ValueError, match="cuda .* or cpu"):
+    monkeypatch.setattr(t_ops.ref, "ssd_intra_chunk_ref", None)
+    monkeypatch.setattr(t_kernel, "ssd_intra_chunk_kernel", None)
+    with meta.recording() as log:
+        y, states, cum = ssd_intra_chunk(*args, chunk=16)
+    assert (y.shape, states.shape, cum.shape) == (
+        (1, 2, 16, 2, 8), (1, 2, 2, 16, 8), (1, 2, 16, 2))
+    assert y.device.type == "meta" and [r[0] for r in log] == ["ssd"]
+    monkeypatch.setattr(t_ops, "_device_type", lambda t: "mps")
+    with pytest.raises(ValueError, match="cuda .* cpu .* or meta"):
         ssd_intra_chunk(*args, chunk=32)
 
 

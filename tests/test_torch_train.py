@@ -231,8 +231,20 @@ def test_compressed_reduce_error_feedback_matches_reference():
         for got, want in ((tout, jout), (tef, jef)):
             for a, b in zip(tree_leaves(got), jax.tree.leaves(want)):
                 np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    with pytest.raises(NotImplementedError, match="sharding"):
-        compressed_reduce(tout, tef, axis="pod", group=object())
+    # over a bound group of one rank the reduction is the round trip
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        gout, gef = compressed_reduce(tout, tef, axis="pod",
+                                      group=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    rout, ref_ef = compressed_reduce(tout, tef, axis="pod")
+    for got, want in ((gout, rout), (gef, ref_ef)):
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------
