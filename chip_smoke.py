@@ -1797,8 +1797,8 @@ def serve_swa_path(dev, arch: str) -> tuple[dict, dict]:
 
 
 def greedy_path(dev, arch: str, layers: int | None = None, *,
-                kv_cache_dtype: str | None = None,
-                splitk: tuple = ()) -> tuple[int, dict]:
+                kv_cache_dtype: str | None = None, splitk: tuple = (),
+                held_memory: bool = False) -> tuple[int, dict]:
     """One arch at full width (``layers`` cuts the depth), with the SWA
     launch counter at 0 before it: parameters from seed 0, one bf16
     prefill of 2048 tokens through the kernel (a VLM arch's prompt
@@ -1817,7 +1817,10 @@ def greedy_path(dev, arch: str, layers: int | None = None, *,
     tests/test_decode_opt.py's ``rel``, and where an fp32 greedy token
     differed the int8 values that kernel and plain quantised apart are
     counted before the check fails.  ``splitk`` shard counts run
-    ``splitk_decode`` on the bf16 greedy run's last decode step."""
+    ``splitk_decode`` on the bf16 greedy run's last decode step.  With
+    ``held_memory`` the profiled prefill and one decode step from its
+    caches have their own peak memory held against the dry-run's trace
+    (``hold_step_memory``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.swa import kernel as swa_kernel
     from repro_torch.kernels.swa import ops as swa_ops
@@ -1949,6 +1952,8 @@ def greedy_path(dev, arch: str, layers: int | None = None, *,
           f"{n_dec + 1} greedy tokens equal ({got_tokens}); bf16 logit gap "
           f"{bf16_gap:.3e}")
     kinds = {"swa": "swa_tc_kernel"}
+    memory = greedy_memory(arch, params, batch, cfg, cache_len) \
+        if held_memory else {}
     _, caches, t = prefill(params, batch, cfg, cache_len)
     tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
     ranges = ("moe",) if cfg.num_experts else ()
@@ -1968,7 +1973,37 @@ def greedy_path(dev, arch: str, layers: int | None = None, *,
                       "swa_max_abs_err": swa_worst,
                       "logits_fp32_max_abs_err": worst,
                       "logits_bf16_max_abs_err": bf16_gap,
-                      **int8, "profiled": profiled}
+                      **int8, "profiled": profiled,
+                      **({"step_memory": memory} if memory else {})}
+
+
+def greedy_memory(arch: str, params, batch, cfg, cache_len: int) -> dict:
+    """``hold_step_memory`` of a greedy run's prefill and of one decode
+    step from its caches (the decode step writes every cache anew, so
+    the trace holds them twice where the reference donates them)."""
+    from repro_torch.models import decode_step, prefill
+
+    t0 = time.perf_counter()
+    base = memory_base()
+    _, caches, t = prefill(params, batch, cfg, cache_len)
+    card_prefill = torch.cuda.max_memory_allocated() - base
+    tok = torch.zeros((1, 1), dtype=torch.int64,
+                      device=batch["tokens"].device)
+    base = memory_base()
+    decode_step(params, caches, tok, t, cfg)
+    card_decode = torch.cuda.max_memory_allocated() - base
+    del caches
+    meta_params, meta_batch = on_meta(params), on_meta(batch)
+    memory = {"prefill": hold_step_memory(
+        f"{arch} prefill 1 x {batch['tokens'].shape[1]}", card_prefill,
+        lambda p, b: prefill(p, b, cfg, cache_len), meta_params, meta_batch)}
+    _, meta_caches, _ = prefill(meta_params, meta_batch, cfg, cache_len)
+    memory["decode_step"] = hold_step_memory(
+        f"{arch} decode step at {t}", card_decode,
+        lambda p, c, k: decode_step(p, c, k, t, cfg), meta_params,
+        meta_caches, on_meta(tok))
+    print(f"  the memory checks took {time.perf_counter() - t0:.2f} s")
+    return memory
 
 
 def splitk_decode(params, cfg, last: dict, want_token: int,
@@ -2118,7 +2153,8 @@ def int8_kv_path(dev) -> tuple[int, dict]:
     32 query over 32 KV heads of 128, 6.9 G fp32 parameters) decoding
     from int8 caches with per-slot fp32 scales; the SWA launches of its
     prefill."""
-    launches, run = greedy_path(dev, "deepseek-7b", kv_cache_dtype="int8")
+    launches, run = greedy_path(dev, "deepseek-7b", kv_cache_dtype="int8",
+                                held_memory=True)
     return launches, {"deepseek-7b-int8": run,
                       "swa_max_abs_err": run["swa_max_abs_err"]}
 
@@ -2983,6 +3019,69 @@ TRAIN_TIMED_STEPS = 3
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GNORM_RTOL = 5e-2
 TRAIN_LEAF_RTOL = 5e-2      # ||g_kernel - g_plain|| / ||g_plain||, per leaf
+# the dry-run's memory analysis (launch.dryrun.step_memory: live storages
+# traced on meta tensors) against the caching allocator on the card: the
+# bytes allocated at once inside a step within 3% of the card's plus 256 MiB
+MEMORY_RTOL, MEMORY_ATOL = 0.03, 256 * 2**20
+
+
+def memory_base() -> int:
+    """Collect Python's cyclic garbage, reset the caching allocator's
+    peak and return the bytes it holds: a step's own peak is then
+    ``max_memory_allocated()`` less this.  Without the collection, tensors
+    an earlier step left in reference cycles (``types.tree_flatten``'s
+    recursive closure holds its leaves) are counted here and freed when
+    the collector runs inside the step: 9.9 GB of qwen2-0.5b's step
+    (scripts/step_memory_probe.py)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def on_meta(tree):
+    """Meta tensors of a tree's tensors' shapes and dtypes."""
+    from repro_torch.types import tree_map
+
+    return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def hold_step_memory(name: str, card: int, fn, *meta_args) -> dict:
+    """The dry-run's trace of ``fn(*meta_args)`` on meta tensors: the
+    most bytes live at once among the storages allocated inside it,
+    held against ``card``, the same step's own peak on the card (bytes);
+    raises beyond ``MEMORY_RTOL`` of ``card`` plus ``MEMORY_ATOL``."""
+    from repro_torch.launch.dryrun import step_memory
+
+    t0 = time.perf_counter()
+    _, memory = step_memory(fn, *meta_args)
+    traced = memory["peak_bytes"] - memory["argument_bytes"]
+    trace_s = time.perf_counter() - t0
+    bar = MEMORY_RTOL * card + MEMORY_ATOL
+    print(f"  {name}: bytes allocated at once inside the step, card "
+          f"(max_memory_allocated less memory_allocated before) {card:,}, "
+          f"traced on meta {traced:,}: {traced / card:.4f}x, off by "
+          f"{traced - card:+,} (bar {bar:,.0f}); trace {trace_s:.2f} s")
+    if abs(traced - card) > bar:
+        raise AssertionError(f"{name}: the traced peak {traced:,} bytes is "
+                             f"off the card's {card:,} by more than 3% + "
+                             "256 MiB")
+    return {"card_bytes": card, "traced_bytes": traced,
+            "ratio": traced / card, "trace_s": trace_s}
+
+
+def train_step_memory(name: str, cfg, step_fn, card: int, batch) -> dict:
+    """``hold_step_memory`` of a train step: ``step_fn`` on a fresh meta
+    train state of ``cfg`` and meta copies of ``batch``."""
+    from repro_torch.models import init_params
+    from repro_torch.train.step import init_train_state
+    from repro_torch.types import param_values
+
+    state = init_train_state(param_values(init_params(0, cfg,
+                                                      device="meta")))
+    return hold_step_memory(name, card, step_fn, state, on_meta(batch))
 
 
 def swa_bwd_bound(out: dict, b, s, hq, hkv, d, window, itemsize=2):
@@ -3386,24 +3485,32 @@ def train_path(dev) -> tuple[dict, dict]:
           f"max gap {max(gaps):.3e}")
     del broken
 
-    # step wall and tokens/s: steps 12.. of the unbroken run's state
+    # step wall and tokens/s: steps 12.. of the unbroken run's state; the
+    # first timed step's own peak memory against the dry-run's trace
     stream = SyntheticStream(cfg, b, s, seed=0, device=dev)
     step_fn = make_train_step(cfg, opt)
     state = whole.state
     walls = []
     for i in range(steps, steps + TRAIN_TIMED_STEPS):
         batch = stream.batch_at(i)
+        if i == steps:
+            base = memory_base()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         float(metrics["loss"])
         walls.append(time.perf_counter() - t0)
+        if i == steps:
+            card, first_batch = torch.cuda.max_memory_allocated() - base, \
+                batch
     wall = sorted(walls)[len(walls) // 2]
     split = train_step_split(step_fn, state, stream.batch_at(
         steps + TRAIN_TIMED_STEPS))
     print(f"  step wall {wall * 1e3:.1f} ms (median of "
           f"{TRAIN_TIMED_STEPS}: {[round(w * 1e3, 1) for w in walls]}), "
           f"{b * s / wall:.0f} tokens/s")
+    memory = train_step_memory(f"{TRAIN_ARCH} step {steps}", cfg, step_fn,
+                               card, first_batch)
     if split["device_ms"]:
         print(f"  profiled step: wall {split['wall_ms']:.1f} ms, device "
               f"{split['device_ms']:.1f} ms in {split['launches']} device "
@@ -3454,7 +3561,7 @@ def train_path(dev) -> tuple[dict, dict]:
         "losses": losses, "unbroken_losses": unbroken,
         "restarts": 1, "latest_step": last, "peak_gb": peak_gb,
         "step_wall_ms": wall * 1e3, "step_walls_ms": [w * 1e3 for w in walls],
-        "tokens_per_s": b * s / wall, "split": split,
+        "tokens_per_s": b * s / wall, "split": split, "step_memory": memory,
         "compare": {"loss": (loss_k, loss_p), "grad_norm": norms,
                     "worst_leaf_rel": leaf_rel},
         "broken_s": broken_s, "whole_s": whole_s, "phase_s": phase_s}
@@ -3734,7 +3841,8 @@ def train_ssm_path(dev) -> tuple[dict, dict]:
         "no plain SSD": plain_calls[0] == 0,
     }
 
-    # step wall and tokens/s: steps 8.. of the run's state
+    # step wall and tokens/s: steps 8.. of the run's state; the first
+    # timed step's own peak memory against the dry-run's trace
     stream = SyntheticStream(cfg, b, s, seed=0, device=dev)
     step_fn = make_train_step(cfg, opt)
     state = res.state
@@ -3742,17 +3850,24 @@ def train_ssm_path(dev) -> tuple[dict, dict]:
     walls = []
     for i in range(steps, steps + TRAIN_TIMED_STEPS):
         batch = stream.batch_at(i)
+        if i == steps:
+            base = memory_base()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         float(metrics["loss"])
         walls.append(time.perf_counter() - t0)
+        if i == steps:
+            card, first_batch = torch.cuda.max_memory_allocated() - base, \
+                batch
     wall = sorted(walls)[len(walls) // 2]
     split = train_step_split(step_fn, state, stream.batch_at(
         steps + TRAIN_TIMED_STEPS), SSD_KINDS)
     print(f"  step wall {wall * 1e3:.1f} ms (median of "
           f"{TRAIN_TIMED_STEPS}: {[round(w * 1e3, 1) for w in walls]}), "
           f"{b * s / wall:.0f} tokens/s")
+    memory = train_step_memory(f"{SSM_TRAIN_ARCH} step {steps}", cfg,
+                               step_fn, card, first_batch)
     if split["device_ms"]:
         print(f"  profiled step: wall {split['wall_ms']:.1f} ms, device "
               f"{split['device_ms']:.1f} ms in {split['launches']} device "
@@ -3851,7 +3966,7 @@ def train_ssm_path(dev) -> tuple[dict, dict]:
         "losses": losses, "peak_gb": peak_gb, "run_s": run_s,
         "step_wall_ms": wall * 1e3, "step_walls_ms": [w * 1e3 for w in walls],
         "tokens_per_s": b * s / wall, "split": split, "compare": compared,
-        "phase_s": phase_s}
+        "step_memory": memory, "phase_s": phase_s}
 
 
 QUICKSTART_STEPS = 20   # the reference quickstart's training steps

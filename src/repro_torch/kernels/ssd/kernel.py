@@ -31,6 +31,16 @@ def smem_bytes() -> dict[str, int]:
             "ssd_state_kernel": lib.ssd_smem_bytes(1)}
 
 
+def fwd_buffers(x: torch.Tensor, B: torch.Tensor):
+    """The forward's outputs for x (bb, nc, q, h, p) and B (bb, nc, q,
+    n): y_intra like x and the fp32 states (bb, nc, h, n, p), on x's
+    device.  The card wrapper and the meta route (``ops``) both
+    allocate them."""
+    bb, nc, _, h, p = x.shape
+    return torch.empty_like(x), torch.empty(
+        (bb, nc, h, B.shape[-1], p), dtype=torch.float32, device=x.device)
+
+
 def ssd_intra_chunk_kernel(x: torch.Tensor, dt: torch.Tensor,
                            cum: torch.Tensor, B: torch.Tensor,
                            C: torch.Tensor):
@@ -58,9 +68,7 @@ def ssd_intra_chunk_kernel(x: torch.Tensor, dt: torch.Tensor,
         raise ValueError("ssd_intra_chunk_kernel shapes: x (bb, nc, q, h, "
                          "p), dt/cum (bb, nc, q, h), B/C (bb, nc, q, n); "
                          f"got {[tuple(t.shape) for t in tensors]}")
-    y = torch.empty_like(x)
-    states = torch.empty((bb, nc, h, n, p), dtype=torch.float32,
-                         device=x.device)
+    y, states = fwd_buffers(x, B)
     if y.numel() == 0 or states.numel() == 0:
         return y, states
     lib = _build.library("ssd")
@@ -101,6 +109,16 @@ def bwd_plan(cells: int, q: int, h: int, p: int, n: int) -> dict:
                     "gcbp": (cells, groups, t * tiles, t * tiles),
                     "rowp": (cells, tiles, h, q), "colq": (cells, tiles, h, q),
                     "rbuf": (cells, h, q)}}
+
+
+def bwd_scratch(x: torch.Tensor, B: torch.Tensor) -> list[torch.Tensor]:
+    """The fp32 scratch of ``bwd_plan`` for x (bb, nc, q, h, p) and B
+    (bb, nc, q, n), on x's device.  The card wrapper and the meta route
+    (``ops``) both allocate it."""
+    bb, nc, q, h, p = x.shape
+    plan = bwd_plan(bb * nc, q, h, p, B.shape[-1])
+    return [torch.empty(shape, dtype=torch.float32, device=x.device)
+            for shape in plan["scratch"].values()]
 
 
 def bwd_issued_flops(q: int, h: int, p: int, n: int) -> int:
@@ -198,15 +216,12 @@ def ssd_intra_chunk_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
     grads = tuple(torch.empty_like(t) for t in (x, dt, cum, B, C))
     if x.numel() == 0 or B.numel() == 0:
         return tuple(g.zero_() for g in grads)
-    cells = bb * nc
-    plan = bwd_plan(cells, q, h, p, n)
-    scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
-               for shape in plan["scratch"].values()]
+    scratch = bwd_scratch(x, B)
     lib = _bwd_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_bwd_launch(
         *(t.data_ptr() for t in (*tensors, *grads, *scratch)),
-        cells, q, h, p, n, stream)
+        bb * nc, q, h, p, n, stream)
     _build.check(lib, "ssd_bwd", err)
     bwd_launches += 1
     return grads

@@ -20,9 +20,11 @@ gradients of dt and A through ``cum = cumsum(dt * A)`` and of the
 group slices and chunk reshapes are PyTorch autograd's.
 
 Meta tensors (the dry-run's trace, ``repro_torch.launch.dryrun``) take
-a route of their own, forward and backward: outputs of the kernels'
-shapes and dtypes, and a ``kernels.meta.record`` of the FLOPs and bytes
-the kernels would spend on them; neither kernel nor plain version runs.
+a route of their own, forward and backward: the operand copies, outputs
+and scratch the card wrappers allocate (``_aligned``,
+``kernel.fwd_buffers``, ``kernel.bwd_scratch``), and a
+``kernels.meta.record`` of the FLOPs and bytes the kernels would spend
+on them; neither kernel nor plain version runs.
 """
 from __future__ import annotations
 
@@ -56,9 +58,13 @@ def _chunked(x, dt, A, B, C, chunk: int):
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned (the kernel's cp.async loads)."""
+    """Contiguous and 16-byte aligned (the kernel's cp.async loads).  A
+    meta tensor has no address: its offset into a storage, which the
+    allocator aligns, stands for it."""
     x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
+    address = x.storage_offset() * x.element_size() \
+        if x.device.type == "meta" else x.data_ptr()
+    return x if address % 16 == 0 else x.clone()
 
 
 def _per_group(step, x, dt, A, B, C, chunk: int):
@@ -91,7 +97,7 @@ def _meta_forward(xc, dtc, cum, bc, cc):
     meta.record("ssd", cells * (2 * pairs * n + h * (
         2 * pairs * p + 5 * pairs + 2 * q * n * p)),
         4 * cells * (2 * q * h * p + h * n * p + 2 * q * n + 2 * q * h))
-    return xc.new_empty(xc.shape), xc.new_empty((bb, nc, h, n, p))
+    return K.fwd_buffers(xc, bc)
 
 
 def _meta_backward(xc, dtc, cum, bc, cc, gy, gst):
@@ -104,14 +110,16 @@ def _meta_backward(xc, dtc, cum, bc, cc, gy, gst):
     meta.record("ssd_bwd", cells * K.bwd_issued_flops(q, h, p, n),
                 4 * cells * (3 * q * h * p + 4 * q * h + 4 * q * n
                              + h * n * p))
-    return tuple(t.new_empty(t.shape) for t in (xc, dtc, cum, bc, cc))
+    grads = tuple(torch.empty_like(t) for t in (xc, dtc, cum, bc, cc))
+    K.bwd_scratch(xc, bc)             # allocated, freed on return
+    return grads
 
 
 def _forward(operands, route: str):
     if route == "kernel":
         return K.ssd_intra_chunk_kernel(*(_aligned(t) for t in operands))
     if route == "meta":
-        return _meta_forward(*operands)
+        return _meta_forward(*(_aligned(t) for t in operands))
     return ref.ssd_intra_chunk_ref(*operands)
 
 
@@ -135,7 +143,7 @@ class _SsdIntraChunk(torch.autograd.Function):
             grads = K.ssd_intra_chunk_bwd_kernel(
                 *(_aligned(t) for t in operands))
         elif ctx.route == "meta":
-            grads = _meta_backward(*operands)
+            grads = _meta_backward(*(_aligned(t) for t in operands))
         else:
             grads = ref.ssd_intra_chunk_bwd_ref(*operands)
         return (*grads, None)

@@ -38,6 +38,14 @@ PATHS = {torch.bfloat16: ("tc", "swa_tc_launch"),
 _lib: ctypes.CDLL | None = None
 
 
+def lse_buffer(q: torch.Tensor) -> torch.Tensor:
+    """The fp32 (B, Hq, S) log-sum-exp the tensor-core forward writes
+    with ``with_lse``, on q's device: what the card wrapper allocates
+    and the meta route (``ops``) allocates in its place."""
+    b, s, hq, _ = q.shape
+    return torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+
+
 def _library() -> ctypes.CDLL:
     """The loaded library, its launch functions' signatures set once."""
     global _lib
@@ -100,8 +108,7 @@ def swa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("swa_attention_kernel writes the log-sum-exp on the "
                         "bf16 tensor-core path only")
     out = torch.empty_like(q)
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) \
-        if with_lse else None
+    lse = lse_buffer(q) if with_lse else None
     if out.numel() == 0:
         return (out, lse) if with_lse else out
     lib = _library()
@@ -123,6 +130,22 @@ def swa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 bwd_launches = 0   # backward wrapper calls, in this process
 bwd_launches_by_path = {"tc": 0, "fma": 0}   # the same calls, by route
 STATS_ROWS = 64    # the tensor-core route's stats scratch pads S to this
+
+
+def bwd_scratch(q: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The fp32 scratch ``swa_attention_bwd_kernel`` allocates for
+    operands shaped like q (B, S, Hq, D), by ``bwd_route``: the
+    tensor-core route's rows' (lse, delta) padded to ``STATS_ROWS`` and
+    each query head's dK/dV share; the FMA route's rows' lse and delta.
+    The card wrapper and the meta route (``ops``) both allocate it."""
+    b, s, hq, d = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if bwd_route(q.dtype, d) == "tc":
+        sp = -(-s // STATS_ROWS) * STATS_ROWS
+        return {"stats": torch.empty((b, hq, sp, 2), **f32),
+                "part": torch.empty((2, b, s, hq, d), **f32)}
+    return {name: torch.empty((b, hq, s), **f32)
+            for name in ("lse_s", "delta")}
 
 
 def bwd_route(dtype: torch.dtype, d: int) -> str:
@@ -223,21 +246,18 @@ def swa_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
         return dq, dk, dv
     lib = _bwd_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    f32 = dict(dtype=torch.float32, device=q.device)
+    scratch = bwd_scratch(q)
     if route == "tc":
-        sp = -(-s // STATS_ROWS) * STATS_ROWS
-        stats = torch.empty((b, hq, sp, 2), **f32)
-        part = torch.empty((2, b, s, hq, d), **f32)
+        stats, part = scratch["stats"], scratch["part"]
         err = lib.swa_bwd_tc_launch(
             *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, stats,
                                      part)),
-            b, s, sp, hq, hkv, d, int(window), float(scale), float(softcap),
-            stream)
+            b, s, stats.shape[2], hq, hkv, d, int(window), float(scale),
+            float(softcap), stream)
     else:
-        lse_s, delta = (torch.empty((b, hq, s), **f32) for _ in range(2))
         err = lib.swa_bwd_fma_launch(
-            *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, lse_s,
-                                     delta)),
+            *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv,
+                                     scratch["lse_s"], scratch["delta"])),
             b, s, hq, hkv, d, int(window), float(scale), float(softcap),
             int(q.dtype == torch.bfloat16), stream)
     _build.check(lib, "swa_bwd", err)

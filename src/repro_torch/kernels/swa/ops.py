@@ -19,9 +19,11 @@ forward-mode AD is not offered: no path returns a result detached from
 its inputs.
 
 Meta tensors (the dry-run's trace, ``repro_torch.launch.dryrun``) take
-a route of their own, forward and backward: outputs of the kernels'
-shapes and dtypes, and a ``kernels.meta.record`` of the FLOPs and bytes
-the kernels would spend on them; neither kernel nor plain version runs.
+a route of their own, forward and backward: the operand copies, outputs
+and scratch the card wrappers allocate (the forward's lse saved as on
+the card; ``kernel.lse_buffer``, ``kernel.bwd_scratch``), and a
+``kernels.meta.record`` of the FLOPs and bytes the kernels would spend
+on them; neither kernel nor plain version runs.
 """
 from __future__ import annotations
 
@@ -142,18 +144,21 @@ def _band_pairs(s: int, window: int) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def _forward(q, k, v, window, scale, softcap, block):
+def _forward(q, k, v, window, scale, softcap, block, with_lse=False):
+    """The output, and with ``with_lse`` (not on the CPU) (output,
+    lse)."""
+    if q.device.type == "cpu":
+        return swa_attention_plain(q, k, v, window=window, scale=scale,
+                                   softcap=softcap, block=block)
+    q, k, v = (t.contiguous() for t in (q, k, v))
     if q.device.type == "meta":
         b, s, hq, d = q.shape
         meta.record("swa", 4 * d * _band_pairs(s, window) * hq * b,
                     q.element_size() * 2 * (q.numel() + k.numel()))
-        return q.new_empty(q.shape)
-    if q.device.type == "cpu":
-        return swa_attention_plain(q, k, v, window=window, scale=scale,
-                                   softcap=softcap, block=block)
-    return K.swa_attention_kernel(
-        *(t.contiguous() for t in (q, k, v)), window=window, scale=scale,
-        softcap=softcap)
+        o = torch.empty_like(q)
+        return (o, K.lse_buffer(q)) if with_lse else o
+    return K.swa_attention_kernel(q, k, v, window=window, scale=scale,
+                                  softcap=softcap, with_lse=with_lse)
 
 
 class _SwaAttention(torch.autograd.Function):
@@ -163,11 +168,10 @@ class _SwaAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, window, scale, softcap, block):
         lse = None
-        if q.device.type == "cuda" \
+        if q.device.type != "cpu" \
                 and K.bwd_route(q.dtype, q.shape[-1]) == "tc":
-            o, lse = K.swa_attention_kernel(
-                *(t.contiguous() for t in (q, k, v)), window=window,
-                scale=scale, softcap=softcap, with_lse=True)
+            o, lse = _forward(q, k, v, window, scale, softcap, block,
+                              with_lse=True)
         else:
             o = _forward(q, k, v, window, scale, softcap, block)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -183,15 +187,19 @@ class _SwaAttention(torch.autograd.Function):
             grads = swa_attention_bwd_plain(q, k, v, o, do, window=window,
                                             scale=scale, softcap=softcap,
                                             block=block)
-        elif q.device.type == "meta":
-            b, s, hq, d = q.shape
-            meta.record("swa_bwd", 10 * d * _band_pairs(s, window) * hq * b,
-                        q.element_size() * 4 * (q.numel() + k.numel()))
-            grads = tuple(t.new_empty(t.shape) for t in (q, k, v))
         else:
-            grads = K.swa_attention_bwd_kernel(
-                *(t.contiguous() for t in (q, k, v, o, do)), window=window,
-                scale=scale, softcap=softcap, lse=lse)
+            operands = tuple(t.contiguous() for t in (q, k, v, o, do))
+            if q.device.type == "meta":
+                b, s, hq, d = q.shape
+                meta.record("swa_bwd",
+                            10 * d * _band_pairs(s, window) * hq * b,
+                            q.element_size() * 4 * (q.numel() + k.numel()))
+                grads = tuple(torch.empty_like(t) for t in operands[:3])
+                K.bwd_scratch(operands[0])    # allocated, freed on return
+            else:
+                grads = K.swa_attention_bwd_kernel(
+                    *operands, window=window, scale=scale, softcap=softcap,
+                    lse=lse)
         return (*grads, None, None, None, None)
 
 

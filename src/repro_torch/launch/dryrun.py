@@ -12,8 +12,20 @@ rank's shards have the same shapes, so its local view is each device's.
 What a cell records (the reference's keys, per device):
 
 * ``memory``: ``argument_bytes`` and ``output_bytes``, exact from the
-  local shard shapes of the step's inputs and outputs.  There is no
-  compiler, so there are no temp bytes.
+  local shard shapes of the step's inputs and outputs; ``alias_bytes``,
+  the output bytes whose storage is an input's; ``temp_bytes``, defined
+  by the reference's identity: the step's traced peak of live bytes on
+  one device is ``argument_bytes + output_bytes + temp_bytes -
+  alias_bytes``.  The peak comes from ``step_memory``: the step's
+  arguments, live throughout, plus the most bytes live at once of the
+  storages its local ops allocate, each counted once, rounded up to the
+  CUDA caching allocator's 512-byte blocks and freed when its Python
+  object is finalised (meta storages die where the card's would).  The
+  kernels' meta routes allocate what their card wrappers allocate:
+  outputs, scratch and operand copies.  Autograd takes meta tensors for
+  subclasses and adds gradients out of place where the card adds them in
+  place (``at::isTensorSubclassLike``), so a peak on such an add reads
+  high; ``chip_smoke.py`` holds the trace to the card's allocator.
 * ``cost``: ``flops`` — every local matmul's FLOPs by
   ``torch.utils.flop_counter``'s formulas plus the kernels' (swa, ssd
   and their backward passes: their meta routes record what the kernels
@@ -57,6 +69,7 @@ import os
 import re
 import time
 import traceback
+import weakref
 
 import torch
 
@@ -136,15 +149,16 @@ def distribute(values, shardings, device_mesh):
             v, device_mesh, list(p)), values, shardings)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard, a plain tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def local_bytes(tree) -> int:
     """Bytes of every tensor of ``tree`` on one device: a DTensor's
     local shard, a plain tensor whole."""
-    total = 0
-    for t in tree_leaves(tree):
-        if isinstance(t, torch.Tensor):
-            t = t.to_local() if hasattr(t, "to_local") else t
-            total += t.numel() * t.element_size()
-    return total
+    return sum(t.numel() * t.element_size() for t in (
+        _local(x) for x in tree_leaves(tree) if isinstance(x, torch.Tensor)))
 
 
 # --------------------------------------------------------------------------
@@ -243,6 +257,90 @@ def _cost_mode():
     return CostMode()
 
 
+# --------------------------------------------------------------------------
+# live storage: the step's memory on one device
+# --------------------------------------------------------------------------
+ALLOC_BLOCK = 512   # the CUDA caching allocator rounds every block up to this
+
+
+def _blocks(nbytes: int) -> int:
+    return -(-nbytes // ALLOC_BLOCK) * ALLOC_BLOCK
+
+
+def _live_bytes_mode(inputs: dict, device: torch.device):
+    """A dispatch mode that counts the storages on ``device`` that the
+    local ops DTensor runs return, except ``inputs`` (id -> storage,
+    allocated before the step): each once, by its Python object, in
+    512-byte blocks, until that object is finalised; ``peak`` is the
+    most live at once."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class LiveBytes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.live = 0
+            self.peak = 0
+            self._held: dict = {}   # id(storage) -> [weakref, bytes counted]
+
+        def _free(self, key):
+            self.live -= self._held.pop(key)[1]
+
+        def _count(self, st):
+            key = id(st)
+            if key in inputs or st.device != device:
+                return
+            nbytes = _blocks(st.nbytes())
+            held = self._held.get(key)
+            if held is None:
+                self._held[key] = [weakref.ref(
+                    st, lambda _, key=key: self._free(key)), nbytes]
+                self.live += nbytes
+            elif held[1] != nbytes:        # a storage resized in place
+                self.live += nbytes - held[1]
+                held[1] = nbytes
+            self.peak = max(self.peak, self.live)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented      # let DTensor run; see its locals
+            out = func(*args, **(kwargs or {}))
+            for t in torch.utils._pytree.tree_leaves(out):
+                if isinstance(t, torch.Tensor) \
+                        and not isinstance(t, FakeTensor):
+                    self._count(t.untyped_storage())
+            return out
+
+    return LiveBytes()
+
+
+def step_memory(fn, *args):
+    """``fn(*args)`` with its memory on one device traced: (result,
+    {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
+    "peak_bytes"}).  ``peak_bytes`` is the arguments' bytes plus the
+    most bytes live at once of the storages allocated inside the step
+    (on the arguments' device, in the allocator's blocks);
+    ``temp_bytes`` closes the reference's identity ``peak_bytes ==
+    argument_bytes + output_bytes + temp_bytes - alias_bytes``.  A
+    DTensor counts its local shard."""
+    tensors = [_local(t) for t in tree_leaves(args)
+               if isinstance(t, torch.Tensor)]
+    device = tensors[0].device if tensors else torch.device("meta")
+    inputs = {id(st): st for st in (t.untyped_storage() for t in tensors)}
+    live = _live_bytes_mode(inputs, device)
+    with live:
+        result = fn(*args)
+    alias = sum(t.numel() * t.element_size() for t in (
+        _local(r) for r in tree_leaves(result) if isinstance(r, torch.Tensor))
+        if id(t.untyped_storage()) in inputs)
+    arg, out = local_bytes(args), local_bytes(result)
+    peak = arg + live.peak
+    return result, {"argument_bytes": arg, "output_bytes": out,
+                    "temp_bytes": peak - arg - out + alias,
+                    "alias_bytes": alias, "peak_bytes": peak}
+
+
 def model_flops(cfg, shape) -> float:
     """Analytic MODEL_FLOPS (6ND train, 2ND prefill, 2N/token decode)."""
     n = cfg.active_param_count()
@@ -289,12 +387,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
             t0 = time.perf_counter()
             step, args = build_step(cfg, shape, mesh.device_mesh,
                                     microbatches=microbatches)
-            out["memory"] = {"argument_bytes": local_bytes(args)}
             cost = _cost_mode()
             with meta.recording() as kernels, CommDebugMode() as comm, cost:
-                result = step(*args)
+                _, memory = step_memory(step, *args)
             out["trace_s"] = round(time.perf_counter() - t0, 2)
-            out["memory"]["output_bytes"] = local_bytes(result)
+            out["memory"] = {k: memory[k] for k in (
+                "argument_bytes", "output_bytes", "temp_bytes",
+                "alias_bytes")}
             out["dropped_axes"] = sorted(str(d) for d in rules.dropped)
     stats = collectives_from_trace(cost.collectives, n_devices=n_dev)
     if sum(stats.counts.values()) != comm.get_total_counts():
@@ -416,6 +515,7 @@ def main(argv=None) -> None:
                           f"mem={r['memory_s']:.4f}s "
                           f"coll={r['collective_s']:.4f}s "
                           f"args={out['memory']['argument_bytes'] / 2**30:.2f}"
+                          f"GiB temp={out['memory']['temp_bytes'] / 2**30:.1f}"
                           f"GiB collectives={sum(c['coll_counts'].values())}",
                           flush=True)
             _write(out, args.out)
