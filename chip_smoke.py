@@ -102,7 +102,15 @@ port's paths through them:
   backward in fp32 and in bf16;
 * the quickstart twin (``repro_torch.quickstart``) on the card: the
   paper numbers equal to the anchors, 20 training steps of qwen2's
-  reduced config through the swa kernels, four requests served.
+  reduced config through the swa kernels, four requests served;
+* the LLC replay kernels (``csrc/llc.cu``): ``llc_set_walk`` (behind
+  ``core.cache.simulate_segments``) and ``llc_lane_scan`` (behind
+  ``core.cache.segment_lane_scan``) held bit for bit to their plain
+  versions on seeded cases (hits, miss bits, state; two launches
+  bit-equal), timed on qwen2-0.5b's steady decode trace and Fig. 5's
+  whole frame; every path above that replays the LLC (the simulated
+  frame, Fig. 5 / 6, the lanes, the campaign, the farm, every serving
+  oracle) runs through them, their launches counted by phase.
 
 Before the paths it times every kernel beside its plain version, a
 PyTorch library call where one computes the same function, and its
@@ -123,6 +131,7 @@ non-zero and the last line is not printed.  Per-layer timings also go to
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -749,6 +758,319 @@ def check_ssd(dev) -> float:
               f"{g} groups of {hg} heads ({launched} launches): max abs err "
               f"by group {', '.join(f'{e:.2e}' for e in errs)}")
     return worst
+
+
+# (sets, ways, most arrivals a set, warm state): the set-walk cases,
+# seeded; ways 16 to 128 reach each of the kernel's wider way bounds (the
+# mixed-backend campaign runs 64 sets of up to 128 ways)
+LLC_WALKS = [(1, 1, 60, False), (8, 4, 40, True), (64, 8, 30, True),
+             (512, 8, 20, False), (4096, 8, 6, True), (16, 16, 24, True),
+             (4, 32, 40, True), (8, 64, 80, True), (64, 128, 160, True)]
+# (lane geometries (sets, ways, block bytes), segments, suffix, masked):
+# the lane-scan cases, planned by core.cache._lane_plan_tables over
+# seeded traces; 4,096 and 1,024 sets span several blocks of threads
+LLC_LANES = [
+    ([(4096, 8, 64), (1024, 16, 128), (256, 4, 32)], 100, "full", False),
+    ([(8, 8, 64), (4, 8, 128), (16, 4, 32)], 120, "full", False),
+    ([(16, 8, 64), (16, 4, 64)], 200, "one", False),
+    ([(64, 8, 64), (64, 8, 64), (64, 8, 64)], 150, "none", True),
+    ([(1, 2, 64), (1, 1, 32)], 60, "full", False),
+    ([(8, 16, 64), (4, 16, 64)], 80, "full", True),
+    ([(64, 128, 64), (64, 64, 64), (64, 40, 64)], 60, "full", True),
+]
+# the oracle whose steady decode trace times llc_set_walk: qwen2-0.5b's
+# in dense_path, over 4 admits of (2048, 32)
+LLC_ORACLE_ARCH = "qwen2-0.5b"
+
+
+def llc_cases(dev) -> tuple[list, list]:
+    """Seeded cases for the LLC kernels, tensors on ``dev``: set walks
+    (cold, and warm with ages over all of int32, so that they wrap) and
+    lane scans over random segment streams (every suffix mode, masked
+    lanes with masks 0, full and partial, one set)."""
+    from repro_torch.core.cache import _lane_plan_tables
+
+    rng = np.random.default_rng(28)
+    walks = []
+    for sets, ways, most, warm in LLC_WALKS:
+        per_set = rng.integers(0, most + 1, sets)
+        tags = rng.integers(-1, 8, (sets, ways)) if warm else \
+            np.full((sets, ways), -1)
+        age = rng.integers(-2**31, 2**31, (sets, ways)) if warm else \
+            np.zeros((sets, ways))
+        n = int(per_set.sum())
+        acc = rng.integers(1, 2**31 if warm else 64, n)
+        arrays = (tags.astype(np.int32), age.astype(np.int32),
+                  rng.integers(0, 8, n).astype(np.int32),
+                  acc.astype(np.int32), per_set,
+                  np.cumsum(per_set) - per_set)
+        walks.append({"name": f"{sets} sets x {ways} ways, {n} arrivals",
+                      "warm": warm,
+                      "args": tuple(torch.as_tensor(a, device=dev)
+                                    for a in arrays)})
+    lanes = []
+    for geos, n_seg, suffix, masked in LLC_LANES:
+        sets, ways, bbs = (np.asarray(v, np.int64) for v in zip(*geos))
+        n_lane = len(geos)
+        stride = rng.choice([s for s in (4, 8, 16, 32) if s <= bbs.min()],
+                            (n_lane, n_seg))
+        base = rng.integers(0, 512, (n_lane, n_seg)) * 16
+        count = rng.integers(0, 400, (n_lane, n_seg))
+        count[rng.random((n_lane, n_seg)) < 0.1] = 0
+        last = base + np.maximum(count - 1, 0) * stride
+        nb = np.where(count > 0, last // bbs[:, None] - base // bbs[:, None]
+                      + 1, 0)
+        r_needed = np.minimum(ways[:, None], -(-nb // sets[:, None]))
+        way_sels = None
+        if masked:
+            full = (1 << ways[:, None]) - 1
+            pick = rng.integers(0, 3, (n_lane, n_seg))
+            way_sels = np.where(pick == 0, 0, np.where(pick == 1, full,
+                                                       full >> 1 | 1))
+            r_needed = np.where(way_sels != 0, -(-nb // sets[:, None]),
+                                r_needed)
+        cold = rng.random((n_lane, n_seg)) < 0.2
+        r_pad = max(1, int(r_needed.max()))
+        table, rounds, geo, _ = _lane_plan_tables(
+            base, stride, count, r_needed, cold, sets, ways, bbs, way_sels,
+            r_pad=r_pad, suffix=suffix)
+        lanes.append({
+            "name": f"{n_lane} lanes x {n_seg} segments, suffix {suffix}"
+                    f"{', masked' if masked else ''}, r_pad {r_pad}",
+            "suffix": suffix, "masked": masked,
+            "max_sets": int(sets.max()),
+            "table": torch.as_tensor(table, device=dev),
+            "rounds": torch.as_tensor(rounds, device=dev),
+            "geo": torch.as_tensor(geo, device=dev),
+            "kw": dict(max_sets=int(sets.max()), max_ways=int(ways.max()),
+                       r_pad=r_pad, collect=True, suffix=suffix)})
+    return walks, lanes
+
+
+def llc_diff(got, want) -> float:
+    """Largest |difference| over the outputs of two LLC engine runs
+    (0.0 when bit-equal)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g is None and w is None:
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"llc: {g.dtype}{tuple(g.shape)} vs "
+                                 f"{w.dtype}{tuple(w.shape)}")
+        if not torch.equal(g, w):
+            worst = max(worst, float((g.double() - w.double()).abs().max()))
+    return worst
+
+
+def check_llc(dev) -> dict:
+    """Both LLC kernels against their plain versions on the card, bit for
+    bit in hits, miss bits and state, and two launches on the same inputs
+    bit-equal (``llc_cases``)."""
+    from repro_torch.kernels.llc import kernel as K
+    from repro_torch.kernels.llc import ops, ref
+
+    phase("llc kernels against their plain versions")
+    if K.built_max_ways() != K.MAX_WAYS:
+        raise AssertionError(f"llc.cu takes up to {K.built_max_ways()} ways,"
+                             f" kernel.MAX_WAYS says {K.MAX_WAYS}")
+    walks, lanes = llc_cases(dev)
+    worst = {"llc_set_walk": 0.0, "llc_lane_scan": 0.0}
+    for case in walks:
+        before = K.set_walk_launches
+        got = ops.set_walk(*case["args"])
+        again = ops.set_walk(*case["args"])
+        want = ref.set_walk_ref(*case["args"])
+        torch.cuda.synchronize()
+        if K.set_walk_launches != before + 2:
+            raise AssertionError("llc_set_walk did not launch")
+        for what, other in (("plain", want), ("a second launch", again)):
+            err = llc_diff(got, other)
+            if err:
+                raise AssertionError(f"llc_set_walk {case['name']}: off "
+                                     f"{what} by {err}")
+            worst["llc_set_walk"] = max(worst["llc_set_walk"], err)
+        print(f"  llc_set_walk {case['name']}"
+              f"{', warm' if case['warm'] else ''}: hits "
+              f"{int(got[0].sum())}, state and hits bit-equal to the plain "
+              "walk and across two launches")
+    for case in lanes:
+        args = (case["table"], case["rounds"], case["geo"])
+        before = K.lane_scan_launches
+        got = ops.lane_scan(*args, **case["kw"])
+        again = ops.lane_scan(*args, **case["kw"])
+        want = ref.lane_scan_ref(*args, **case["kw"])
+        torch.cuda.synchronize()
+        if K.lane_scan_launches != before + 2:
+            raise AssertionError("llc_lane_scan did not launch")
+        for what, other in (("plain", want), ("a second launch", again)):
+            err = llc_diff(got, other)
+            if err:
+                raise AssertionError(f"llc_lane_scan {case['name']}: off "
+                                     f"{what} by {err}")
+            worst["llc_lane_scan"] = max(worst["llc_lane_scan"], err)
+        print(f"  llc_lane_scan {case['name']}: round hits "
+              f"{int(got[0].sum())}, miss bits {int(got[1].sum())}, hits, "
+              "miss bits and state bit-equal to the plain scan and across "
+              "two launches")
+    return worst
+
+
+def llc_launches() -> dict:
+    from repro_torch.kernels.llc import kernel as K
+
+    return {"llc_set_walk": K.set_walk_launches,
+            "llc_lane_scan": K.lane_scan_launches}
+
+
+def llc_counted(by_path: dict, fn, *args):
+    """``fn(*args)``, a main-path phase, noting under its name in
+    ``by_path`` the LLC kernels' launches it made (none: left out)."""
+    before = llc_launches()
+    out = fn(*args)
+    made = {k: n - before[k] for k, n in llc_launches().items()
+            if n != before[k]}
+    if made:
+        by_path[fn.__name__] = made
+    return out
+
+
+def set_walk_bytes(args) -> int:
+    """Bytes a set walk must move once: the state read and written, the
+    arrivals (tag and count) and each set's count and start read, a hit
+    byte written an arrival."""
+    tags, _, tag_s, _, per_set, _ = args
+    return 4 * tags.numel() * 4 + tag_s.numel() * (4 + 4 + 1) \
+        + per_set.numel() * 16
+
+
+def lane_scan_bytes(args, kw) -> int:
+    """Bytes a lane scan must move once: the segment table, rounds and
+    geometries read, the state written, the round hits and (with
+    ``collect``) the miss bits written."""
+    table, rounds, geo = args
+    lanes, n_seg = table.shape[:2]
+    state = lanes * kw["max_ways"] * kw["max_sets"] * 8
+    miss = lanes * n_seg * kw["r_pad"] * kw["max_sets"] \
+        if kw.get("collect") else 0
+    return table.numel() * 8 + rounds.numel() * 4 + geo.numel() * 8 \
+        + state + lanes * n_seg * 8 + miss
+
+
+def plain_wall(fn) -> tuple:
+    """Wall time of one call of a plain version (ms), synchronised, and
+    what the call returned: the host issues its ops one by one and waits
+    on the device where it reads a value back, so the wall is its time.
+    One call, no warm-up: its ops are PyTorch's own, warm from the runs
+    before it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def time_llc(dev) -> dict:
+    """Both LLC kernels' card times at the main paths' shapes, beside
+    their bounds and the plain versions' times: ``llc_set_walk`` on the
+    qwen2-0.5b oracle's steady decode trace (the largest walk of
+    ``decode_step`` over 4 slots of 2048 tokens), ``llc_lane_scan`` on
+    Fig. 5's whole frame (``sweep_llc(window_bursts=None)``: 21
+    geometries in their lane buckets, each bucket one launch, timed as
+    one sequence).  The calls are captured as the engines make them.
+    No PyTorch call computes an LRU replay (``library_ms`` null)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sweep import sweep_llc
+    from repro_torch.kernels.llc import ops, ref
+    from repro_torch.models import decode_working_set
+    from repro_torch.serve import PagedKVCache, SoCLatencyOracle
+
+    phase("llc kernels: card time at the main paths' shapes")
+    walks, lanes = [], []
+    set_walk, lane_scan = ops.set_walk, ops.lane_scan
+
+    def walk_rec(*args):
+        walks.append(args)
+        return set_walk(*args)
+
+    def lane_rec(*args, **kw):
+        lanes.append((args, kw))
+        return lane_scan(*args, **kw)
+
+    run = swa_serve_runs()[LLC_ORACLE_ARCH]
+    ws = decode_working_set(get_config(LLC_ORACLE_ARCH))
+    kv = PagedKVCache(num_blocks=run["kv_blocks"], block_size=16,
+                      token_bytes=ws.kv_token_bytes)
+    for rid in range(4):
+        kv.admit(rid, run["lengths"][0], run["max_new"])
+    ops.set_walk, ops.lane_scan = walk_rec, lane_rec
+    try:
+        t0 = time.perf_counter()
+        SoCLatencyOracle(ws, weight_bytes=run["weight_bytes"],
+                         device=dev).decode_step(kv, [0, 1, 2, 3])
+        oracle_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sweep_llc(window_bursts=None, device=dev)
+        frame_s = time.perf_counter() - t0
+    finally:
+        ops.set_walk, ops.lane_scan = set_walk, lane_scan
+    out = {}
+    walk = max(walks, key=lambda a: a[2].numel())
+    nbytes = set_walk_bytes(walk)
+    depth = int(walk[4].max())
+    plain_ms, want = plain_wall(lambda: ref.set_walk_ref(*walk))
+    err = llc_diff(set_walk(*walk), want)
+    if err:
+        raise AssertionError(f"llc_set_walk on {LLC_ORACLE_ARCH}'s decode "
+                             f"trace: off the plain walk by {err}")
+    row = {"ms": queued_ms(lambda: set_walk(*walk), 10),
+           "plain_ms": plain_ms, "max_abs_err": err,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None, "bytes": nbytes, "arrivals": walk[2].numel(),
+           "sets": walk[0].shape[0], "ways": walk[0].shape[1],
+           "longest_walk": depth, "walks_in_decode_step": len(walks),
+           "decode_step_s": oracle_s}
+    out["llc_set_walk"] = row
+    print(f"  llc_set_walk, {LLC_ORACLE_ARCH} oracle's steady decode trace "
+          f"({len(walks)} walks in decode_step, {oracle_s:.2f} s; the "
+          f"largest: {row['arrivals']:,} arrivals over {row['sets']} sets x "
+          f"{row['ways']} ways, longest set walk {depth}): card "
+          f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({nbytes:,} bytes), plain {row['plain_ms']:.1f} ms; hits and "
+          f"state bit-equal to the plain walk (max |diff| {err})")
+
+    def frame():
+        for args, kw in lanes:
+            lane_scan(*args, **kw)
+
+    nbytes = sum(lane_scan_bytes(a, kw) for a, kw in lanes)
+    depth = max(int(a[1].sum()) for a, _ in lanes)
+    plain_ms, wants = plain_wall(
+        lambda: [ref.lane_scan_ref(*a, **kw) for a, kw in lanes])
+    err = 0.0
+    for (args, kw), want in zip(lanes, wants):
+        d = llc_diff(lane_scan(*args, **kw), want)
+        if d:
+            raise AssertionError(f"llc_lane_scan on Fig. 5's frame, "
+                                 f"{args[0].shape[0]} lanes of "
+                                 f"{kw['max_sets']} sets x {kw['max_ways']} "
+                                 f"ways: off the plain scan by {d}")
+        err = max(err, d)
+    row = {"ms": queued_ms(frame, 5), "plain_ms": plain_ms,
+           "max_abs_err": err,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None, "bytes": nbytes, "launches": len(lanes),
+           "lanes": sum(a[0].shape[0] for a, _ in lanes),
+           "segments": max(a[0].shape[1] for a, _ in lanes),
+           "longest_walk": depth, "sweep_llc_s": frame_s}
+    out["llc_lane_scan"] = row
+    print(f"  llc_lane_scan, Fig. 5's whole frame ({row['lanes']} lanes in "
+          f"{len(lanes)} launches, {row['segments']:,} segments; sweep_llc "
+          f"{frame_s:.2f} s; a thread walks up to {depth:,} rounds): card "
+          f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({nbytes:,} bytes), plain {row['plain_ms']:.1f} ms; every "
+          f"launch's hits, miss bits and state bit-equal to the plain scan "
+          f"(max |diff| {err})")
+    return out
 
 
 def frame_layers():
@@ -3028,13 +3350,14 @@ MEMORY_RTOL, MEMORY_ATOL = 0.03, 256 * 2**20
 def memory_base() -> int:
     """Collect Python's cyclic garbage, reset the caching allocator's
     peak and return the bytes it holds: a step's own peak is then
-    ``max_memory_allocated()`` less this.  Without the collection, tensors
-    an earlier step left in reference cycles (``types.tree_flatten``'s
-    recursive closure holds its leaves) are counted here and freed when
-    the collector runs inside the step: 9.9 GB of qwen2-0.5b's step
-    (scripts/step_memory_probe.py)."""
-    import gc
-
+    ``max_memory_allocated()`` less this.  The collection keeps the
+    bracket to the step's own tensors: whatever an earlier phase left in
+    reference cycles would be counted here and could be freed when the
+    collector runs inside the step.  A training step leaves none
+    (``train_path`` checks that a collection after its steps frees 0
+    bytes); before ``types.tree_flatten`` / ``tree_unflatten`` lost
+    their recursive closures, 9.9 GB of qwen2-0.5b's step were such
+    garbage (scripts/step_memory_probe.py)."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3503,6 +3826,15 @@ def train_path(dev) -> tuple[dict, dict]:
         if i == steps:
             card, first_batch = torch.cuda.max_memory_allocated() - base, \
                 batch
+    # what the steps left to Python's cyclic collector (memory_base
+    # collected before the first): nothing, since no tree walk holds its
+    # leaves in a reference cycle any more
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    gc_freed = held - torch.cuda.memory_allocated()
+    print(f"  gc.collect() after {TRAIN_TIMED_STEPS} steps freed "
+          f"{gc_freed:,} bytes of card memory")
+    checks["no tensor left in a reference cycle"] = gc_freed == 0
     wall = sorted(walls)[len(walls) // 2]
     split = train_step_split(step_fn, state, stream.batch_at(
         steps + TRAIN_TIMED_STEPS))
@@ -3562,6 +3894,7 @@ def train_path(dev) -> tuple[dict, dict]:
         "restarts": 1, "latest_step": last, "peak_gb": peak_gb,
         "step_wall_ms": wall * 1e3, "step_walls_ms": [w * 1e3 for w in walls],
         "tokens_per_s": b * s / wall, "split": split, "step_memory": memory,
+        "gc_freed_bytes": gc_freed,
         "compare": {"loss": (loss_k, loss_p), "grad_norm": norms,
                     "worst_leaf_rel": leaf_rel},
         "broken_s": broken_s, "whole_s": whole_s, "phase_s": phase_s}
@@ -4026,11 +4359,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     smi = setup()
+    from repro_torch.kernels.llc import kernel as llc_kernel
     errs = check_kernels(dev)
     errs["ssd"] = check_ssd(dev)
     errs["swa"] = check_swa(dev)
     timed_bwd = check_swa_bwd(dev)
     timed_ssd_bwd = check_ssd_bwd(dev)
+    errs.update(check_llc(dev))
     # the kernels' timings first: after the serving phases' long traces,
     # profiler windows missed kernels more often
     timed, rows = time_kernels(dev)
@@ -4039,24 +4374,33 @@ def main() -> int:
     timed["swa_archs"] = time_swa_archs(dev)
     timed["swa_bwd"] = timed_bwd
     timed["ssd_bwd"] = timed_ssd_bwd
-    train_launches, trained = train_path(dev)
-    ssm_launches, trained_ssm = train_ssm_path(dev)
-    quick_launches, quick = quickstart_path(dev)
-    res, launches, main_errs = main_path(dev)
-    engine_times = paper_chain(res, dev)
-    sim = sim_path(dev)
-    campaign = campaign_path(dev)
-    serve_launches, serve = serve_path(dev)
+    timed.update(time_llc(dev))
+    # the LLC kernels' main path: every phase from here to int8_kv_path,
+    # each phase's launches noted in llc_by_path
+    llc_kernel.set_walk_launches = llc_kernel.lane_scan_launches = 0
+    llc_by_path = {}
+    train_launches, trained = llc_counted(llc_by_path, train_path, dev)
+    ssm_launches, trained_ssm = llc_counted(llc_by_path, train_ssm_path, dev)
+    quick_launches, quick = llc_counted(llc_by_path, quickstart_path, dev)
+    res, launches, main_errs = llc_counted(llc_by_path, main_path, dev)
+    engine_times = llc_counted(llc_by_path, paper_chain, res, dev)
+    sim = llc_counted(llc_by_path, sim_path, dev)
+    campaign = llc_counted(llc_by_path, campaign_path, dev)
+    serve_launches, serve = llc_counted(llc_by_path, serve_path, dev)
     launches["ssd"] = serve_launches["ssd"] + ssm_launches["ssd"]
     launches["ssd_bwd"] = ssm_launches["ssd_bwd"]
     main_errs["ssd"] = serve["ssd_max_abs_err"]
-    rg_launches, serve_rg = serve_swa_path(dev, "recurrentgemma-9b")
-    farm = farm_path(dev)
-    dense_launches, dense = dense_path(dev)
-    moe_launches, moe = moe_path(dev)
-    encdec_launches, encdec = encdec_path(dev)
-    vlm_launches, vlm = vlm_path(dev)
-    int8_launches, int8 = int8_kv_path(dev)
+    rg_launches, serve_rg = llc_counted(llc_by_path, serve_swa_path, dev,
+                                        "recurrentgemma-9b")
+    farm = llc_counted(llc_by_path, farm_path, dev)
+    dense_launches, dense = llc_counted(llc_by_path, dense_path, dev)
+    moe_launches, moe = llc_counted(llc_by_path, moe_path, dev)
+    encdec_launches, encdec = llc_counted(llc_by_path, encdec_path, dev)
+    vlm_launches, vlm = llc_counted(llc_by_path, vlm_path, dev)
+    int8_launches, int8 = llc_counted(llc_by_path, int8_kv_path, dev)
+    launches.update(llc_launches())
+    print(f"llc launches on the main path: {llc_launches()}; by phase "
+          f"{json.dumps(llc_by_path)}")
     launches["swa"] = rg_launches["swa"] + dense_launches + moe_launches \
         + encdec_launches + vlm_launches + int8_launches \
         + train_launches["swa"] + quick_launches["swa"]
@@ -4068,6 +4412,8 @@ def main() -> int:
                            int8["swa_max_abs_err"])
     errs["swa_bwd"] = main_errs["swa_bwd"] = timed_bwd["max_abs_err"]
     errs["ssd_bwd"] = main_errs["ssd_bwd"] = timed_ssd_bwd["max_abs_err"]
+    for name in ("llc_set_walk", "llc_lane_scan"):
+        main_errs[name] = timed[name]["max_abs_err"]
     profiled = where_time_goes(dev)
 
     meta = {
@@ -4083,6 +4429,10 @@ def main() -> int:
                     "src/repro/models/attention.py:151"),
         "ssd_bwd": ("src/repro_torch/csrc/ssd_bwd.cu",
                     "src/repro/models/ssm.py:67"),
+        "llc_set_walk": ("src/repro_torch/csrc/llc.cu",
+                         "src/repro/core/cache.py:194"),
+        "llc_lane_scan": ("src/repro_torch/csrc/llc.cu",
+                          "src/repro/core/cache.py:484"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -4095,6 +4445,9 @@ def main() -> int:
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"]})
     for k in kernels:
+        if not k["launches"] > 0:
+            raise AssertionError(f"{k['name']} never launched on the main "
+                                 "path")
         for key in ("ms", "plain_ms", "bound_ms"):
             if not (isinstance(k[key], float) and math.isfinite(k[key])):
                 raise AssertionError(f"{k['name']} {key} = {k[key]!r}")
@@ -4107,7 +4460,7 @@ def main() -> int:
          "dense_path": dense, "moe_path": moe, "encdec_path": encdec,
          "vlm_path": vlm, "int8_kv_path": int8, "train_path": trained,
          "train_ssm_path": trained_ssm, "quickstart_path": quick,
-         "profiled": profiled,
+         "profiled": profiled, "llc_launches_by_path": llc_by_path,
          "timed": timed,
          "serve": serve, "serve_recurrentgemma": serve_rg}, indent=1))
     print(f"\nchip_smoke finished in {time.perf_counter() - t_start:.1f} s")

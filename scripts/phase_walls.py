@@ -1,21 +1,28 @@
 """Per-phase walls of ``chip_smoke.py``, for one or more checkouts in turns.
 
-    python scripts/phase_walls.py DIR [DIR ...]
+    python scripts/phase_walls.py [--phases NAME,NAME,...] DIR [DIR ...]
 
 Each ``DIR`` is a checkout of this repository (its own ``chip_smoke.py``
 and ``src/``).  For each, in the order given (list a checkout twice to
-interleave, e.g. ``old new new old``), a fresh process runs that
-checkout's ``chip_smoke.py`` phases that decode, route MoE layers and
-train, with their own checks:
+interleave, e.g. ``old new new old``), a fresh process builds that
+checkout's kernels and runs its ``chip_smoke.py`` phases named by
+``--phases``, in the order given, each with its own checks and anchors:
 
+* ``sim_path``: Fig. 5 over the whole frame, Fig. 6, the 24 interference
+  lanes, one lane's latencies, the FAME-1 pipeline (walls by step);
+* ``serve_path``: mamba2-130m serving; ``encdec_path``: whisper-tiny
+  serving; ``serve_qwen2``: qwen2-0.5b serving (``serve_swa_path``);
+  ``serve_recurrentgemma``: serving with rolling caches (model and
+  oracle walls each);
 * ``moe_path``: mixtral-8x7b serving (8 of 32 layers) and grok-1-314b's
   greedy prefill and decode steps (2 of 64 layers);
 * ``int8_kv_path``: deepseek-7b's greedy decode from int8 caches;
-* ``serve_swa_path("recurrentgemma-9b")``: serving with rolling caches;
 * ``train_path`` and ``train_ssm_path``: qwen2-0.5b's and mamba2-130m's
   training steps at full width.
 
-It prints each run's walls and writes them all to
+Without ``--phases`` it runs ``moe_path``, ``int8_kv_path``,
+``serve_recurrentgemma``, ``train_path`` and ``train_ssm_path``.  It
+prints each run's walls and writes them all to
 ``chiprun_out/phase_walls.json``.  Needs one CUDA card.
 """
 from __future__ import annotations
@@ -29,11 +36,50 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 TAG = "PHASE_WALLS "
+PHASES = ("sim_path", "serve_path", "encdec_path", "serve_qwen2",
+          "serve_recurrentgemma", "moe_path", "int8_kv_path", "train_path",
+          "train_ssm_path")
+DEFAULT_PHASES = ("moe_path", "int8_kv_path", "serve_recurrentgemma",
+                  "train_path", "train_ssm_path")
 
 
-def _child(tree: str) -> None:
-    """Run the phases of ``tree``'s chip_smoke.py and print their walls
-    on one line."""
+def _serving(split: dict) -> dict:
+    return {k: split[k] for k in ("wall_s", "model_s", "oracle_s")}
+
+
+def _phases(cs) -> dict:
+    """Each of ``PHASES``: (the chip_smoke.py call, the walls to keep of
+    what it returns)."""
+    return {
+        "sim_path": (cs.sim_path, lambda r: {"wall_s": r["wall_s"]}),
+        "serve_path": (cs.serve_path, lambda r: _serving(r[1])),
+        "encdec_path": (cs.encdec_path,
+                        lambda r: _serving(r[1]["whisper-tiny"])),
+        "serve_qwen2": (lambda dev: cs.serve_swa_path(dev, "qwen2-0.5b"),
+                        lambda r: _serving(r[1])),
+        "serve_recurrentgemma": (
+            lambda dev: cs.serve_swa_path(dev, "recurrentgemma-9b"),
+            lambda r: _serving(r[1])),
+        "moe_path": (cs.moe_path, lambda r: {
+            "mixtral": {**_serving(r[1]["mixtral-8x7b"]),
+                        "profiled_ms": {
+                            k: v["wall_ms"] for k, v in
+                            r[1]["mixtral-8x7b"]["profiled"].items()}},
+            "grok": {k: r[1]["grok-1-314b"][k]
+                     for k in ("prefill_s", "decode_step_s")}}),
+        "int8_kv_path": (cs.int8_kv_path, lambda r: {
+            k: r[1]["deepseek-7b-int8"][k]
+            for k in ("prefill_s", "decode_step_s")}),
+        "train_path": (cs.train_path, lambda r: {
+            k: r[1][k] for k in ("step_wall_ms", "step_walls_ms")}),
+        "train_ssm_path": (cs.train_ssm_path, lambda r: {
+            k: r[1][k] for k in ("step_wall_ms", "step_walls_ms")}),
+    }
+
+
+def _child(tree: str, names: list[str]) -> None:
+    """Run the named phases of ``tree``'s chip_smoke.py and print their
+    walls on one line."""
     os.chdir(tree)
     sys.path.insert(0, tree)
     import torch
@@ -44,42 +90,29 @@ def _child(tree: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cs.setup()
+    phases = _phases(cs)
     out: dict = {"tree": tree}
-
-    def timed(name, fn, *args):
+    for name in names:
+        fn, keep = phases[name]
         t0 = time.perf_counter()
-        res = fn(*args)
+        res = fn(dev)
         out[f"{name}_s"] = time.perf_counter() - t0
-        return res
-
-    _, moe = timed("moe_path", cs.moe_path, dev)
-    mix, grok = moe["mixtral-8x7b"], moe["grok-1-314b"]
-    out["mixtral"] = {k: mix[k] for k in ("wall_s", "model_s", "oracle_s")}
-    out["mixtral"]["profiled_ms"] = {k: v["wall_ms"] for k, v in
-                                     mix["profiled"].items()}
-    out["grok"] = {k: grok[k] for k in ("prefill_s", "decode_step_s")}
-    _, int8 = timed("int8_kv_path", cs.int8_kv_path, dev)
-    out["deepseek_int8"] = {k: int8["deepseek-7b-int8"][k]
-                            for k in ("prefill_s", "decode_step_s")}
-    _, rg = timed("serve_recurrentgemma", cs.serve_swa_path, dev,
-                  "recurrentgemma-9b")
-    out["recurrentgemma"] = {k: rg[k] for k in ("wall_s", "model_s",
-                                                 "oracle_s")}
-    _, tr = timed("train_path", cs.train_path, dev)
-    out["qwen2_train"] = {k: tr[k] for k in ("step_wall_ms",
-                                              "step_walls_ms")}
-    _, ssm = timed("train_ssm_path", cs.train_ssm_path, dev)
-    out["mamba2_train"] = {k: ssm[k] for k in ("step_wall_ms",
-                                                "step_walls_ms")}
+        out[name] = keep(res)
     print(TAG + json.dumps(out), flush=True)
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) >= 2 and argv[0] == "--child":
-        _child(os.path.abspath(argv[1]))
+    if len(argv) >= 3 and argv[0] == "--child":
+        _child(os.path.abspath(argv[1]), argv[2].split(","))
         return 0
-    if not argv:
-        print(__doc__, file=sys.stderr)
+    names = list(DEFAULT_PHASES)
+    if argv[:1] == ["--phases"] and len(argv) >= 2:
+        names = [n for n in argv[1].split(",") if n]
+        argv = argv[2:]
+    unknown = sorted(set(names) - set(PHASES)) if names else ["(none)"]
+    if not argv or unknown:
+        print(__doc__ + (f"\nunknown phases: {unknown}" if argv else ""),
+              file=sys.stderr)
         return 2
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -95,8 +128,8 @@ def main(argv: list[str]) -> int:
         t0 = time.perf_counter()
         with open(log, "w") as f:
             proc = subprocess.run(
-                [sys.executable, __file__, "--child", tree], stdout=f,
-                stderr=subprocess.STDOUT, timeout=1800)
+                [sys.executable, __file__, "--child", tree, ",".join(names)],
+                stdout=f, stderr=subprocess.STDOUT, timeout=1800)
         lines = [ln for ln in log.read_text().splitlines()
                  if ln.startswith(TAG)]
         if proc.returncode != 0 or not lines:
@@ -109,7 +142,7 @@ def main(argv: list[str]) -> int:
         runs.append(run)
         print(f"run {i}: {tree}\n  {json.dumps(run)}", flush=True)
     (out_dir / "phase_walls.json").write_text(json.dumps(
-        {"card": smi, "runs": runs}, indent=1))
+        {"card": smi, "phases": names, "runs": runs}, indent=1))
     return 0
 
 

@@ -18,6 +18,11 @@ execution paths, bit-identical in hit counts:
   leading *lane* dimension that carries one cache geometry per lane, so
   a whole Fig. 5 grid replays in one pass over the trace
   (``repro_torch.core.sweep.segment_lane_hit_counts``).
+
+The two engines plan on the host and replay on the device through
+``repro_torch.kernels.llc``: on a CUDA device each replay is one launch
+of a hand-written kernel (``csrc/llc.cu``: ``llc_set_walk``,
+``llc_lane_scan``), on the CPU the plain round loops.
 """
 from __future__ import annotations
 
@@ -26,9 +31,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.utils.env import as_address_tensor, default_device
-
-_IMAX = torch.iinfo(torch.int32).max
+from repro_torch.kernels.llc import kernel as llc_kernel
+from repro_torch.kernels.llc import ops as llc_ops
+from repro_torch.utils.address import fdiv, first_access, last_access
+from repro_torch.utils.env import check_address_range, default_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,22 +132,52 @@ class _TouchedBlocks:
 # --------------------------------------------------------------------------
 # segment-lane engine: geometry as per-lane operands
 # --------------------------------------------------------------------------
-def _fdiv(a, b):
-    """Floor division (the reference's ``//`` on signed operands)."""
-    return torch.div(a, b, rounding_mode="floor")
+def _lane_plan_tables(bases, strides, counts, r_needed, cold, sets, ways,
+                      block_bytes, way_sels=None, *, r_pad: int,
+                      suffix: str = "full"):
+    """``segment_lane_scan``'s host plan as the engine's operands: the
+    (L, S, len(FIELDS)) int64 segment table (``kernels.llc.kernel.FIELDS``:
+    block ranges, the round-scanned prefix and closed-form suffix split,
+    the timestamp counter, the allocation mask, 0 where unpartitioned),
+    the (S,) int32 round counts, the (L, 3) int64 geometries (sets, ways,
+    block bytes) and the (L, S) int64 suffix hits, which are known on the
+    host."""
+    sets_h = np.asarray(sets, np.int64)[:, None]
+    ways_h = np.asarray(ways, np.int64)[:, None]
+    bb_h = np.asarray(block_bytes, np.int64)[:, None]
+    n_lane = sets_h.shape[0]
+    shape = (n_lane, np.shape(counts)[-1])
+    base, stride, count = (np.broadcast_to(np.asarray(a, np.int64), shape)
+                           for a in (bases, strides, counts))
+    cold = np.broadcast_to(np.asarray(cold, bool), shape)
+    rounds = np.minimum(np.broadcast_to(r_needed, shape).max(axis=0), r_pad)
+    wsel = np.broadcast_to(np.asarray(0 if way_sels is None else way_sels,
+                                      np.int64), shape)
 
-
-def _first_access(blocks, base, stride, block_bytes):
-    """Index (within the segment) of the first access landing in each of
-    `blocks` (accesses are base + j*stride, j in [0, count))."""
-    lo = blocks * block_bytes - base
-    return torch.where(lo <= 0, 0, _fdiv(lo + stride - 1, stride))
-
-
-def _last_access(blocks, base, stride, count, block_bytes):
-    """Index of the last segment access landing in each of `blocks`."""
-    lo = blocks * block_bytes - base
-    return torch.minimum(count - 1, _fdiv(lo + block_bytes - 1, stride))
+    live = count > 0
+    b_first = base // bb_h
+    b_last = (base + (count - 1) * stride) // bb_h
+    n_blocks = np.where(live, b_last - b_first + 1, 0)
+    n_pre = np.where(cold, 0, np.minimum(n_blocks, ways_h * sets_h))
+    # a partitioned segment cannot use the suffix closed form (victims
+    # cycle within its mask, not all ways)
+    n_pre = np.where(wsel != 0, n_blocks, n_pre)
+    sb_first = b_first + n_pre
+    n_suf = np.maximum(n_blocks - n_pre, 0)
+    has_suf = (n_suf > 0) & (suffix != "none")
+    lo = sb_first * bb_h - base
+    first_suf = np.where(lo <= 0, 0, (lo + stride - 1) // stride)
+    j_split = np.where(has_suf, first_suf, count)
+    suf_hits = np.where(has_suf, (count - j_split) - n_suf, 0)
+    live_count = np.where(live, count, 0)
+    counter = np.cumsum(live_count, axis=1) - live_count
+    fields = dict(base=base, stride=stride, count=count, b_first=b_first,
+                  n_pre=n_pre, sb_first=sb_first, n_suf=n_suf,
+                  counter=counter, wsel=wsel)
+    table = np.stack([fields[f] for f in llc_kernel.FIELDS], axis=-1)
+    geo = np.concatenate([sets_h, ways_h, bb_h], axis=1)
+    return (table.astype(np.int64), rounds.astype(np.int32), geo,
+            suf_hits.astype(np.int64))
 
 
 def segment_lane_scan(bases, strides, counts, r_needed, cold,
@@ -213,160 +249,19 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
         raise ValueError(f"suffix must be 'full', 'one' or 'none', got "
                          f"{suffix!r}")
     dev = default_device(device)
-    sets_h = np.asarray(sets, np.int64)[:, None]
-    ways_h = np.asarray(ways, np.int64)[:, None]
-    bb_h = np.asarray(block_bytes, np.int64)[:, None]
-    n_lane = sets_h.shape[0]
-    shape = (n_lane, np.shape(counts)[-1])
-    base, stride, count = (np.broadcast_to(np.asarray(a, np.int64), shape)
-                           for a in (bases, strides, counts))
-    cold = np.broadcast_to(np.asarray(cold, bool), shape)
-    rounds = np.minimum(np.broadcast_to(r_needed, shape).max(axis=0), r_pad)
-    masked = way_sels is not None
+    table, rounds, geo, suf_hits = _lane_plan_tables(
+        bases, strides, counts, r_needed, cold, sets, ways, block_bytes,
+        way_sels, r_pad=r_pad, suffix=suffix)
+    for name, what in (("base", "segment base"),
+                       ("b_first", "segment first block"),
+                       ("sb_first", "segment suffix block")):
+        check_address_range(table[:, :, llc_kernel.FIELDS.index(name)], what)
+    round_hits, miss, tags, ts = llc_ops.lane_scan(
+        torch.as_tensor(table, device=dev), torch.as_tensor(rounds, device=dev),
+        torch.as_tensor(geo, device=dev), max_sets=max_sets,
+        max_ways=max_ways, r_pad=r_pad, collect=collect, suffix=suffix)
 
-    # host plan, (L, S) each
-    live = count > 0
-    b_first = base // bb_h
-    b_last = (base + (count - 1) * stride) // bb_h
-    n_blocks = np.where(live, b_last - b_first + 1, 0)
-    n_pre = np.where(cold, 0, np.minimum(n_blocks, ways_h * sets_h))
-    if masked:
-        wsel = np.broadcast_to(np.asarray(way_sels, np.int64), shape)
-        # a partitioned segment cannot use the suffix closed form
-        # (victims cycle within its mask, not all ways)
-        n_pre = np.where(wsel != 0, n_blocks, n_pre)
-    sb_first = b_first + n_pre
-    n_suf = np.maximum(n_blocks - n_pre, 0)
-    has_suf = (n_suf > 0) & (suffix != "none")
-    lo = sb_first * bb_h - base
-    first_suf = np.where(lo <= 0, 0, (lo + stride - 1) // stride)
-    j_split = np.where(has_suf, first_suf, count)
-    suf_hits = np.where(has_suf, (count - j_split) - n_suf, 0)
-    live_count = np.where(live, count, 0)
-    counter = np.cumsum(live_count, axis=1) - live_count
-
-    def per_segment(a, what=None):
-        """(L, S, ...) host table -> (S, L, ...) device tensor, a
-        trailing unit axis added to 2-d tables: row j is segment j's
-        per-lane column, a view."""
-        a = np.array(np.swapaxes(a, 0, 1))
-        if a.ndim == 2:
-            a = a[:, :, None]
-        if what is not None:
-            return as_address_tensor(a, device=dev, what=what)
-        return torch.as_tensor(a, device=dev)
-
-    base_d = per_segment(base, "segment base")
-    b_first_d = per_segment(b_first, "segment first block")
-    sb_first_d = per_segment(sb_first, "segment suffix block")
-    stride_d, count_d, n_pre_d, n_suf_d, counter_d = (
-        per_segment(a) for a in (stride, count, n_pre, n_suf, counter))
-
-    s_idx = torch.arange(max_sets, device=dev)
-    q_idx = torch.arange(max_ways, device=dev)
-    sets_d = torch.as_tensor(sets_h, device=dev)              # (L, 1)
-    ways_d = torch.as_tensor(ways_h, device=dev)[:, :, None]  # (L, 1, 1)
-    bb_d = torch.as_tensor(bb_h, device=dev)
-    set_mask = s_idx[None, :] < sets_d                        # (L, MS)
-    way_mask = (q_idx[None, :] < ways_d[:, :, 0])[:, :, None]  # (L, MW, 1)
-    if masked:
-        # per-segment allocation masks: the mask's bits limited to real
-        # ways; the zero sentinel allocates anywhere real
-        bits = (wsel[:, :, None] >> np.arange(max_ways)) & 1
-        alloc = (np.arange(max_ways) < ways_h[:, :, None]) & (
-            (wsel[:, :, None] == 0) | (bits != 0))
-        alloc_d = per_segment(alloc)[:, :, :, None]            # (S, L, MW, 1)
-    # [a, b]: way b precedes way a in a tie (stable oldest-first rank)
-    earlier_way = (q_idx[None, :] < q_idx[:, None])[None, :, :, None]
-    tags = torch.full((n_lane, max_ways, max_sets), -1, dtype=torch.int32,
-                      device=dev)
-    ts = torch.zeros_like(tags)
-    miss = (torch.zeros((n_lane, shape[1], r_pad, max_sets),
-                        dtype=torch.bool, device=dev) if collect else None)
-
-    hit_segs, hit_rows = [], []
-    for j in range(shape[1]):
-        if not live[:, j].any():
-            continue
-        base_j, stride_j, count_j = base_d[j], stride_d[j], count_d[j]
-        counter_j = counter_d[j]
-        if rounds[j] > 0:
-            b_first_j, n_pre_j = b_first_d[j], n_pre_d[j]
-            alloc_j = alloc_d[j] if masked else way_mask
-            off = torch.where(set_mask,
-                              torch.remainder(s_idx - b_first_j, sets_d), 0)
-            hits = torch.zeros(n_lane, dtype=torch.int64, device=dev)
-            for k in range(int(rounds[j])):
-                i = off + k * sets_d          # block ordinal within segment
-                v = set_mask & (i < n_pre_j)
-                blocks = b_first_j + i
-                t = _fdiv(blocks, sets_d).to(torch.int32)
-                j_lo = _first_access(blocks, base_j, stride_j, bb_d)
-                j_hi = _last_access(blocks, base_j, stride_j, count_j, bb_d)
-                # the touched way: a matching tag wins outright (key -1,
-                # unique per set), else the oldest way it may allocate
-                # into; the cumsum first-min mask is argmin's first-index
-                # tie-break
-                key = torch.where(tags == t[:, None, :], -1,
-                                  torch.where(alloc_j, ts, _IMAX))
-                kmin = key.amin(dim=1)
-                hit = kmin == -1
-                is_min = key == kmin[:, None, :]
-                first_min = (is_min.cumsum(dim=1) == 1) & is_min
-                touched = first_min & v[:, None, :]
-                tags = torch.where(touched, t[:, None, :], tags)
-                stamp = (counter_j + j_hi + 1).to(torch.int32)
-                ts = torch.where(touched, stamp[:, None, :], ts)
-                hits = hits + torch.where(v, j_hi - j_lo + hit, 0).sum(dim=1)
-                if collect:
-                    miss[:, j, k] = v & ~hit
-            hit_segs.append(j)
-            hit_rows.append(hits)
-        if not has_suf[:, j].any():
-            continue
-        # closed-form suffix: everything past the round-scanned prefix
-        # (the whole segment when cold)
-        sb_first_j, n_suf_j = sb_first_d[j], n_suf_d[j]
-        off_suf = torch.where(set_mask,
-                              torch.remainder(s_idx - sb_first_j, sets_d), 0)
-        victim_ts = torch.where(way_mask, ts, _IMAX)
-        if suffix == "one":
-            # at most one suffix block per set: it evicts the oldest way
-            # (min ts, first-index tie-break)
-            ins = set_mask & (off_suf < n_suf_j)
-            is_old = victim_ts == victim_ts.amin(dim=1, keepdim=True)
-            oldest = (is_old.cumsum(dim=1) == 1) & is_old
-            blk1 = sb_first_j + off_suf
-            t1 = _fdiv(blk1, sets_d).to(torch.int32)
-            ts1 = (counter_j + _last_access(blk1, base_j, stride_j, count_j,
-                                            bb_d) + 1).to(torch.int32)
-            wr = oldest & ins[:, None, :]
-            tags = torch.where(wr, t1[:, None, :], tags)
-            ts = torch.where(wr, ts1[:, None, :], ts)
-            continue
-        m_s = torch.where(off_suf < n_suf_j,
-                          _fdiv(n_suf_j - off_suf + sets_d - 1, sets_d), 0)
-        # each way's rank in oldest-first recency order (stable: ties
-        # break on way index)
-        vt_a, vt_b = victim_ts[:, :, None, :], victim_ts[:, None, :, :]
-        older = (vt_b < vt_a) | ((vt_b == vt_a) & earlier_way)
-        rank = older.sum(dim=2)
-        m3 = m_s[:, None, :]
-        jstar = m3 - torch.remainder(m3 - 1 - rank, ways_d)
-        valid_q = way_mask & (jstar >= 1) & set_mask[:, None, :]
-        sets3 = sets_d[:, :, None]
-        blk = sb_first_j[:, :, None] + off_suf[:, None, :] + (jstar - 1) * sets3
-        t_star = _fdiv(blk, sets3).to(torch.int32)
-        last = _last_access(blk, base_j[:, :, None], stride_j[:, :, None],
-                            count_j[:, :, None], bb_d[:, :, None])
-        ts_star = (counter_j[:, :, None] + last + 1).to(torch.int32)
-        tags = torch.where(valid_q, t_star, tags)
-        ts = torch.where(valid_q, ts_star, ts)
-
-    hits_out = suf_hits.astype(np.int64)
-    if hit_rows:
-        hits_out[:, hit_segs] += torch.stack(hit_rows, dim=1).cpu().numpy()
-    out = (hits_out,)
+    out = (suf_hits + round_hits.cpu().numpy(),)
     if collect:
         out += (miss.cpu().numpy(),)
     if return_state:
@@ -478,12 +373,12 @@ def simulate_segments(segments, cfg: LLCConfig, state=None, *,
                                                            count))
     comp_a = torch.as_tensor(compress, device=dev)[seg_of]
     block = torch.where(comp_a, col(b_first)[seg_of] + i,
-                        _fdiv(base_a + i * stride_a, bb))
+                        fdiv(base_a + i * stride_a, bb))
     acc = torch.where(comp_a,
-                      _last_access(block, base_a, stride_a, count_a, bb)
-                      - _first_access(block, base_a, stride_a, bb) + 1, 1)
+                      last_access(block, base_a, stride_a, count_a, bb)
+                      - first_access(block, base_a, stride_a, bb) + 1, 1)
     set_a = torch.remainder(block, sets)
-    tag_a = _fdiv(block, sets).to(torch.int32)
+    tag_a = fdiv(block, sets).to(torch.int32)
 
     # rank every arrival within its set; round r takes position
     # first[s] + r of the set-sorted order
@@ -491,24 +386,10 @@ def simulate_segments(segments, cfg: LLCConfig, state=None, *,
     per_set = torch.bincount(set_a, minlength=sets)
     first = torch.cumsum(per_set, 0) - per_set
     tag_s, acc_s = tag_a[order], acc[order].to(torch.int32)
-    hit_s = torch.zeros(n_total + 1, dtype=torch.bool, device=dev)
-    rounds = int(per_set.max()) if n_total else 0
-    for r in range(rounds):
-        pos = first + r
-        v = per_set > r
-        pick = torch.clamp(pos, max=n_total - 1)
-        t, a = tag_s[pick], acc_s[pick]
-        match = tags == t[:, None]
-        hit = match.any(dim=1)
-        score = torch.where(match, _IMAX, age)
-        is_max = score == score.amax(dim=1, keepdim=True)
-        touched = (is_max.cumsum(dim=1) == 1) & is_max & v[:, None]
-        tags = torch.where(touched, t[:, None], tags)
-        age = torch.where(v[:, None],
-                          torch.where(touched, 0, age + a[:, None]), age)
-        hit_s[torch.where(v, pos, n_total)] = hit & v
+    hit_s, tags, age = llc_ops.set_walk(tags, age, tag_s, acc_s, per_set,
+                                        first)
     hit_a = torch.empty(n_total, dtype=torch.bool, device=dev)
-    hit_a[order] = hit_s[:n_total]
+    hit_a[order] = hit_s
 
     seg_hits = torch.zeros(len(metas), dtype=torch.int64, device=dev)
     seg_hits.index_add_(0, seg_of, acc - 1 + hit_a.to(torch.int64))

@@ -28,7 +28,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.cache import LLCConfig, _fdiv
+from repro_torch.core.cache import LLCConfig
+from repro_torch.utils.address import fdiv
 from repro_torch.core.dram import DRAMConfig
 from repro_torch.core.fame1 import Component, FAME1Pipeline
 from repro_torch.utils.env import as_address_tensor, default_device
@@ -45,9 +46,9 @@ def llc_component(cfg: LLCConfig, *, device=None) -> Component:
 
     def step(state, addr):
         tags, age = state
-        block = _fdiv(addr, bb)
+        block = fdiv(addr, bb)
         s = torch.remainder(block, sets)
-        t = _fdiv(block, sets)
+        t = fdiv(block, sets)
         row_tags, row_age = tags[s], age[s]
         match = row_tags == t
         hit = match.any()
@@ -73,9 +74,9 @@ def dram_component(llc_cfg: LLCConfig, dram_cfg: DRAMConfig,
 
     def step(open_rows, tok):
         addr, hit = tok["addr"], tok["hit"]
-        row = _fdiv(addr, dram_cfg.row_bytes)
+        row = fdiv(addr, dram_cfg.row_bytes)
         bank = torch.remainder(row, banks)
-        row_of_bank = _fdiv(row, banks)
+        row_of_bank = fdiv(row, banks)
         row_hit = open_rows[bank] == row_of_bank
         dram_lat = torch.where(row_hit, dram_cfg.t_cas_cycles, t_miss)
         # a miss pays the LLC lookup AND the DRAM access

@@ -48,6 +48,35 @@ def param_values(tree):
     return tree_map(lambda p: p.value, tree, is_leaf=is_param)
 
 
+def _flatten(x, leaves: list, is_leaf):
+    """``tree_flatten``'s walk: appends ``x``'s leaves to ``leaves`` and
+    returns its structure.  A module-level function, not a closure that
+    refers to itself: such a closure's cell holds it and its list in a
+    reference cycle, and every leaf would live until Python's cyclic
+    collector ran."""
+    if is_leaf is not None and is_leaf(x):
+        leaves.append(x)
+        return "*"
+    if x is None:
+        return None
+    if isinstance(x, Param):
+        return ("param", x.axes, (_flatten(x.value, leaves, is_leaf),))
+    if isinstance(x, dict):
+        keys = sorted(x)
+        return ("dict", tuple(keys),
+                tuple(_flatten(x[k], leaves, is_leaf) for k in keys))
+    if isinstance(x, (tuple, list)):
+        return (type(x).__name__, None,
+                tuple(_flatten(v, leaves, is_leaf) for v in x))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        names = tuple(f.name for f in dataclasses.fields(x))
+        return (type(x), names,
+                tuple(_flatten(getattr(x, n), leaves, is_leaf)
+                      for n in names))
+    leaves.append(x)
+    return "*"
+
+
 def tree_flatten(tree, *, is_leaf: Callable | None = None) -> tuple[list, Any]:
     """Leaves of ``tree`` in JAX's order — dict keys sorted, tuples and
     lists in order, a dataclass's fields in declaration order (a
@@ -57,53 +86,34 @@ def tree_flatten(tree, *, is_leaf: Callable | None = None) -> tuple[list, Any]:
     indices, the optimizer's flat lists) uses this order, so a leaf's
     index is the reference's."""
     leaves: list = []
+    return leaves, _flatten(tree, leaves, is_leaf)
 
-    def walk(x):
-        if is_leaf is not None and is_leaf(x):
-            leaves.append(x)
-            return "*"
-        if x is None:
-            return None
-        if isinstance(x, Param):
-            return ("param", x.axes, (walk(x.value),))
-        if isinstance(x, dict):
-            keys = sorted(x)
-            return ("dict", tuple(keys), tuple(walk(x[k]) for k in keys))
-        if isinstance(x, (tuple, list)):
-            return (type(x).__name__, None, tuple(walk(v) for v in x))
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            names = tuple(f.name for f in dataclasses.fields(x))
-            return (type(x), names,
-                    tuple(walk(getattr(x, n)) for n in names))
-        leaves.append(x)
-        return "*"
 
-    return leaves, walk(tree)
+def _build(node, it):
+    """``tree_unflatten``'s walk: the tree of ``node`` with leaves taken
+    from the iterator ``it`` in order (module-level, as ``_flatten``)."""
+    if node is None:
+        return None
+    if node == "*":
+        return next(it)
+    kind, aux, children = node
+    values = [_build(c, it) for c in children]
+    if kind == "param":
+        return Param(values[0], aux)
+    if kind == "dict":
+        return dict(zip(aux, values))
+    if kind == "tuple":
+        return tuple(values)
+    if kind == "list":
+        return values
+    return kind(**dict(zip(aux, values)))
 
 
 def tree_unflatten(treedef, leaves) -> Any:
     """The tree of ``treedef`` (from ``tree_flatten``) with ``leaves``
     in its leaf order."""
     it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if node == "*":
-            return next(it)
-        kind, aux, children = node
-        values = [build(c) for c in children]
-        if kind == "param":
-            return Param(values[0], aux)
-        if kind == "dict":
-            return dict(zip(aux, values))
-        if kind == "tuple":
-            return tuple(values)
-        if kind == "list":
-            return values
-        return kind(**dict(zip(aux, values)))
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out

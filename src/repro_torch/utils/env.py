@@ -35,9 +35,15 @@ def as_address_tensor(x, *, device: str | torch.device,
     Values outside ``[0, 2**DRAM_ADDR_BITS)`` raise instead of being
     carried silently."""
     arr = np.asarray(x, np.int64)
+    check_address_range(arr, what)
+    return torch.as_tensor(arr, dtype=torch.int64, device=device)
+
+
+def check_address_range(arr: np.ndarray, what: str = "address") -> None:
+    """Raise ``OverflowError`` where an int array holds values outside
+    ``[0, 2**DRAM_ADDR_BITS)``."""
     if arr.size and (int(arr.min()) < 0
                      or int(arr.max()) >= 1 << DRAM_ADDR_BITS):
         raise OverflowError(
             f"{what} values outside the {DRAM_ADDR_BITS}-bit DRAM address "
             f"space [0, {1 << DRAM_ADDR_BITS:#x})")
-    return torch.as_tensor(arr, dtype=torch.int64, device=device)

@@ -340,6 +340,47 @@ def test_microbatch_equivalence():
                                    rtol=5e-2, atol=5e-3)
 
 
+def test_train_step_frees_its_tensors_without_the_cyclic_collector():
+    """A training step leaves no tensor in a reference cycle: with the
+    cyclic collector off, every tensor of the state it took and the
+    state and metrics it returned dies by reference counting at ``del``,
+    and a collection afterwards finds no tensor among the step's
+    unreachable objects (a step that left ~10 GB of qwen2-0.5b's tensors
+    to the collector, through ``types.tree_flatten``'s recursive
+    closure, failed both)."""
+    import gc
+    import weakref
+
+    cfg, params = _setup()
+    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                               decay_steps=10))
+    batch = make_batch(cfg, 4, 32, seed=3)
+    state, _ = step_fn(init_train_state(params), batch)
+    del params
+    gc.collect()
+    flags = gc.get_debug()
+    gc.disable()
+    try:
+        new_state, metrics = step_fn(state, batch)
+        tensors = [*tree_leaves(state.params), *tree_leaves(state.opt),
+                   *tree_leaves(new_state.params),
+                   *tree_leaves(new_state.opt), new_state.step,
+                   *metrics.values()]
+        assert all(isinstance(t, torch.Tensor) for t in tensors)
+        refs = [weakref.ref(t) for t in tensors]
+        del state, new_state, metrics, tensors
+        alive = sum(r() is not None for r in refs)
+        assert alive == 0, f"{alive} of {len(refs)} tensors outlive del"
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        cyclic = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+        assert not cyclic, f"{len(cyclic)} tensors in reference cycles"
+    finally:
+        gc.garbage.clear()
+        gc.set_debug(flags)
+        gc.enable()
+
+
 def test_quantize_roundtrip_error_bound():
     g = torch.from_numpy(np.random.default_rng(7).standard_normal(
         (257, 33)).astype(np.float32) * 0.01)
