@@ -105,10 +105,13 @@ port's paths through them:
   reduced config through the swa kernels, four requests served;
 * the LLC replay kernels (``csrc/llc.cu``): ``llc_set_walk`` (behind
   ``core.cache.simulate_segments``) and ``llc_lane_scan`` (behind
-  ``core.cache.segment_lane_scan``) held bit for bit to their plain
-  versions on seeded cases (hits, miss bits, state; two launches
-  bit-equal), timed on qwen2-0.5b's steady decode trace and Fig. 5's
-  whole frame; every path above that replays the LLC (the simulated
+  ``core.cache.segment_lane_scan_many``, every lane bucket of a call in
+  one launch) held bit for bit to their plain versions on seeded cases
+  (hits, miss bits, state; two launches bit-equal; buckets of 1, 16 and
+  4,096 sets in one launch), timed on qwen2-0.5b's steady decode trace
+  and Fig. 5's whole frame (one launch) with the time a step of the
+  longest chain and the SM clock; every path above that replays the LLC
+  (the simulated
   frame, Fig. 5 / 6, the lanes, the campaign, the farm, every serving
   oracle) runs through them, their launches counted by phase.
 
@@ -777,7 +780,13 @@ LLC_LANES = [
     ([(1, 2, 64), (1, 1, 32)], 60, "full", False),
     ([(8, 16, 64), (4, 16, 64)], 80, "full", True),
     ([(64, 128, 64), (64, 64, 64), (64, 40, 64)], 60, "full", True),
+    ([(1, 8, 64), (1, 4, 32)], 90, "one", False),
+    ([(4096, 12, 64), (4096, 8, 64)], 120, "full", True),
 ]
+# the one-launch case: LLC_LANES' cases of 1, 16 and 4,096 sets (suffixes
+# one, one and full; the last masked, of 12 and 8 ways) as the buckets of
+# one llc_lane_scan launch
+LLC_BUCKETS = [7, 2, 8]
 # the oracle whose steady decode trace times llc_set_walk: qwen2-0.5b's
 # in dense_path, over 4 admits of (2048, 32)
 LLC_ORACLE_ARCH = "qwen2-0.5b"
@@ -847,6 +856,13 @@ def llc_cases(dev) -> tuple[list, list]:
     return walks, lanes
 
 
+def lane_bucket(case) -> tuple:
+    """An ``llc_cases`` lane case as a bucket of ``ops.lane_scan_many``."""
+    kw = case["kw"]
+    return (case["table"], case["rounds"], case["geo"], kw["max_sets"],
+            kw["max_ways"], kw["r_pad"], kw["suffix"])
+
+
 def llc_diff(got, want) -> float:
     """Largest |difference| over the outputs of two LLC engine runs
     (0.0 when bit-equal)."""
@@ -873,6 +889,10 @@ def check_llc(dev) -> dict:
     if K.built_max_ways() != K.MAX_WAYS:
         raise AssertionError(f"llc.cu takes up to {K.built_max_ways()} ways,"
                              f" kernel.MAX_WAYS says {K.MAX_WAYS}")
+    if K.built_scan_threads() != K.SCAN_THREADS:
+        raise AssertionError(f"llc.cu's lane-scan blocks have "
+                             f"{K.built_scan_threads()} threads, the block "
+                             f"table assumes {K.SCAN_THREADS}")
     walks, lanes = llc_cases(dev)
     worst = {"llc_set_walk": 0.0, "llc_lane_scan": 0.0}
     for case in walks:
@@ -912,6 +932,30 @@ def check_llc(dev) -> dict:
               f"{int(got[0].sum())}, miss bits {int(got[1].sum())}, hits, "
               "miss bits and state bit-equal to the plain scan and across "
               "two launches")
+    # several lane buckets in one launch, each bucket's own plain scan
+    cases = [lanes[i] for i in LLC_BUCKETS]
+    buckets = [lane_bucket(c) for c in cases]
+    before = K.lane_scan_launches
+    got = ops.lane_scan_many(buckets, collect=True)
+    again = ops.lane_scan_many(buckets, collect=True)
+    torch.cuda.synchronize()
+    if K.lane_scan_launches != before + 2:
+        raise AssertionError("llc_lane_scan: a bucket set took more than one "
+                             "launch")
+    for case, g, a in zip(cases, got, again):
+        want = ref.lane_scan_ref(case["table"], case["rounds"], case["geo"],
+                                 **case["kw"])
+        for what, other in (("plain", want), ("a second launch", a)):
+            err = llc_diff(g, other)
+            if err:
+                raise AssertionError(f"llc_lane_scan, one launch of buckets "
+                                     f"of {[c['max_sets'] for c in cases]} "
+                                     f"sets, {case['name']}: off {what} by "
+                                     f"{err}")
+    print(f"  llc_lane_scan, one launch of {len(cases)} buckets of "
+          f"{[c['max_sets'] for c in cases]} sets: each bucket's hits, miss "
+          "bits and state bit-equal to its plain scan and across two "
+          "launches")
     return worst
 
 
@@ -969,15 +1013,38 @@ def plain_wall(fn) -> tuple:
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def sm_clock_mhz() -> float:
+    """The card's SM clock now (MHz), as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out)
+
+
+def lane_scan_depth(buckets) -> int:
+    """The longest thread's walk in one ``lane_scan_many`` launch: its
+    bucket's rounds plus its suffix inserts (a segment with suffix
+    blocks in any lane, unless the bucket's suffix is "none")."""
+    from repro_torch.kernels.llc.kernel import FIELDS
+
+    depth = 0
+    for table, rounds, _, _, _, _, suffix in buckets:
+        inserts = 0 if suffix == "none" else int(
+            (table[:, :, FIELDS.index("n_suf")] > 0).any(dim=0).sum())
+        depth = max(depth, int(rounds.sum()) + inserts)
+    return depth
+
+
 def time_llc(dev) -> dict:
     """Both LLC kernels' card times at the main paths' shapes, beside
-    their bounds and the plain versions' times: ``llc_set_walk`` on the
-    qwen2-0.5b oracle's steady decode trace (the largest walk of
-    ``decode_step`` over 4 slots of 2048 tokens), ``llc_lane_scan`` on
-    Fig. 5's whole frame (``sweep_llc(window_bursts=None)``: 21
-    geometries in their lane buckets, each bucket one launch, timed as
-    one sequence).  The calls are captured as the engines make them.
-    No PyTorch call computes an LRU replay (``library_ms`` null)."""
+    their bounds, the plain versions' times, the longest chain's time a
+    step and the SM clock: ``llc_set_walk`` on the qwen2-0.5b oracle's
+    steady decode trace (the largest walk of ``decode_step`` over 4
+    slots of 2048 tokens), ``llc_lane_scan`` on Fig. 5's whole frame
+    (``sweep_llc(window_bursts=None)``: 21 geometries in 8 lane buckets,
+    one launch).  The calls are captured as the engines make them.  No
+    PyTorch call computes an LRU replay (``library_ms`` null)."""
     from repro_torch.configs import get_config
     from repro_torch.core.sweep import sweep_llc
     from repro_torch.kernels.llc import ops, ref
@@ -985,16 +1052,16 @@ def time_llc(dev) -> dict:
     from repro_torch.serve import PagedKVCache, SoCLatencyOracle
 
     phase("llc kernels: card time at the main paths' shapes")
-    walks, lanes = [], []
-    set_walk, lane_scan = ops.set_walk, ops.lane_scan
+    walks, scans = [], []
+    set_walk, lane_scan_many = ops.set_walk, ops.lane_scan_many
 
     def walk_rec(*args):
         walks.append(args)
         return set_walk(*args)
 
-    def lane_rec(*args, **kw):
-        lanes.append((args, kw))
-        return lane_scan(*args, **kw)
+    def scan_rec(buckets, **kw):
+        scans.append((buckets, kw))
+        return lane_scan_many(buckets, **kw)
 
     run = swa_serve_runs()[LLC_ORACLE_ARCH]
     ws = decode_working_set(get_config(LLC_ORACLE_ARCH))
@@ -1002,7 +1069,7 @@ def time_llc(dev) -> dict:
                       token_bytes=ws.kv_token_bytes)
     for rid in range(4):
         kv.admit(rid, run["lengths"][0], run["max_new"])
-    ops.set_walk, ops.lane_scan = walk_rec, lane_rec
+    ops.set_walk, ops.lane_scan_many = walk_rec, scan_rec
     try:
         t0 = time.perf_counter()
         SoCLatencyOracle(ws, weight_bytes=run["weight_bytes"],
@@ -1012,7 +1079,7 @@ def time_llc(dev) -> dict:
         sweep_llc(window_bursts=None, device=dev)
         frame_s = time.perf_counter() - t0
     finally:
-        ops.set_walk, ops.lane_scan = set_walk, lane_scan
+        ops.set_walk, ops.lane_scan_many = set_walk, lane_scan_many
     out = {}
     walk = max(walks, key=lambda a: a[2].numel())
     nbytes = set_walk_bytes(walk)
@@ -1022,54 +1089,63 @@ def time_llc(dev) -> dict:
     if err:
         raise AssertionError(f"llc_set_walk on {LLC_ORACLE_ARCH}'s decode "
                              f"trace: off the plain walk by {err}")
-    row = {"ms": queued_ms(lambda: set_walk(*walk), 10),
-           "plain_ms": plain_ms, "max_abs_err": err,
+    ms = queued_ms(lambda: set_walk(*walk), 10)
+    row = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
            "library_ms": None, "bytes": nbytes, "arrivals": walk[2].numel(),
            "sets": walk[0].shape[0], "ways": walk[0].shape[1],
-           "longest_walk": depth, "walks_in_decode_step": len(walks),
-           "decode_step_s": oracle_s}
+           "longest_walk": depth, "ns_per_step": ms * 1e6 / depth,
+           "sm_clock_mhz": sm_clock_mhz(), "launches": 1,
+           "walks_in_decode_step": len(walks), "decode_step_s": oracle_s}
     out["llc_set_walk"] = row
     print(f"  llc_set_walk, {LLC_ORACLE_ARCH} oracle's steady decode trace "
           f"({len(walks)} walks in decode_step, {oracle_s:.2f} s; the "
           f"largest: {row['arrivals']:,} arrivals over {row['sets']} sets x "
           f"{row['ways']} ways, longest set walk {depth}): card "
-          f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"{row['ms']:.4f} ms ({row['ns_per_step']:.1f} ns a step at "
+          f"{row['sm_clock_mhz']:.0f} MHz), bound {row['bound_ms']:.4f} ms "
           f"({nbytes:,} bytes), plain {row['plain_ms']:.1f} ms; hits and "
           f"state bit-equal to the plain walk (max |diff| {err})")
 
-    def frame():
-        for args, kw in lanes:
-            lane_scan(*args, **kw)
-
-    nbytes = sum(lane_scan_bytes(a, kw) for a, kw in lanes)
-    depth = max(int(a[1].sum()) for a, _ in lanes)
-    plain_ms, wants = plain_wall(
-        lambda: [ref.lane_scan_ref(*a, **kw) for a, kw in lanes])
+    if len(scans) != 1:
+        raise AssertionError(f"Fig. 5's frame took {len(scans)} lane-scan "
+                             "calls, not one")
+    buckets, kw = scans[0]
+    kw = dict(kw, host=False)
+    nbytes = sum(lane_scan_bytes(b[:3], dict(
+        max_sets=b[3], max_ways=b[4], r_pad=b[5],
+        collect=kw.get("collect"))) for b in buckets)
+    depth = lane_scan_depth(buckets)
+    plain_ms, wants = plain_wall(lambda: [ref.lane_scan_ref(
+        table, rounds, geo, max_sets=max_sets, max_ways=max_ways,
+        r_pad=r_pad, collect=kw.get("collect", False), suffix=suffix)
+        for table, rounds, geo, max_sets, max_ways, r_pad, suffix in buckets])
     err = 0.0
-    for (args, kw), want in zip(lanes, wants):
-        d = llc_diff(lane_scan(*args, **kw), want)
+    for b, got, want in zip(buckets, lane_scan_many(buckets, **kw), wants):
+        d = llc_diff(got, want)
         if d:
             raise AssertionError(f"llc_lane_scan on Fig. 5's frame, "
-                                 f"{args[0].shape[0]} lanes of "
-                                 f"{kw['max_sets']} sets x {kw['max_ways']} "
-                                 f"ways: off the plain scan by {d}")
+                                 f"{b[0].shape[0]} lanes of {b[3]} sets x "
+                                 f"{b[4]} ways: off the plain scan by {d}")
         err = max(err, d)
-    row = {"ms": queued_ms(frame, 5), "plain_ms": plain_ms,
-           "max_abs_err": err,
+    ms = queued_ms(lambda: lane_scan_many(buckets, **kw), 5)
+    row = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "library_ms": None, "bytes": nbytes, "launches": len(lanes),
-           "lanes": sum(a[0].shape[0] for a, _ in lanes),
-           "segments": max(a[0].shape[1] for a, _ in lanes),
-           "longest_walk": depth, "sweep_llc_s": frame_s}
+           "library_ms": None, "bytes": nbytes, "launches": 1,
+           "buckets": len(buckets),
+           "lanes": sum(b[0].shape[0] for b in buckets),
+           "segments": max(b[0].shape[1] for b in buckets),
+           "longest_walk": depth, "ns_per_step": ms * 1e6 / depth,
+           "sm_clock_mhz": sm_clock_mhz(), "sweep_llc_s": frame_s}
     out["llc_lane_scan"] = row
     print(f"  llc_lane_scan, Fig. 5's whole frame ({row['lanes']} lanes in "
-          f"{len(lanes)} launches, {row['segments']:,} segments; sweep_llc "
-          f"{frame_s:.2f} s; a thread walks up to {depth:,} rounds): card "
-          f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({nbytes:,} bytes), plain {row['plain_ms']:.1f} ms; every "
-          f"launch's hits, miss bits and state bit-equal to the plain scan "
-          f"(max |diff| {err})")
+          f"{len(buckets)} buckets, one launch, {row['segments']:,} "
+          f"segments; sweep_llc {frame_s:.2f} s; the longest thread walks "
+          f"{depth:,} rounds and suffix inserts): card {row['ms']:.4f} ms "
+          f"({row['ns_per_step']:.1f} ns a step at {row['sm_clock_mhz']:.0f}"
+          f" MHz), bound {row['bound_ms']:.4f} ms ({nbytes:,} bytes), plain "
+          f"{row['plain_ms']:.1f} ms; every bucket's hits, miss bits and "
+          f"state bit-equal to the plain scan (max |diff| {err})")
     return out
 
 
@@ -4444,6 +4520,9 @@ def main() -> int:
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"]})
+        if "ns_per_step" in tm:  # the LLC walks: the chain's step, the clock
+            kernels[-1].update(ns_per_step=tm["ns_per_step"],
+                               sm_clock_mhz=tm["sm_clock_mhz"])
     for k in kernels:
         if not k["launches"] > 0:
             raise AssertionError(f"{k['name']} never launched on the main "

@@ -18,7 +18,14 @@ checkout's kernels and runs its ``chip_smoke.py`` phases named by
   greedy prefill and decode steps (2 of 64 layers);
 * ``int8_kv_path``: deepseek-7b's greedy decode from int8 caches;
 * ``train_path`` and ``train_ssm_path``: qwen2-0.5b's and mamba2-130m's
-  training steps at full width.
+  training steps at full width;
+* ``time_llc``: the LLC kernels' card times at the main paths' shapes
+  (``llc_set_walk`` on qwen2-0.5b's decode trace, ``llc_lane_scan`` on
+  Fig. 5's whole frame, launches as the tree makes them);
+* ``llc_wide``: the LLC kernels' card times on ``llc_cases``' 64- and
+  128-way set walks and its 128 / 64 / 40-way lane batch.
+
+Beside each phase it reads the SM clock (``nvidia-smi``).
 
 Without ``--phases`` it runs ``moe_path``, ``int8_kv_path``,
 ``serve_recurrentgemma``, ``train_path`` and ``train_ssm_path``.  It
@@ -38,13 +45,34 @@ ROOT = Path(__file__).resolve().parents[1]
 TAG = "PHASE_WALLS "
 PHASES = ("sim_path", "serve_path", "encdec_path", "serve_qwen2",
           "serve_recurrentgemma", "moe_path", "int8_kv_path", "train_path",
-          "train_ssm_path")
+          "train_ssm_path", "time_llc", "llc_wide")
+LLC_KEYS = ("ms", "plain_ms", "launches", "longest_walk", "ns_per_step",
+            "sm_clock_mhz")
 DEFAULT_PHASES = ("moe_path", "int8_kv_path", "serve_recurrentgemma",
                   "train_path", "train_ssm_path")
 
 
 def _serving(split: dict) -> dict:
     return {k: split[k] for k in ("wall_s", "model_s", "oracle_s")}
+
+
+def _llc_wide(cs, dev) -> dict:
+    """Card times (ms) of ``llc_cases``' set walks of 64 and 128 ways and
+    its lane batch of 128 / 64 / 40 ways, through the tree's ops."""
+    from repro_torch.kernels.llc import ops
+
+    walks, lanes = cs.llc_cases(dev)
+    out = {}
+    for case in walks:
+        if case["args"][0].shape[1] >= 64:
+            out[f"set_walk {case['name']}"] = cs.queued_ms(
+                lambda: ops.set_walk(*case["args"]), 10)
+    for case in lanes:
+        if case["kw"]["max_ways"] >= 64:
+            args = (case["table"], case["rounds"], case["geo"])
+            out[f"lane_scan {case['name']}"] = cs.queued_ms(
+                lambda: ops.lane_scan(*args, **case["kw"]), 10)
+    return out
 
 
 def _phases(cs) -> dict:
@@ -74,7 +102,18 @@ def _phases(cs) -> dict:
             k: r[1][k] for k in ("step_wall_ms", "step_walls_ms")}),
         "train_ssm_path": (cs.train_ssm_path, lambda r: {
             k: r[1][k] for k in ("step_wall_ms", "step_walls_ms")}),
+        "time_llc": (cs.time_llc, lambda r: {
+            name: {k: row[k] for k in LLC_KEYS if k in row}
+            for name, row in r.items()}),
+        "llc_wide": (lambda dev: _llc_wide(cs, dev), lambda r: r),
     }
+
+
+def _sm_clock_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0])
 
 
 def _child(tree: str, names: list[str]) -> None:
@@ -97,6 +136,7 @@ def _child(tree: str, names: list[str]) -> None:
         t0 = time.perf_counter()
         res = fn(dev)
         out[f"{name}_s"] = time.perf_counter() - t0
+        out[f"{name}_sm_clock_mhz"] = _sm_clock_mhz()
         out[name] = keep(res)
     print(TAG + json.dumps(out), flush=True)
 

@@ -180,6 +180,25 @@ def _lane_plan_tables(bases, strides, counts, r_needed, cold, sets, ways,
             suf_hits.astype(np.int64))
 
 
+@dataclasses.dataclass(frozen=True)
+class LaneBatch:
+    """One lane batch of the segment-lane engine: ``segment_lane_scan``'s
+    arguments (its docstring says what each is)."""
+    bases: object
+    strides: object
+    counts: object
+    r_needed: object
+    cold: object
+    sets: object
+    ways: object
+    block_bytes: object
+    way_sels: object = None
+    max_sets: int = 1
+    max_ways: int = 1
+    r_pad: int = 1
+    suffix: str = "full"
+
+
 def segment_lane_scan(bases, strides, counts, r_needed, cold,
                       sets, ways, block_bytes, way_sels=None, *,
                       max_sets: int, max_ways: int, r_pad: int,
@@ -245,28 +264,73 @@ def segment_lane_scan(bases, strides, counts, r_needed, cold,
     final ``(tags, ts)``, (L, max_ways, max_sets) int32 each — the
     reference's per-lane layout.
     """
-    if suffix not in ("full", "one", "none"):
-        raise ValueError(f"suffix must be 'full', 'one' or 'none', got "
-                         f"{suffix!r}")
-    dev = default_device(device)
-    table, rounds, geo, suf_hits = _lane_plan_tables(
-        bases, strides, counts, r_needed, cold, sets, ways, block_bytes,
-        way_sels, r_pad=r_pad, suffix=suffix)
-    for name, what in (("base", "segment base"),
-                       ("b_first", "segment first block"),
-                       ("sb_first", "segment suffix block")):
-        check_address_range(table[:, :, llc_kernel.FIELDS.index(name)], what)
-    round_hits, miss, tags, ts = llc_ops.lane_scan(
-        torch.as_tensor(table, device=dev), torch.as_tensor(rounds, device=dev),
-        torch.as_tensor(geo, device=dev), max_sets=max_sets,
-        max_ways=max_ways, r_pad=r_pad, collect=collect, suffix=suffix)
+    return segment_lane_scan_many(
+        [LaneBatch(bases, strides, counts, r_needed, cold, sets, ways,
+                   block_bytes, way_sels, max_sets=max_sets,
+                   max_ways=max_ways, r_pad=r_pad, suffix=suffix)],
+        collect=collect, return_state=return_state, device=device)[0]
 
-    out = (suf_hits + round_hits.cpu().numpy(),)
-    if collect:
-        out += (miss.cpu().numpy(),)
-    if return_state:
-        out += ((tags.cpu().numpy(), ts.cpu().numpy()),)
-    return out if len(out) > 1 else out[0]
+
+def segment_lane_scan_many(batches: list[LaneBatch], *,
+                           collect: bool = False, return_state: bool = False,
+                           device=None) -> list:
+    """``segment_lane_scan`` of several lane batches (``LaneBatch``, e.g.
+    the lane buckets of one sweep) in one replay: on a CUDA device one
+    launch of ``llc_lane_scan`` for all of them, so the call costs its
+    longest chain and not the sum of the batches', and the results come
+    back to the host in one copy; on the CPU the plain loop a batch.
+    Returns each batch's ``segment_lane_scan`` result, bit for bit."""
+    dev = default_device(device)
+    plans, suf_hits, depths = [], [], []
+    for b in batches:
+        if b.suffix not in ("full", "one", "none"):
+            raise ValueError(f"suffix must be 'full', 'one' or 'none', got "
+                             f"{b.suffix!r}")
+        table, rounds, geo, suf = _lane_plan_tables(
+            b.bases, b.strides, b.counts, b.r_needed, b.cold, b.sets,
+            b.ways, b.block_bytes, b.way_sels, r_pad=b.r_pad,
+            suffix=b.suffix)
+        for name, what in (("base", "segment base"),
+                           ("b_first", "segment first block"),
+                           ("sb_first", "segment suffix block")):
+            check_address_range(table[:, :, llc_kernel.FIELDS.index(name)],
+                                what)
+        _check_lane_table(table, geo)
+        plans.append((torch.as_tensor(table, device=dev),
+                      torch.as_tensor(rounds, device=dev),
+                      torch.as_tensor(geo, device=dev), b.max_sets,
+                      b.max_ways, b.r_pad, b.suffix))
+        suf_hits.append(suf)
+        depths.append(int(rounds.sum()))
+    results = llc_ops.lane_scan_many(plans, collect=collect, host=True,
+                                     depths=depths)
+    out = []
+    for suf, (round_hits, miss, tags, ts) in zip(suf_hits, results):
+        res = (suf + round_hits.numpy(),)
+        if collect:
+            res += (miss.numpy(),)
+        if return_state:
+            res += ((tags.numpy(), ts.numpy()),)
+        out.append(res if len(res) > 1 else res[0])
+    return out
+
+
+def _check_lane_table(table: np.ndarray, geo: np.ndarray) -> None:
+    """The lane engine's int32 support on its host plan: every field of
+    the segment table in int32 range and each lane's sets x block bytes
+    under 2**32, as ``llc_lane_scan``'s 32-bit arithmetic needs (the
+    callers' checks, ``sweep._check_lane_support_meta``, guarantee it
+    for the traces they take)."""
+    i32 = np.iinfo(np.int32)
+    fields = table[:, :, :llc_kernel.FIELDS.index("wsel")]
+    if fields.size and (fields.min() < i32.min or fields.max() > i32.max):
+        raise OverflowError("segment-lane plan leaves int32 range — the "
+                            "lane engine keeps addresses, blocks and "
+                            "timestamps in 32 bits; rebase or split the "
+                            "trace")
+    if np.any(geo < 1) or np.any(geo[:, 0] * geo[:, 2] >= 2**32):
+        raise ValueError(f"lane geometries must be positive with sets x "
+                         f"block bytes under 2**32, got {geo.tolist()}")
 
 
 # --------------------------------------------------------------------------

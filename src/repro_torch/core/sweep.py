@@ -57,9 +57,11 @@ import torch
 
 from repro_torch.core import traces
 from repro_torch.core.cache import (
+    LaneBatch,
     LLCConfig,
     _TouchedBlocks,
     segment_lane_scan,
+    segment_lane_scan_many,
     simulate_segments,
 )
 from repro_torch.utils.env import as_address_tensor, default_device
@@ -407,8 +409,8 @@ def segment_lane_hit_counts(segments, configs: list[LLCConfig], *,
     the longest lane with count-0 no-op segments).  The trace is never
     expanded: serial depth is O(segments * max_ways), not O(accesses).
     Lanes with very different set counts are bucketed (``lane_buckets``)
-    so padding waste stays bounded — a homogeneous grid is exactly one
-    replay."""
+    so padding waste stays bounded, and every bucket replays in one call
+    of ``segment_lane_scan_many`` (one kernel launch on the card)."""
     dev = default_device(device)
     per_lane = bool(segments) and isinstance(segments[0], list)
     lanes = segments if per_lane else [list(segments)] * len(configs)
@@ -418,7 +420,9 @@ def segment_lane_hit_counts(segments, configs: list[LLCConfig], *,
     _check_lane_support(lanes, configs)
     n_seg = max((len(t) for t in lanes), default=0)
     out = np.zeros((len(configs), max(1, n_seg)), np.int64)
-    for bucket in lane_buckets(configs):
+    buckets = lane_buckets(configs)
+    batches = []
+    for bucket in buckets:
         cfgs_b = [configs[i] for i in bucket]
         sets, ways, blocks, max_sets, max_ways = _geometry_arrays(cfgs_b)
         traces_b = [lanes[i] for i in bucket] if per_lane else lanes[:1]
@@ -429,10 +433,12 @@ def segment_lane_hit_counts(segments, configs: list[LLCConfig], *,
             r, c = _lane_plan(trace, cfgs_b)
             r_needed[row, :len(r)] = r
             cold[row, :len(c)] = c
-        hits = segment_lane_scan(bases, strides, counts, r_needed, cold,
+        batches.append(LaneBatch(bases, strides, counts, r_needed, cold,
                                  sets, ways, blocks, max_sets=max_sets,
-                                 max_ways=max_ways, r_pad=max_ways,
-                                 device=dev)
+                                 max_ways=max_ways, r_pad=max_ways))
+    # every bucket in one replay: the buckets' chains run side by side
+    for bucket, hits in zip(buckets, segment_lane_scan_many(batches,
+                                                            device=dev)):
         out[bucket, :hits.shape[1]] = hits
     return out
 
@@ -1013,9 +1019,10 @@ def interference_lane_metrics_batch(nvdla_segs: list, *, llcs, drams,
 
     ``llcs``/``drams``/``mixes`` are equal-length per-lane config
     sequences; lanes are bucketed by set count (``lane_buckets``) so
-    padding waste stays bounded, and each bucket runs as ONE replay of
+    padding waste stays bounded, and every bucket runs in ONE replay of
     the segment engine with miss-bit collection
-    (``segment_lane_scan(collect=True)``) over its lanes.  Per lane, the
+    (``segment_lane_scan_many(collect=True)``, one kernel launch on the
+    card).  Per lane, the
     host reconstructs the exact missed-block runs (``_lane_miss_runs``)
     and finishes with the same closed-form DRAM/latency reduction as the
     sequential path, so every ``LaneMetrics`` is bit-identical to
@@ -1069,7 +1076,9 @@ def interference_lane_metrics_batch(nvdla_segs: list, *, llcs, drams,
     masked = way_masks is not None
     _check_lane_support_meta(lanes, llcs)
     out: list[LaneMetrics | None] = [None] * lanes_n
-    for bucket in lane_buckets(llcs):
+    buckets = lane_buckets(llcs)
+    batches = []
+    for bucket in buckets:
         cfgs_b = [llcs[i] for i in bucket]
         metas_b = [lanes[i] for i in bucket]
         sets, ways, blocks, max_sets, max_ways = _geometry_arrays(cfgs_b)
@@ -1106,20 +1115,22 @@ def interference_lane_metrics_batch(nvdla_segs: list, *, llcs, drams,
                 suffix = "one"
         cold = np.zeros(shape, bool)
         # the round-buffer depth only needs to cover this batch's plan,
-        # not max_ways — chunked interference traces need 1
-        r_pad = max(1, int(r_needed.max()))
-        # the zero-mask sentinel keeps unpartitioned rows on the
-        # standard plan inside the same replay
-        hits, miss_bits = segment_lane_scan(
+        # not max_ways — chunked interference traces need 1; the
+        # zero-mask sentinel keeps unpartitioned rows on the standard
+        # plan inside the same replay
+        batches.append(LaneBatch(
             bases, strides, counts, r_needed, cold, sets, ways, blocks,
             way_sels if masked else None, max_sets=max_sets,
-            max_ways=max_ways, r_pad=r_pad, collect=True, suffix=suffix,
-            device=dev)
+            max_ways=max_ways, r_pad=max(1, int(r_needed.max())),
+            suffix=suffix))
+    # every bucket in one replay: the buckets' chains run side by side
+    results = segment_lane_scan_many(batches, collect=True, device=dev)
+    for bucket, batch, (hits, miss_bits) in zip(buckets, batches, results):
         for row, i in enumerate(bucket):
             b, s, c = lanes[i]
             n_seg = c.shape[0]
             lane_hits = int(hits[row, :n_seg].sum())
-            runs = _lane_miss_runs(b, s, c, llcs[i], cold[row],
+            runs = _lane_miss_runs(b, s, c, llcs[i], batch.cold[row],
                                    miss_bits[row],
                                    full_prefix=lane_sels[i] is not None)
             accesses = int(c.sum())

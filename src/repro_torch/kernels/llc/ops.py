@@ -44,6 +44,66 @@ def set_walk(tags: torch.Tensor, age: torch.Tensor, tag_s: torch.Tensor,
     return hit, tags, age
 
 
+def _carve(buf: torch.Tensor, spans: list) -> list:
+    """Views of ``buf`` (uint8) at ``spans``' (offset, shape, dtype)."""
+    return [None if shape is None else
+            buf[off:off + torch.Size(shape).numel() * dt.itemsize]
+            .view(dt).view(shape) for off, shape, dt in spans]
+
+
+def lane_scan_many(buckets: list[tuple], *, collect: bool = False,
+                   host: bool = False, depths: list[int] | None = None
+                   ) -> list[tuple]:
+    """Several lane batches' segment replays from their host plans, one
+    launch for all of them on the card.  ``buckets``: per batch (table,
+    rounds, geo, max_sets, max_ways, r_pad, suffix), each what
+    ``lane_scan`` takes.  Returns per batch what ``lane_scan`` returns;
+    with ``host`` the outputs come to the host in one copy (CPU
+    tensors).  ``depths`` (each batch's total rounds, known to the host
+    plan) orders the kernel's blocks, the deepest first; without it the
+    rounds are read back.  Each batch's result is its own
+    ``lane_scan``'s, bit for bit: batches share nothing but the
+    launch."""
+    if _route(buckets[0][0], "lane_scan") == "cpu":
+        return [ref.lane_scan_ref(table, rounds, geo, max_sets=max_sets,
+                                  max_ways=max_ways, r_pad=r_pad,
+                                  collect=collect, suffix=suffix)
+                for table, rounds, geo, max_sets, max_ways, r_pad, suffix
+                in buckets]
+    dev = buckets[0][0].device
+    plans, spans, off = [], [], 0
+
+    def span(shape, dtype):
+        nonlocal off
+        at = off
+        off += -(-torch.Size(shape).numel() * dtype.itemsize // 8) * 8
+        return at, shape, dtype
+
+    for table, rounds, geo, max_sets, max_ways, r_pad, suffix in buckets:
+        _check_ways(max_ways, "lane_scan")
+        table, rounds, geo = (t.contiguous() for t in (table, rounds, geo))
+        sizes = K.bucket_sizes(table, rounds, geo, max_sets=max_sets,
+                               max_ways=max_ways, r_pad=r_pad, suffix=suffix)
+        plans.append((table, rounds, geo, sizes))
+        lanes, n_seg = sizes["lanes"], sizes["n_seg"]
+        state = (lanes, max_ways, max_sets)
+        spans.append([span((lanes, n_seg), torch.int64),
+                      span((lanes, n_seg, r_pad, max_sets), torch.bool)
+                      if collect else (0, None, None),
+                      span(state, torch.int32), span(state, torch.int32)])
+    # one zeroed buffer holds every output, so one copy brings them back
+    buf = torch.zeros(off, dtype=torch.uint8, device=dev)
+    outs = [_carve(buf, s) for s in spans]
+    if depths is None:
+        depths = [int(rounds.sum()) for _, rounds, *_ in buckets] \
+            if len(buckets) > 1 else [0]
+    K.lane_scan_kernel(plans, outs, depths)
+    if host:
+        buf = buf.cpu()
+        outs = [_carve(buf, s) for s in spans]
+    return [tuple(o) for o in outs]
+
+
 def lane_scan(table: torch.Tensor, rounds: torch.Tensor, geo: torch.Tensor,
               *, max_sets: int, max_ways: int, r_pad: int,
               collect: bool = False, suffix: str = "full"):
@@ -51,20 +111,5 @@ def lane_scan(table: torch.Tensor, rounds: torch.Tensor, geo: torch.Tensor,
     (``ref.lane_scan_ref`` says what it computes).  Returns (round hits
     (L, S) int64, miss bits (L, S, r_pad, max_sets) bool or None, tags,
     ts), the state (L, max_ways, max_sets) int32, from a cold cache."""
-    if _route(table, "lane_scan") == "cpu":
-        return ref.lane_scan_ref(table, rounds, geo, max_sets=max_sets,
-                                 max_ways=max_ways, r_pad=r_pad,
-                                 collect=collect, suffix=suffix)
-    _check_ways(max_ways, "lane_scan")
-    dev = table.device
-    n_lane, n_seg = table.shape[:2]
-    tags = torch.full((n_lane, max_ways, max_sets), -1, dtype=torch.int32,
-                      device=dev)
-    ts = torch.zeros_like(tags)
-    hits = torch.zeros((n_lane, n_seg), dtype=torch.int64, device=dev)
-    miss = (torch.zeros((n_lane, n_seg, r_pad, max_sets), dtype=torch.bool,
-                        device=dev) if collect else None)
-    K.lane_scan_kernel(table.contiguous(), rounds.contiguous(),
-                       geo.contiguous(), tags, ts, hits, miss, r_pad=r_pad,
-                       suffix=suffix)
-    return hits, miss, tags, ts
+    return lane_scan_many([(table, rounds, geo, max_sets, max_ways, r_pad,
+                            suffix)], collect=collect)[0]
