@@ -13,9 +13,12 @@ port's paths through them:
   ``socsim``): the Fig. 5 sweep over the whole 6,155,982-burst frame,
   the Fig. 6 sweep, 24 way-partitioned and unpartitioned interference
   lanes batched and one by one, one lane's per-chunk latencies and the
-  FAME-1 LLC -> DRAM pipeline under random host stalls, every result
-  held bit for bit to the JAX reference's (anchors below, from the
-  reference on the CPU);
+  FAME-1 LLC -> DRAM pipeline under random host stalls (on the card one
+  ``llc_set_walk`` launch and a sort over the misses, no per-token op),
+  every result held bit for bit to the JAX reference's (anchors below,
+  from the reference on the CPU), and the deprecated per-access lanes
+  (one set walk a way count) on Fig. 5's 21 geometries held to the
+  plain loop on the CPU;
 * the campaign run farm and the NPU backend (``repro_torch.campaign``,
   ``repro_torch.core.npu``) at the campaign benchmark's own sizes: the
   64-point acceptance campaign sequential, batched and over a mesh of
@@ -43,7 +46,13 @@ port's paths through them:
   benchmarks/fig6_tail.py's full sizes: nodes 0, 1, 2 and 4, 2048
   bursts, a 256 KiB LLC, unpartitioned and way-partitioned, every
   summary held exactly to the reference's, and the token-bundle switch
-  held bit for bit to the per-cycle scheduler at bundles 1, 7 and 64;
+  held bit for bit to the per-cycle scheduler at bundles 1, 7 and 64,
+  each switch simulation one launch of the NoC switch kernel
+  (``csrc/noc.cu``: ``noc_switch``, a warp a switch and a lane a port,
+  the whole bundle loop in one launch), which is held bit for bit to its
+  plain version (the token-bundle loop of torch steps) on the farm's
+  schedules, an overflowing FIFO, the empty schedule and rings in
+  global memory, and timed at the x4 farm's schedule;
 * the dense transformer family through the SWA kernel's full causal
   band (window = S): serving qwen2-0.5b at full width (24 layers, 14
   query heads over 2 KV heads of 64): 8 requests of 2048 and 1200
@@ -141,6 +150,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -959,19 +969,24 @@ def check_llc(dev) -> dict:
     return worst
 
 
-def llc_launches() -> dict:
+def sim_launches() -> dict:
+    """The simulator kernels' launch counts: the LLC walks and the NoC
+    switch."""
     from repro_torch.kernels.llc import kernel as K
+    from repro_torch.kernels.noc import kernel as noc_k
 
     return {"llc_set_walk": K.set_walk_launches,
-            "llc_lane_scan": K.lane_scan_launches}
+            "llc_lane_scan": K.lane_scan_launches,
+            "noc_switch": noc_k.launches}
 
 
-def llc_counted(by_path: dict, fn, *args):
+def sim_counted(by_path: dict, fn, *args):
     """``fn(*args)``, a main-path phase, noting under its name in
-    ``by_path`` the LLC kernels' launches it made (none: left out)."""
-    before = llc_launches()
+    ``by_path`` the simulator kernels' launches it made (none: left
+    out)."""
+    before = sim_launches()
     out = fn(*args)
-    made = {k: n - before[k] for k, n in llc_launches().items()
+    made = {k: n - before[k] for k, n in sim_launches().items()
             if n != before[k]}
     if made:
         by_path[fn.__name__] = made
@@ -1149,6 +1164,153 @@ def time_llc(dev) -> dict:
     return out
 
 
+# the switch kernel's checks: the farm's schedules at FARM_BURSTS for
+# these node counts, each at these bundle sizes
+NOC_NODES, NOC_BUNDLES = (0, 4), (1, 7, 64)
+
+
+def noc_case(dests, ports: int, link: int, depth: int | None = None):
+    """A schedule as ``NoCSwitch.simulate`` hands it to the switch op:
+    (dests (T, ports) int32 on the CPU, the op's keywords)."""
+    from repro_torch.core.noc import NoCConfig, switch_args
+
+    return switch_args(dests, NoCConfig(ports=ports, link_latency=link,
+                                        queue_depth=depth))
+
+
+def noc_diff(got, want, what: str) -> float:
+    """Largest |difference| over two switch runs' logs (0.0 when
+    bit-equal); their delivered counts, overflow flags and bundles must
+    agree."""
+    if (got.delivered, got.overflow, got.bundles) != \
+            (want.delivered, want.overflow, want.bundles):
+        raise AssertionError(
+            f"noc_switch {what}: (delivered, overflow, bundles) "
+            f"{(got.delivered, got.overflow, got.bundles)} != the plain "
+            f"version's {(want.delivered, want.overflow, want.bundles)}")
+    return llc_diff([t.cpu() for t in got[:3]], [t.cpu() for t in want[:3]])
+
+
+def farm_noc_schedule(nodes: int):
+    """The switch schedule of ``simulate_farm`` at FARM_BURSTS with
+    ``nodes`` co-runners (two passes of 16-burst chunks), and its
+    FarmConfig."""
+    from repro_torch.core.farm import FarmConfig, farm_schedule
+
+    farm = FarmConfig(nodes=nodes)
+    return farm_schedule(2 * FARM_BURSTS // 16, farm), farm
+
+
+def check_noc(dev) -> float:
+    """The switch kernel against its plain version on the card, bit for
+    bit in the log, the delivered count, the overflow flag and the
+    bundles run, and two launches bit-equal: the farm's schedules
+    (``NOC_NODES`` at ``NOC_BUNDLES``), an overflowing FIFO, the empty
+    schedule and 32 ports with rings too deep for shared memory.  The
+    plain version runs on the CPU copy of the same schedule."""
+    from repro_torch.kernels.noc import kernel as K
+    from repro_torch.kernels.noc import ops, ref
+
+    phase("noc switch kernel against its plain version")
+    if (K.built_max_ports(), K.built_shared_fifo_bytes()) != \
+            (K.MAX_PORTS, K.SHARED_FIFO_BYTES):
+        raise AssertionError(
+            f"noc.cu takes {K.built_max_ports()} ports and "
+            f"{K.built_shared_fifo_bytes()} bytes of rings on chip; "
+            f"kernel.py says {K.MAX_PORTS}, {K.SHARED_FIFO_BYTES}")
+    check_ptxas("noc", ("noc_switch_kernel",), 1)
+    cases = []
+    for n in NOC_NODES:
+        sched, farm = farm_noc_schedule(n)
+        for bundle in NOC_BUNDLES:
+            cases.append((f"farm x{n} ({FARM_BURSTS} bursts), bundle "
+                          f"{bundle}",
+                          *noc_case(sched, n + 2, farm.link_latency), bundle))
+    cases.append(("4 ports onto one egress, depth 2 (overflows)",
+                  *noc_case(np.full((64, 4), 3), 4, 0, depth=2), 7))
+    cases.append(("the empty schedule",
+                  *noc_case(np.full((0, 3), -1), 3, 2), 64))
+    rng = np.random.default_rng(30)
+    deep = np.where(rng.random((400, 32)) < 0.5,
+                    rng.integers(0, 32, (400, 32)), -1)
+    if K.fifo_in_shared(32, 1000):
+        raise AssertionError("the deep-ring case fits shared memory")
+    cases.append(("32 ports, depth 1000 (rings in global memory)",
+                  *noc_case(deep, 32, 1, depth=1000), 64))
+    worst = 0.0
+    for name, dests, kw, bundle in cases:
+        before = K.launches
+        got = ops.switch(dests.to(dev), bundle=bundle, **kw)
+        again = ops.switch(dests.to(dev), bundle=bundle, **kw)
+        want = ref.switch_ref(dests, bundle=bundle, **kw)
+        torch.cuda.synchronize()
+        if K.launches != before + 2:
+            raise AssertionError("noc_switch did not launch")
+        for what, other in (("plain", want), ("a second launch", again)):
+            err = noc_diff(got, other, name)
+            if err:
+                raise AssertionError(f"noc_switch {name}: off {what} by "
+                                     f"{err}")
+            worst = max(worst, err)
+        print(f"  noc_switch {name}: {got.delivered}/{kw['total']} flits in "
+              f"{got.bundles} bundles{', overflowed' if got.overflow else ''}"
+              "; log bit-equal to the plain version and across two launches")
+    return worst
+
+
+def time_noc(dev) -> dict:
+    """The switch kernel's card time at the x4 farm's schedule (the
+    heaviest farm of ``farm_path``: 6 ports at FARM_BURSTS, bundles of
+    64), beside its byte bound, the plain version's wall on the card, a
+    simulated cycle's time and the SM clock.  No PyTorch call computes
+    a round-robin switch (``library_ms`` null)."""
+    from repro_torch.kernels.noc import kernel as K
+    from repro_torch.kernels.noc import ops, ref
+
+    phase("noc switch kernel: card time at the x4 farm's schedule")
+    sched, farm = farm_noc_schedule(4)
+    dests, kw = noc_case(sched, 6, farm.link_latency)
+    dests = dests.to(dev)
+    bundle, h_pad, ports = farm.bundle_cycles, kw["h_pad"], dests.shape[1]
+    plain_ms, want = plain_wall(lambda: ref.switch_ref(dests, bundle=bundle,
+                                                       **kw))
+    got = ops.switch(dests, bundle=bundle, **kw)
+    err = noc_diff(got, want, "on the x4 farm's schedule")
+    if err:
+        raise AssertionError(f"noc_switch on the x4 farm's schedule: off the "
+                             f"plain version by {err}")
+    # the launch alone on buffers made once (the op also zeroes its
+    # outputs and reads the status back)
+    status = torch.zeros(3, dtype=torch.int32, device=dev)
+    granted = torch.zeros((h_pad, ports), dtype=torch.bool, device=dev)
+    src, lat = (torch.zeros((h_pad, ports), dtype=torch.int32, device=dev)
+                for _ in range(2))
+    n_chunks = ops.n_bundles(h_pad, bundle)
+    ms = queued_ms(lambda: K.switch_kernel(
+        dests, status, granted, src, lat, None, link=kw["link"],
+        depth=kw["depth"], total=kw["total"], bundle=bundle,
+        n_chunks=n_chunks), 10)
+    cycles = min(got.bundles * bundle, h_pad)
+    # bytes: the schedule read once, the three logs and the status
+    # written once
+    nbytes = dests.numel() * 4 + h_pad * ports * (1 + 4 + 4) + 3 * 4
+    row = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None, "bytes": nbytes, "ports": ports,
+           "flits": kw["total"], "fifo_depth": kw["depth"], "h_pad": h_pad,
+           "bundles": got.bundles, "cycles_run": cycles,
+           "ns_per_step": ms * 1e6 / cycles, "sm_clock_mhz": sm_clock_mhz(),
+           "launches": 1}
+    print(f"  noc_switch, the x4 farm's schedule ({ports} ports, "
+          f"{kw['total']:,} flits, FIFO depth {kw['depth']}, horizon "
+          f"{h_pad:,}; {cycles:,} cycles in {got.bundles} bundles of "
+          f"{bundle}): card {ms:.4f} ms ({row['ns_per_step']:.1f} ns a cycle "
+          f"at {row['sm_clock_mhz']:.0f} MHz), bound {row['bound_ms']:.5f} ms "
+          f"({nbytes:,} bytes), plain {plain_ms:.1f} ms on the card; log "
+          f"bit-equal to the plain version (max |diff| {err})")
+    return row
+
+
 def frame_layers():
     from repro_torch.core.yolov3 import LAYERS
 
@@ -1293,17 +1455,21 @@ def sim_path(dev) -> dict:
     (a) Fig. 5 over the whole frame, (b) Fig. 6 at 4096 bursts, (c) 24
     way-partitioned and unpartitioned interference lanes batched and
     one by one, (d) one partitioned lane's per-chunk latencies, (e) the
-    FAME-1 LLC -> DRAM pipeline under random host stalls."""
+    FAME-1 LLC -> DRAM pipeline under random host stalls (one set walk;
+    the profiled run's device kernels counted), (f) the deprecated
+    per-access lanes against the plain loop on the CPU."""
     from repro_torch.core import traces
     from repro_torch.core.cache import LLCConfig
     from repro_torch.core.dram import DRAMConfig
     from repro_torch.core.socsim import (simulate_dbb_segments,
                                          simulate_dbb_stream)
     from repro_torch.core.sweep import (
-        MixConfig, interference_lane_metrics, interference_lane_metrics_batch,
-        lane_request_latencies, sweep_interference, sweep_llc)
+        MixConfig, batched_hits, grid_configs, interference_lane_metrics,
+        interference_lane_metrics_batch, lane_request_latencies,
+        sweep_interference, sweep_llc)
 
-    phase("sim path (Fig. 5/6 sweeps, partitioned lanes, FAME-1 pipeline)")
+    phase("sim path (Fig. 5/6 sweeps, partitioned lanes, FAME-1 pipeline, "
+          "per-access lanes)")
     wall = {}
 
     def timed(name, fn):
@@ -1389,11 +1555,18 @@ def sim_path(dev) -> dict:
           "per-segment latencies sum to the total, checked inside)")
 
     # (e) the FAME-1 pipeline under a seeded random stall schedule
+    from repro_torch.kernels.llc import kernel as llc_k
+
     segs = traces.default_dbb_window(max_bursts=4096)
     addrs = traces.expand(segs)
+    walks = llc_k.set_walk_launches
     res = timed("simulate_dbb_stream", lambda: simulate_dbb_stream(
         addrs, llc=LLCConfig(), dram=DRAMConfig(),
         host_stalls=sim_stalls(addrs.shape[0]), device=dev))
+    if llc_k.set_walk_launches - walks != 1:
+        raise AssertionError(f"simulate_dbb_stream made "
+                             f"{llc_k.set_walk_launches - walks} set walks, "
+                             "not one")
     seg_res = timed("simulate_dbb_segments", lambda: simulate_dbb_segments(
         segs, llc=LLCConfig(), dram=DRAMConfig(), device=dev))
     got = {"t": int(res.latencies.shape[0]),
@@ -1409,7 +1582,7 @@ def sim_path(dev) -> dict:
     # device time of two of the calls, run again under the profiler; its
     # share is taken of the unprofiled wall above (the profiled wall
     # carries the profiler's own cost)
-    busy = {}
+    busy, events = {}, {}
     for name, fn in (
             ("interference_lane_metrics_batch_24", lambda:
              interference_lane_metrics_batch(
@@ -1418,10 +1591,13 @@ def sim_path(dev) -> dict:
             ("simulate_dbb_stream", lambda: simulate_dbb_stream(
                 addrs, llc=LLCConfig(), dram=DRAMConfig(),
                 host_stalls=sim_stalls(addrs.shape[0]), device=dev))):
-        split = device_split(fn)
+        events[name] = {}
+        split = device_split(fn, counts=events[name])
         dev_ms = sum(v for k, v in split.items() if k != "wall_ms")
         busy[name] = {"profiled_wall_ms": split["wall_ms"],
-                      "device_ms": dev_ms}
+                      "device_ms": dev_ms, **events[name]}
+        print(f"{name} (profiled): {events[name].get('kernels', 0)} device "
+              f"kernels, {events[name].get('copies', 0)} copies and sets")
         if dev_ms == 0.0:
             print(f"{name} (profiled): device time not measured (no "
                   "device events in the trace)")
@@ -1430,6 +1606,47 @@ def sim_path(dev) -> dict:
               f"{dev_ms / (wall[name] * 1e3):.1%} of its "
               f"{wall[name]:.3f} s wall (profiled wall "
               f"{split['wall_ms'] / 1e3:.3f} s)")
+    # the stream's device kernels do not grow with its tokens: a quarter
+    # of the window, profiled the same way
+    quarter = addrs[:addrs.shape[0] // 4]
+    events["simulate_dbb_stream_quarter"] = {}
+    device_split(lambda: simulate_dbb_stream(
+        quarter, llc=LLCConfig(), dram=DRAMConfig(),
+        host_stalls=sim_stalls(quarter.shape[0]), device=dev),
+        counts=events["simulate_dbb_stream_quarter"])
+    n_full, n_quarter = (events[k].get("kernels", 0) for k in (
+        "simulate_dbb_stream", "simulate_dbb_stream_quarter"))
+    print(f"simulate_dbb_stream (profiled): {n_full} device kernels at "
+          f"{addrs.shape[0]} tokens, {n_quarter} at {quarter.shape[0]}")
+    if n_full and n_quarter and max(n_full, n_quarter) > 2 * min(
+            n_full, n_quarter):
+        raise AssertionError("simulate_dbb_stream's device kernels grow "
+                             "with its tokens")
+    busy["simulate_dbb_stream"]["kernels_at_a_quarter"] = n_quarter
+
+    # (f) the deprecated per-access lanes (one set walk a way count) on
+    # Fig. 5's 21 geometries over (e)'s 4,096 bursts, against the plain
+    # per-access loop on the CPU
+    cfgs = list(grid_configs((0.5, 2, 8, 64, 512, 1024, 4096),
+                             (32, 64, 128)).values())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        walks = llc_k.set_walk_launches
+        bits = timed("batched_hits_fig5",
+                     lambda: batched_hits(addrs, cfgs, device=dev))
+        walks = llc_k.set_walk_launches - walks
+        t0 = time.perf_counter()
+        want = batched_hits(addrs, cfgs, device="cpu")
+        wall["batched_hits_fig5_plain_cpu"] = time.perf_counter() - t0
+    ways = len({c.ways for c in cfgs})
+    if walks != ways or not np.array_equal(bits, want):
+        raise AssertionError(f"batched_hits on the card ({walks} set walks "
+                             f"for {ways} way counts) differs from the plain "
+                             "loop on the CPU")
+    print(f"(f) batched_hits, {len(cfgs)} geometries x {addrs.shape[0]} "
+          f"bursts: {walks} set walks (one a way count), hits == the plain "
+          f"loop on the CPU ({int(bits.sum())} hits; plain "
+          f"{wall['batched_hits_fig5_plain_cpu']:.3f} s on the CPU)")
     return {"wall_s": wall, "profiled": busy}
 
 def acceptance_spec(points: int, window_bursts: int):
@@ -2559,13 +2776,14 @@ def int8_kv_path(dev) -> tuple[int, dict]:
 
 def farm_path(dev) -> dict:
     """benchmarks/fig6_tail.py's full sizes through the port's farm
-    (``repro_torch.core.farm``, the NoC switch and the interference lane
-    on the card): nodes 0, 1, 2 and 4, 2048 bursts, 256 KiB / 8-way /
-    64 B LLC, unpartitioned and with the victim in ways 0x0F, every
-    summary held exactly to the reference's (``FARM_ANCHORS``); the
-    suite's own acceptance properties; the token-bundle switch at
-    bundles 1, 7 and 64 against the per-cycle scheduler on nodes 0 and
-    4 at 1024 bursts; walls and the device's busy share."""
+    (``repro_torch.core.farm``, the NoC switch kernel and the
+    interference lane on the card): nodes 0, 1, 2 and 4, 2048 bursts,
+    256 KiB / 8-way / 64 B LLC, unpartitioned and with the victim in
+    ways 0x0F, every summary held exactly to the reference's
+    (``FARM_ANCHORS``); the suite's own acceptance properties; the
+    token-bundle switch at bundles 1, 7 and 64 against the per-cycle
+    scheduler on nodes 0 and 4 at 1024 bursts; one ``noc_switch`` launch
+    a switch simulation; walls and the device's busy share."""
     from repro_torch.core.cache import LLCConfig
     from repro_torch.core.dram import DRAMConfig
     from repro_torch.core.farm import (FarmConfig, farm_schedule,
@@ -2574,8 +2792,11 @@ def farm_path(dev) -> dict:
     from repro_torch.core.sweep import MixConfig, interference_lane_metrics
     from repro_torch.utils.stats import latency_summary
 
+    from repro_torch.kernels.noc import kernel as noc_k
+
     phase("farm path (Fig. 6 tail: victim and co-runner nodes through the "
           "NoC switch and the shared LLC/DRAM)")
+    switch_launches = noc_k.launches
     llc, dram = LLCConfig(FARM_LLC_BYTES, 8, 64), DRAMConfig()
     wall, summaries, solo = {}, {}, None
     for mask in (None, FARM_MASK):
@@ -2650,7 +2871,14 @@ def farm_path(dev) -> dict:
           f"(profiled wall {split['wall_ms'] / 1e3:.3f} s)" if dev_ms else
           f"{key} (profiled): device time not measured (no device events "
           "in the trace)")
+    switch_launches = noc_k.launches - switch_launches
+    if switch_launches != 2 * len(FARM_NODES) + 3 * len(FARM_PARITY_NODES) + 1:
+        raise AssertionError(f"farm path: {switch_launches} noc_switch "
+                             "launches, not one a simulation")
+    print(f"noc_switch launches in the farm path: {switch_launches}, one a "
+          "switch simulation")
     return {"wall_s": wall, "summaries": summaries,
+            "noc_switch_launches": switch_launches,
             "profiled": {key: {"profiled_wall_ms": split["wall_ms"],
                                "device_ms": dev_ms}}}
 
@@ -3298,14 +3526,17 @@ def time_postproc(dev) -> dict:
     return pp
 
 
-def device_split(fn, kinds=None, ranges=()) -> dict:
+def device_split(fn, kinds=None, ranges=(), counts: dict | None = None
+                 ) -> dict:
     """Wall time of ``fn`` and the device time of the kernels it
     launches, by kind (name -> substring of the kernel's name), from a
     torch.profiler trace (ms; the wall time includes the profiler's own
     cost).  ``ranges`` may hold ``"moe"``: every MoE layer runs inside a
     ``record_function`` range of that name, and ``split["moe"]`` is the
     device time of the kernels launched inside them (a part of the
-    other kernels' time; None where the trace linked none)."""
+    other kernels' time; None where the trace linked none).  ``counts``,
+    where given, receives the trace's device events: ``kernels`` and
+    ``copies`` (memory copies and sets)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.models import moe
@@ -3343,6 +3574,10 @@ def device_split(fn, kinds=None, ranges=()) -> dict:
             kind = next((k for k, sub in kinds.items() if sub in e.name),
                         "other")
             split[kind] += e.device_time_total / 1e3
+            if counts is not None:
+                copy = e.name.startswith(("Memcpy", "Memset"))
+                key = "copies" if copy else "kernels"
+                counts[key] = counts.get(key, 0) + 1
     for name in ranges:
         split[name] = split[name] or None
     return split
@@ -4436,12 +4671,14 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = setup()
     from repro_torch.kernels.llc import kernel as llc_kernel
+    from repro_torch.kernels.noc import kernel as noc_kernel
     errs = check_kernels(dev)
     errs["ssd"] = check_ssd(dev)
     errs["swa"] = check_swa(dev)
     timed_bwd = check_swa_bwd(dev)
     timed_ssd_bwd = check_ssd_bwd(dev)
     errs.update(check_llc(dev))
+    errs["noc_switch"] = check_noc(dev)
     # the kernels' timings first: after the serving phases' long traces,
     # profiler windows missed kernels more often
     timed, rows = time_kernels(dev)
@@ -4451,32 +4688,34 @@ def main() -> int:
     timed["swa_bwd"] = timed_bwd
     timed["ssd_bwd"] = timed_ssd_bwd
     timed.update(time_llc(dev))
-    # the LLC kernels' main path: every phase from here to int8_kv_path,
-    # each phase's launches noted in llc_by_path
+    timed["noc_switch"] = time_noc(dev)
+    # the simulator kernels' main path: every phase from here to
+    # int8_kv_path, each phase's launches noted in sim_by_path
     llc_kernel.set_walk_launches = llc_kernel.lane_scan_launches = 0
-    llc_by_path = {}
-    train_launches, trained = llc_counted(llc_by_path, train_path, dev)
-    ssm_launches, trained_ssm = llc_counted(llc_by_path, train_ssm_path, dev)
-    quick_launches, quick = llc_counted(llc_by_path, quickstart_path, dev)
-    res, launches, main_errs = llc_counted(llc_by_path, main_path, dev)
-    engine_times = llc_counted(llc_by_path, paper_chain, res, dev)
-    sim = llc_counted(llc_by_path, sim_path, dev)
-    campaign = llc_counted(llc_by_path, campaign_path, dev)
-    serve_launches, serve = llc_counted(llc_by_path, serve_path, dev)
+    noc_kernel.launches = 0
+    sim_by_path = {}
+    train_launches, trained = sim_counted(sim_by_path, train_path, dev)
+    ssm_launches, trained_ssm = sim_counted(sim_by_path, train_ssm_path, dev)
+    quick_launches, quick = sim_counted(sim_by_path, quickstart_path, dev)
+    res, launches, main_errs = sim_counted(sim_by_path, main_path, dev)
+    engine_times = sim_counted(sim_by_path, paper_chain, res, dev)
+    sim = sim_counted(sim_by_path, sim_path, dev)
+    campaign = sim_counted(sim_by_path, campaign_path, dev)
+    serve_launches, serve = sim_counted(sim_by_path, serve_path, dev)
     launches["ssd"] = serve_launches["ssd"] + ssm_launches["ssd"]
     launches["ssd_bwd"] = ssm_launches["ssd_bwd"]
     main_errs["ssd"] = serve["ssd_max_abs_err"]
-    rg_launches, serve_rg = llc_counted(llc_by_path, serve_swa_path, dev,
+    rg_launches, serve_rg = sim_counted(sim_by_path, serve_swa_path, dev,
                                         "recurrentgemma-9b")
-    farm = llc_counted(llc_by_path, farm_path, dev)
-    dense_launches, dense = llc_counted(llc_by_path, dense_path, dev)
-    moe_launches, moe = llc_counted(llc_by_path, moe_path, dev)
-    encdec_launches, encdec = llc_counted(llc_by_path, encdec_path, dev)
-    vlm_launches, vlm = llc_counted(llc_by_path, vlm_path, dev)
-    int8_launches, int8 = llc_counted(llc_by_path, int8_kv_path, dev)
-    launches.update(llc_launches())
-    print(f"llc launches on the main path: {llc_launches()}; by phase "
-          f"{json.dumps(llc_by_path)}")
+    farm = sim_counted(sim_by_path, farm_path, dev)
+    dense_launches, dense = sim_counted(sim_by_path, dense_path, dev)
+    moe_launches, moe = sim_counted(sim_by_path, moe_path, dev)
+    encdec_launches, encdec = sim_counted(sim_by_path, encdec_path, dev)
+    vlm_launches, vlm = sim_counted(sim_by_path, vlm_path, dev)
+    int8_launches, int8 = sim_counted(sim_by_path, int8_kv_path, dev)
+    launches.update(sim_launches())
+    print(f"simulator kernel launches on the main path: {sim_launches()}; "
+          f"by phase {json.dumps(sim_by_path)}")
     launches["swa"] = rg_launches["swa"] + dense_launches + moe_launches \
         + encdec_launches + vlm_launches + int8_launches \
         + train_launches["swa"] + quick_launches["swa"]
@@ -4488,7 +4727,7 @@ def main() -> int:
                            int8["swa_max_abs_err"])
     errs["swa_bwd"] = main_errs["swa_bwd"] = timed_bwd["max_abs_err"]
     errs["ssd_bwd"] = main_errs["ssd_bwd"] = timed_ssd_bwd["max_abs_err"]
-    for name in ("llc_set_walk", "llc_lane_scan"):
+    for name in ("llc_set_walk", "llc_lane_scan", "noc_switch"):
         main_errs[name] = timed[name]["max_abs_err"]
     profiled = where_time_goes(dev)
 
@@ -4509,6 +4748,8 @@ def main() -> int:
                          "src/repro/core/cache.py:194"),
         "llc_lane_scan": ("src/repro_torch/csrc/llc.cu",
                           "src/repro/core/cache.py:484"),
+        "noc_switch": ("src/repro_torch/csrc/noc.cu",
+                       "src/repro/core/noc.py:213"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -4520,7 +4761,7 @@ def main() -> int:
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"]})
-        if "ns_per_step" in tm:  # the LLC walks: the chain's step, the clock
+        if "ns_per_step" in tm:  # the serial walks: a step's time, the clock
             kernels[-1].update(ns_per_step=tm["ns_per_step"],
                                sm_clock_mhz=tm["sm_clock_mhz"])
     for k in kernels:
@@ -4539,7 +4780,7 @@ def main() -> int:
          "dense_path": dense, "moe_path": moe, "encdec_path": encdec,
          "vlm_path": vlm, "int8_kv_path": int8, "train_path": trained,
          "train_ssm_path": trained_ssm, "quickstart_path": quick,
-         "profiled": profiled, "llc_launches_by_path": llc_by_path,
+         "profiled": profiled, "sim_launches_by_path": sim_by_path,
          "timed": timed,
          "serve": serve, "serve_recurrentgemma": serve_rg}, indent=1))
     print(f"\nchip_smoke finished in {time.perf_counter() - t_start:.1f} s")

@@ -1,17 +1,19 @@
-"""The LLC kernels' step loops in the compiled SASS: the dependency floor.
+"""The serial kernels' step loops in the compiled SASS: the dependency floor.
 
     python scripts/llc_sass.py [--ways 8] [--clock-mhz F]
 
-Builds ``csrc/llc.cu`` (as the port does), disassembles the library with
-``cuobjdump -sass`` and, for ``llc_set_walk_kernel<W>`` and
-``llc_lane_scan_kernel<W>``, finds every loop (a backward branch) and
+Builds ``csrc/llc.cu`` and ``csrc/noc.cu`` (as the port does),
+disassembles the libraries with ``cuobjdump -sass`` and, for
+``llc_set_walk_kernel<W>``, ``llc_lane_scan_kernel<W>`` and
+``noc_switch_kernel``, finds every loop (a backward branch) and
 reports its instruction count and the longest chain of dependent
 instructions in one pass through its body (register and predicate
 def-use, in address order; a predicated write also reads the old
 value).  The step loop of each kernel is the one that holds its step's
 marker: the set walk's loop stores a hit bit to shared memory
 (``STS.U8``) once a step, the lane scan's round loop does a 32 x 32
-multiply-high (``IMAD.HI.U32``) for j_hi and j_lo twice a round.  The
+multiply-high (``IMAD.HI.U32``) for j_hi and j_lo twice a round, the
+switch's cycle loop groups the heads by ``MATCH`` once a target cycle.  The
 dependency floor of a walk is its longest chain of steps times the
 chain a step, at one cycle a dependent instruction and the SM clock
 given (no dependent instruction completes in under a cycle; Hopper's
@@ -129,24 +131,29 @@ def main(argv: list[str]) -> int:
     from repro_torch.kernels import _build
 
     _build.build()
-    lib = _build._target(_build.CSRC / "llc.cu")
-    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
     out_dir = ROOT / "chiprun_out" / "llc_sass"
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "llc.sass").write_text(sass)
-    funcs = functions(sass)
-    # the set walk's instance for exactly `ways` ways (kExact), as launched
+    funcs, libs = {}, {}
+    for source in ("llc", "noc"):
+        lib = _build._target(_build.CSRC / f"{source}.cu")
+        sass = subprocess.run([_cuobjdump(), "-sass", str(lib)], check=True,
+                              capture_output=True, text=True).stdout
+        (out_dir / f"{source}.sass").write_text(sass)
+        funcs.update(functions(sass))
+        libs[source] = lib.name
+    # the set walk's instance for exactly `ways` ways (kExact), as
+    # launched; the switch's cycle loop matches the heads once a cycle
     want = {"llc_set_walk": (f"llc_set_walk_kernelILi{args.ways}ELb1E",
                              "STS.U8", 1),
             "llc_lane_scan": (f"llc_lane_scan_kernelILi{args.ways}E",
-                              "IMAD.HI.U32", 2)}
-    report = {"library": lib.name, "ways": args.ways,
+                              "IMAD.HI.U32", 2),
+            "noc_switch": ("noc_switch_kernel", "MATCH", 1)}
+    report = {"libraries": libs, "ways": args.ways,
               "clock_mhz": args.clock_mhz}
     for name, (mangled, marker, per_step) in want.items():
         hits = [f for f in funcs if mangled in f]
         if not hits:
-            raise SystemExit(f"{mangled} not in the SASS of {lib}")
+            raise SystemExit(f"{mangled} not in the SASS of {libs}")
         res = summarize(funcs[hits[0]], marker, per_step)
         res["function"] = hits[0]
         step = res["step_loop"]

@@ -10,6 +10,8 @@ checkout's kernels and runs its ``chip_smoke.py`` phases named by
 
 * ``sim_path``: Fig. 5 over the whole frame, Fig. 6, the 24 interference
   lanes, one lane's latencies, the FAME-1 pipeline (walls by step);
+* ``farm_path``: the SoC farms of the Fig. 6 tail and the switch's
+  parity runs (walls by farm and bundle size);
 * ``serve_path``: mamba2-130m serving; ``encdec_path``: whisper-tiny
   serving; ``serve_qwen2``: qwen2-0.5b serving (``serve_swa_path``);
   ``serve_recurrentgemma``: serving with rolling caches (model and
@@ -23,7 +25,9 @@ checkout's kernels and runs its ``chip_smoke.py`` phases named by
   (``llc_set_walk`` on qwen2-0.5b's decode trace, ``llc_lane_scan`` on
   Fig. 5's whole frame, launches as the tree makes them);
 * ``llc_wide``: the LLC kernels' card times on ``llc_cases``' 64- and
-  128-way set walks and its 128 / 64 / 40-way lane batch.
+  128-way set walks and its 128 / 64 / 40-way lane batch;
+* ``time_noc``: the NoC switch kernel's card time at the x4 farm's
+  schedule (a tree that has the kernel).
 
 Beside each phase it reads the SM clock (``nvidia-smi``).
 
@@ -43,9 +47,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 TAG = "PHASE_WALLS "
-PHASES = ("sim_path", "serve_path", "encdec_path", "serve_qwen2",
-          "serve_recurrentgemma", "moe_path", "int8_kv_path", "train_path",
-          "train_ssm_path", "time_llc", "llc_wide")
+PHASES = ("sim_path", "farm_path", "serve_path", "encdec_path",
+          "serve_qwen2", "serve_recurrentgemma", "moe_path", "int8_kv_path",
+          "train_path", "train_ssm_path", "time_llc", "llc_wide", "time_noc")
 LLC_KEYS = ("ms", "plain_ms", "launches", "longest_walk", "ns_per_step",
             "sm_clock_mhz")
 DEFAULT_PHASES = ("moe_path", "int8_kv_path", "serve_recurrentgemma",
@@ -80,6 +84,7 @@ def _phases(cs) -> dict:
     what it returns)."""
     return {
         "sim_path": (cs.sim_path, lambda r: {"wall_s": r["wall_s"]}),
+        "farm_path": (cs.farm_path, lambda r: {"wall_s": r["wall_s"]}),
         "serve_path": (cs.serve_path, lambda r: _serving(r[1])),
         "encdec_path": (cs.encdec_path,
                         lambda r: _serving(r[1]["whisper-tiny"])),
@@ -106,6 +111,9 @@ def _phases(cs) -> dict:
             name: {k: row[k] for k in LLC_KEYS if k in row}
             for name, row in r.items()}),
         "llc_wide": (lambda dev: _llc_wide(cs, dev), lambda r: r),
+        # looked up when run: an older tree's chip_smoke.py has none
+        "time_noc": (lambda dev: cs.time_noc(dev), lambda r: {
+            k: r[k] for k in LLC_KEYS + ("cycles_run", "bound_ms")}),
     }
 
 

@@ -370,6 +370,23 @@ def _split_blocks(base, stride, count, sets: int, ways: int, bb: int,
     return split
 
 
+def walk_by_set(tags, age, set_a, tag_a, acc):
+    """One ``llc_set_walk`` over arrivals in trace order: ``set_a`` (N,)
+    int64 set of each arrival, ``tag_a`` (N,) int32 tag, ``acc`` (N,)
+    access count, from the state (tags, age) (sets, ways) int32.  Every
+    arrival is ranked within its set by a stable sort; round r takes
+    position first[s] + r of the set-sorted order.  Returns (hit (N,)
+    bool in arrival order, tags, age)."""
+    order = torch.sort(set_a, stable=True).indices
+    per_set = torch.bincount(set_a, minlength=tags.shape[0])
+    hit_s, tags, age = llc_ops.set_walk(
+        tags, age, tag_a[order], acc[order].to(torch.int32), per_set,
+        torch.cumsum(per_set, 0) - per_set)
+    hit = torch.empty_like(hit_s)
+    hit[order] = hit_s
+    return hit, tags, age
+
+
 def simulate_segments(segments, cfg: LLCConfig, state=None, *,
                       per_segment: bool = False,
                       collect_miss_runs: bool = False,
@@ -444,16 +461,7 @@ def simulate_segments(segments, cfg: LLCConfig, state=None, *,
     set_a = torch.remainder(block, sets)
     tag_a = fdiv(block, sets).to(torch.int32)
 
-    # rank every arrival within its set; round r takes position
-    # first[s] + r of the set-sorted order
-    order = torch.sort(set_a, stable=True).indices
-    per_set = torch.bincount(set_a, minlength=sets)
-    first = torch.cumsum(per_set, 0) - per_set
-    tag_s, acc_s = tag_a[order], acc[order].to(torch.int32)
-    hit_s, tags, age = llc_ops.set_walk(tags, age, tag_s, acc_s, per_set,
-                                        first)
-    hit_a = torch.empty(n_total, dtype=torch.bool, device=dev)
-    hit_a[order] = hit_s
+    hit_a, tags, age = walk_by_set(tags, age, set_a, tag_a, acc)
 
     seg_hits = torch.zeros(len(metas), dtype=torch.int64, device=dev)
     seg_hits.index_add_(0, seg_of, acc - 1 + hit_a.to(torch.int64))

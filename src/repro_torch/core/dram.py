@@ -49,15 +49,32 @@ def access_latencies(byte_addrs, *, banks: int, row_bytes: int,
     row = torch.div(as_address_tensor(byte_addrs, device=dev,
                                       what="DRAM byte address"),
                     row_bytes, rounding_mode="floor")
+    hit, _ = open_row_hits(row, banks)
+    return torch.where(hit, t_cas, t_rp + t_rcd + t_cas)
+
+
+def open_row_hits(row: torch.Tensor, banks: int):
+    """The open-row scan of the DRAM rows ``row`` (int64, in access
+    order) with every bank closed at the start: an access hits iff the
+    previous access to its bank opened the same row, so the scan is a
+    stable sort by bank and a neighbour compare.  Returns (hit bits in
+    access order, each bank's open row after the last access as a row
+    of that bank, -1 where none opened one)."""
     bank = torch.remainder(row, banks)
     row_of_bank = torch.div(row, banks, rounding_mode="floor")
     order = torch.sort(bank, stable=True).indices
     b_s, r_s = bank[order], row_of_bank[order]
+    same_bank = b_s[1:] == b_s[:-1]
     hit_s = torch.zeros_like(b_s, dtype=torch.bool)
-    hit_s[1:] = (b_s[1:] == b_s[:-1]) & (r_s[1:] == r_s[:-1])
+    hit_s[1:] = same_bank & (r_s[1:] == r_s[:-1])
     hit = torch.empty_like(hit_s)
     hit[order] = hit_s
-    return torch.where(hit, t_cas, t_rp + t_rcd + t_cas)
+    # each bank's last access: the end of its run in the sorted order
+    last = torch.ones_like(hit_s)
+    last[:-1] = ~same_bank
+    open_rows = torch.full((banks,), -1, dtype=torch.int64, device=row.device)
+    open_rows[b_s[last]] = r_s[last]
+    return hit, open_rows
 
 
 def row_hit_rate(byte_addrs, cfg: DRAMConfig, *, device=None) -> float:

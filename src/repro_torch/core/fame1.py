@@ -245,20 +245,34 @@ class FAME1Pipeline:
         n = len(self.components)
         inputs = tree_map(torch.as_tensor, inputs)
         t_total = _leaves(inputs)[0].shape[0]
-        if host_stalls is None:
-            h_total = max_host_cycles or (4 * t_total * (n + 1))
-            stalls = np.zeros((h_total, n), bool)
-        else:
-            stalls = (host_stalls.detach().cpu().numpy()
-                      if isinstance(host_stalls, torch.Tensor)
-                      else np.asarray(host_stalls)).astype(bool)
-            if early_exit:
-                # pre-compaction: an all-stall cycle cannot change target
-                # -visible behaviour (FAME-1 invariance), so skip it
-                stalls = stalls[~stalls.all(axis=1)]
-        h_total = stalls.shape[0]
-        fires, drained, cycles = _plan_fires(
-            stalls, h_total, t_total, n, chunk_cycles if early_exit else None)
+        fires, drained, cycles = plan_schedule(
+            t_total, n, host_stalls, max_host_cycles,
+            early_exit=early_exit, chunk_cycles=chunk_cycles)
         states, outs = self._replay(inputs, fires, drained)
         self.last_host_cycles = cycles
         return states, outs, drained
+
+
+def plan_schedule(t_total: int, n: int, host_stalls=None,
+                  max_host_cycles: int | None = None, *,
+                  early_exit: bool = True, chunk_cycles: int = 64
+                  ) -> tuple[list[int], int, int]:
+    """``FAME1Pipeline.run``'s host schedule for ``t_total`` tokens
+    through ``n`` components: (fires per component, tokens drained, the
+    reference scheduler's host cycles).  It depends only on the stall
+    schedule, never on token values, so a caller that computes the
+    components' steps another way (``socsim``'s card route) plans with it
+    too."""
+    if host_stalls is None:
+        h_total = max_host_cycles or (4 * t_total * (n + 1))
+        stalls = np.zeros((h_total, n), bool)
+    else:
+        stalls = (host_stalls.detach().cpu().numpy()
+                  if isinstance(host_stalls, torch.Tensor)
+                  else np.asarray(host_stalls)).astype(bool)
+        if early_exit:
+            # pre-compaction: an all-stall cycle cannot change target
+            # -visible behaviour (FAME-1 invariance), so skip it
+            stalls = stalls[~stalls.all(axis=1)]
+    return _plan_fires(stalls, stalls.shape[0], t_total, n,
+                       chunk_cycles if early_exit else None)

@@ -33,13 +33,16 @@ Two implementations, bit-identical for every bundle size
 
 * ``simulate_reference`` — a plain-Python per-cycle loop, the
   semantics oracle;
-* ``NoCSwitch.simulate`` — the same cycle function as a torch step over
-  FIFO state on ``device``, executed in FAME-1 *token bundles* of
-  ``bundle_cycles`` target cycles per host step via
-  ``fame1.chunked_scan``, which leaves the host loop at the first
-  bundle boundary after every flit has delivered.  Bundle padding
-  cycles are clock-gated no-ops, so results are invariant to the bundle
-  size — including bundles that do not divide the cycle count.
+* ``NoCSwitch.simulate`` — the same cycle function executed in FAME-1
+  *token bundles* of ``bundle_cycles`` target cycles, leaving at the
+  first bundle boundary after every flit has delivered
+  (``kernels.noc.ops.switch``): on ``cuda`` the whole loop is one launch
+  of the hand-written ``noc_switch`` kernel (``csrc/noc.cu``, a warp a
+  switch and a lane a port); on the CPU the plain version runs the
+  cycle as a torch step over FIFO state through ``fame1.chunked_scan``,
+  one host step a bundle.  Bundle padding cycles are clock-gated no-ops,
+  so results are invariant to the bundle size — including bundles that
+  do not divide the cycle count.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.fame1 import chunked_scan
+from repro_torch.kernels.noc import ops as noc_ops
 from repro_torch.utils.env import default_device
 
 
@@ -125,6 +128,20 @@ def _schedule_params(dests: np.ndarray, cfg: NoCConfig
     return total, horizon, depth
 
 
+def switch_args(dests, cfg: NoCConfig) -> tuple[torch.Tensor, dict]:
+    """The switch op's operands for an injection schedule, as
+    ``NoCSwitch.simulate`` hands them to ``kernels.noc.ops.switch``:
+    (dests (T, ports) int32 on the CPU, every negative entry -1; the
+    op's ``link`` / ``depth`` / ``total`` / ``h_pad`` keywords).
+    ``h_pad`` is the horizon padded to a power of two (padding rows
+    inject nothing), as the reference buckets its compiled programs."""
+    dests = np.asarray(dests, np.int64)
+    total, horizon, depth = _schedule_params(dests, cfg)
+    return (torch.as_tensor(np.where(dests >= 0, dests, -1).astype(np.int32)),
+            dict(link=cfg.link_latency, depth=depth, total=total,
+                 h_pad=1 << max(0, horizon - 1).bit_length()))
+
+
 def simulate_reference(dests, cfg: NoCConfig) -> NoCResult:
     """The per-cycle reference scheduler: one plain-Python iteration
     per target cycle, no batching — the oracle the token-bundle
@@ -167,54 +184,10 @@ def simulate_reference(dests, cfg: NoCConfig) -> NoCResult:
                      src=arr[:, 2], latency=arr[:, 3], cycles_run=c)
 
 
-def _switch_cycle(ports: int, link: int, depth: int, device):
-    """The switch's target-cycle step for ``chunked_scan``: carry is
-    (ts_buf, dst_buf, head, size, rr, delivered, target, ovf) — the
-    ingress FIFOs as (ports, depth) ring buffers of inject cycles and
-    destinations — and a cycle with ``active`` False changes nothing."""
-    p_idx = torch.arange(ports, device=device)
-
-    def cycle(carry, x, active):
-        ts_buf, dst_buf, head, size, rr, delivered, target, ovf = carry
-        dst_row, cyc = x
-        # inject: append this cycle's flits to the ingress FIFOs
-        has = active & (dst_row >= 0)
-        can = has & (size < depth)
-        pos = (head + size) % depth
-        ts_buf = ts_buf.index_put(
-            (p_idx, pos), torch.where(can, cyc, ts_buf[p_idx, pos]))
-        dst_buf = dst_buf.index_put(
-            (p_idx, pos), torch.where(can, dst_row, dst_buf[p_idx, pos]))
-        ovf = ovf | (has & ~can).any()
-        size = size + can.to(size.dtype)
-        # arbitrate: cycle-start heads, round-robin per egress
-        h_ts = ts_buf[p_idx, head]
-        h_dst = dst_buf[p_idx, head]
-        elig = active & (size > 0) & (h_ts + link <= cyc)
-        cand = elig[None, :] & (h_dst[None, :] == p_idx[:, None])
-        # rotation key of ingress p for egress e: (p - rr[e]) mod ports
-        key = torch.where(cand, (p_idx[None, :] - rr[:, None]) % ports, ports)
-        kmin, sel = key.min(dim=1)
-        granted = kmin < ports
-        # deliver: pop winners (an ingress head targets exactly one
-        # egress, so grants never collide on a port)
-        pop = (granted[:, None] & (p_idx[None, :] == sel[:, None])).any(0)
-        lat = torch.where(granted, cyc - h_ts[sel], 0)
-        src = torch.where(granted, sel, -1)
-        head = (head + pop.to(head.dtype)) % depth
-        size = size - pop.to(size.dtype)
-        rr = torch.where(granted, (sel + 1) % ports, rr)
-        delivered = delivered + granted.sum()
-        carry = (ts_buf, dst_buf, head, size, rr, delivered, target, ovf)
-        return carry, (granted, src, lat)
-
-    return cycle
-
-
 class NoCSwitch:
     """The token-bundle switch: ``simulate`` runs the whole farm's
-    injection schedule over FIFO state on ``device`` (``cuda`` when
-    None), k target cycles per host step."""
+    injection schedule on ``device`` (``cuda`` when None: one kernel
+    launch), k target cycles a bundle."""
 
     def __init__(self, cfg: NoCConfig | None = None, *, device=None):
         self.cfg = cfg or NoCConfig()
@@ -225,43 +198,25 @@ class NoCSwitch:
         the flit port p injects at cycle c, or -1 for none.  Returns
         the delivery log; raises ``NoCOverflowError`` if a finite
         ``queue_depth`` dropped a flit."""
-        dests = np.asarray(dests, np.int64)
-        total, horizon, depth = _schedule_params(dests, self.cfg)
-        ports, dev = self.cfg.ports, self.device
-        # the horizon padded to a power of two (padding rows inject
-        # nothing), as the reference buckets its compiled programs
-        h_pad = 1 << max(0, horizon - 1).bit_length()
-        sched = np.full((h_pad, ports), -1, np.int64)
-        sched[:dests.shape[0]] = dests
-        zeros = torch.zeros(ports, dtype=torch.int64, device=dev)
-        init = (torch.zeros((ports, depth), dtype=torch.int64, device=dev),
-                torch.full((ports, depth), -1, dtype=torch.int64,
-                           device=dev),
-                zeros, zeros, zeros,
-                torch.zeros((), dtype=torch.int64, device=dev),
-                torch.tensor(total, device=dev),
-                torch.zeros((), dtype=torch.bool, device=dev))
+        dests, kw = switch_args(dests, self.cfg)
         bundle = int(bundle_cycles)
-        carry, (granted, src, lat), bundles = chunked_scan(
-            _switch_cycle(ports, self.cfg.link_latency, depth, dev), init,
-            (torch.as_tensor(sched, device=dev),
-             torch.arange(h_pad, device=dev)),
-            cont_fn=lambda c: c[5] < c[6], chunk_len=bundle)
-        delivered, ovf = int(carry[5]), bool(carry[7])
-        if ovf:
+        if bundle < 1:
+            raise ValueError(f"bundle_cycles must be >= 1, got {bundle}")
+        run = noc_ops.switch(dests.to(self.device), bundle=bundle, **kw)
+        if run.overflow:
             raise NoCOverflowError(
-                f"an ingress FIFO overflowed depth {depth}; deepen "
+                f"an ingress FIFO overflowed depth {kw['depth']}; deepen "
                 "queue_depth or thin the injection schedule")
-        if delivered != total:
+        if run.delivered != kw["total"]:
             raise RuntimeError(
-                f"switch delivered {delivered}/{total} flits within "
-                f"the {h_pad}-cycle horizon — scheduler invariant broken")
-        granted = granted.cpu().numpy()
-        cyc_i, egr_i = np.nonzero(granted)         # row-major: cycle-major
+                f"switch delivered {run.delivered}/{kw['total']} flits "
+                f"within the {kw['h_pad']}-cycle horizon — scheduler "
+                "invariant broken")
+        cyc_i, egr_i = np.nonzero(run.granted.numpy())  # cycle-major
         return NoCResult(
             deliver_cycle=cyc_i.astype(np.int64),
             egress=egr_i.astype(np.int64),
-            src=src.cpu().numpy()[cyc_i, egr_i].astype(np.int64),
-            latency=lat.cpu().numpy()[cyc_i, egr_i].astype(np.int64),
-            cycles_run=int(min(bundles * bundle, h_pad)),
-            host_steps=int(bundles))
+            src=run.src.numpy()[cyc_i, egr_i].astype(np.int64),
+            latency=run.lat.numpy()[cyc_i, egr_i].astype(np.int64),
+            cycles_run=int(min(run.bundles * bundle, kw["h_pad"])),
+            host_steps=int(run.bundles))

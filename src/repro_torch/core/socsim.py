@@ -12,7 +12,12 @@ reference package under random schedules).
 This is the mechanism layer under ``repro_torch.core.accelerator``'s
 closed-form timing: where the closed form aggregates streams
 statistically, this pipeline replays an actual burst trace cycle by
-cycle, each component's state a tensor on the device.  For latency
+cycle, each component's state a tensor on the device.  On the CPU the
+generic ``FAME1Pipeline`` steps each component once a fired token (the
+plain version); on ``cuda`` ``simulate_dbb_stream`` plans the same fires
+on the host and computes the components' steps with no per-token op:
+the LLC as one ``llc_set_walk`` launch, the DRAM by a sort and a
+neighbour compare over the misses (``_stream_on_card``).  For latency
 *totals* ``simulate_dbb_segments`` composes the compressed segment
 engine (``repro_torch.core.cache.simulate_segments``) with the
 closed-form DRAM row model (``repro_torch.core.dram.segment_row_hits``),
@@ -28,10 +33,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.cache import LLCConfig
+from repro_torch.core.cache import LLCConfig, walk_by_set
 from repro_torch.utils.address import fdiv
-from repro_torch.core.dram import DRAMConfig
-from repro_torch.core.fame1 import Component, FAME1Pipeline
+from repro_torch.core.dram import DRAMConfig, open_row_hits
+from repro_torch.core.fame1 import Component, FAME1Pipeline, plan_schedule
 from repro_torch.utils.env import as_address_tensor, default_device
 
 
@@ -109,23 +114,81 @@ def simulate_dbb_stream(byte_addrs, *, llc: LLCConfig,
     stall that component that host cycle), made by the caller from a
     seeded generator.  ``early_exit=False`` replays the fixed-length
     host schedule; results are bit-identical either way, and
-    ``host_cycles`` is the reference scheduler's exact count.
+    ``host_cycles`` is the reference scheduler's exact count.  On
+    ``cuda`` the LLC is one ``llc_set_walk`` launch, which takes 1..128
+    ways (``kernels.llc.kernel.MAX_WAYS``): more raise there, with no
+    plain fallback; the CPU replays any way count.
     """
     dev = default_device(device)
     dram = dram or DRAMConfig()
     addrs = as_address_tensor(byte_addrs, device=dev,
                               what="DBB byte address")
+    max_host = host_stalls.shape[0] if host_stalls is not None else None
+    t = addrs.shape[0]
+    if _on_card(addrs):
+        fires, drained, cycles = plan_schedule(
+            t, 2, host_stalls, max_host, early_exit=early_exit)
+        _, lats = _stream_on_card(addrs, llc, dram, fires, drained)
+        return MemPipelineResult(latencies=lats, total_cycles=lats.sum(),
+                                 host_cycles=cycles)
     pipe = FAME1Pipeline([llc_component(llc, device=dev),
                           dram_component(llc, dram, device=dev)])
     _, lats, _ = pipe.run(addrs, host_stalls=host_stalls,
-                          max_host_cycles=(host_stalls.shape[0]
-                                           if host_stalls is not None
-                                           else None),
-                          early_exit=early_exit)
-    t = addrs.shape[0]
+                          max_host_cycles=max_host, early_exit=early_exit)
     return MemPipelineResult(latencies=lats[:t],
                              total_cycles=lats[:t].sum(),
                              host_cycles=pipe.last_host_cycles)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lies on a CUDA device, where the stream takes the
+    kernel route."""
+    return x.device.type == "cuda"
+
+
+def _stream_on_card(addrs: torch.Tensor, llc: LLCConfig, dram: DRAMConfig,
+                    fires: list[int], drained: int, t_llc_hit: int = 20):
+    """The planned pipeline's target-visible result without a per-token
+    op: what ``FAME1Pipeline.run`` over ``llc_component`` and
+    ``dram_component`` returns for the host schedule ``fires`` /
+    ``drained`` (``fame1.plan_schedule``), bit for bit.
+
+    The LLC component over its first ``fires[0]`` tokens is one
+    ``llc_set_walk`` launch from a cold state (``cache.walk_by_set``):
+    every access count 1, the arrivals ranked by set with a stable sort,
+    tags made dense by ``torch.unique`` (the walk only tests them for
+    equality; the final tags map back), so that address-wide tags never
+    pass through int32.  The DRAM component over the first
+    ``fires[1]`` LLC outputs: an LLC miss hits its row iff the previous
+    miss to its bank opened the same row (hits leave the open rows
+    alone), a stable sort of the misses by bank and a neighbour compare.
+    Returns (((tags int64, age int32), open_rows int64), latencies (T,)
+    int32, zero past ``drained``)."""
+    dev = addrs.device
+    n_llc, n_dram = fires
+    sets, ways, bb = llc.sets, llc.ways, llc.block_bytes
+    block = fdiv(addrs[:n_llc], bb)
+    set_a = torch.remainder(block, sets)
+    tags = torch.full((sets, ways), -1, dtype=torch.int64, device=dev)
+    age = torch.zeros((sets, ways), dtype=torch.int32, device=dev)
+    hit = torch.zeros(n_llc, dtype=torch.bool, device=dev)
+    if n_llc:
+        uniq, tag_a = torch.unique(fdiv(block, sets), return_inverse=True)
+        hit, dense, age = walk_by_set(
+            tags.to(torch.int32), age, set_a, tag_a.to(torch.int32),
+            torch.ones(n_llc, dtype=torch.int32, device=dev))
+        tags = torch.where(dense >= 0, uniq[dense.clamp(min=0).long()], -1)
+
+    t_miss = dram.t_rp_cycles + dram.t_rcd_cycles + dram.t_cas_cycles
+    miss = torch.nonzero(~hit[:n_dram]).flatten()
+    row_hit, open_rows = open_row_hits(fdiv(addrs[miss], dram.row_bytes),
+                                       dram.banks)
+    lat = torch.full((n_dram,), t_llc_hit, dtype=torch.int32, device=dev)
+    lat[miss] = (t_llc_hit + torch.where(row_hit, dram.t_cas_cycles,
+                                         t_miss)).to(torch.int32)
+    out = torch.zeros(addrs.shape[0], dtype=torch.int32, device=dev)
+    out[:drained] = lat[:drained]
+    return ((tags, age), open_rows), out
 
 
 # --------------------------------------------------------------------------

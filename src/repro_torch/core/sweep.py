@@ -60,9 +60,11 @@ from repro_torch.core.cache import (
     LaneBatch,
     LLCConfig,
     _TouchedBlocks,
+    cold_state,
     segment_lane_scan,
     segment_lane_scan_many,
     simulate_segments,
+    walk_by_set,
 )
 from repro_torch.utils.env import as_address_tensor, default_device
 
@@ -196,8 +198,12 @@ def _simulate_padded(block_addrs, sets, ways, *, max_sets: int,
     choice with its first-index tie-break, is the per-set age order);
     ways >= a lane's ``ways`` never match and never win victim
     selection.  One step per access: serial depth O(T).  Returns (L, T)
-    bool hit bits."""
+    bool hit bits.  This loop is the plain version; on ``cuda`` the
+    lanes go through ``_padded_set_walks``, one ``llc_set_walk`` launch a
+    way count."""
     block = torch.as_tensor(block_addrs, dtype=torch.int64, device=device)
+    if _on_card(block):
+        return _padded_set_walks(block, sets, ways)
     sets_d = torch.as_tensor(np.asarray(sets, np.int64), device=device)
     ways_d = torch.as_tensor(np.asarray(ways, np.int64), device=device)
     n_lane, n_acc = block.shape
@@ -226,6 +232,46 @@ def _simulate_padded(block_addrs, sets, ways, *, max_sets: int,
     return hits
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lies on a CUDA device, where the per-access lanes
+    take the kernel route."""
+    return x.device.type == "cuda"
+
+
+def _padded_set_walks(block: torch.Tensor, sets, ways) -> torch.Tensor:
+    """``_simulate_padded``'s hit bits by one ``llc_set_walk`` launch a
+    distinct way count.  A group's lanes become one geometry of their
+    sets laid end to end (lane offsets the running sum of the lanes'
+    sets); each lane's accesses keep their order within a set, every
+    access count is 1 and the tags are the reference's int32.  The
+    per-set age walk picks every victim the timestamp LRU picks (the
+    recency order of the touched ways, the first index among the
+    never-touched), so the hits are the padded loop's, bit for bit."""
+    dev = block.device
+    n_lane, n_acc = block.shape
+    sets, ways = np.asarray(sets, np.int64), np.asarray(ways, np.int64)
+    hits = torch.zeros((n_lane, n_acc), dtype=torch.bool, device=dev)
+    if n_acc == 0:
+        return hits
+    # widest group first: a way count past the kernel's bound raises
+    # before any launch
+    for w in np.unique(ways)[::-1]:
+        lanes = np.nonzero(ways == w)[0]
+        lane_sets = sets[lanes]
+        sets_d = torch.as_tensor(lane_sets, device=dev)[:, None]
+        offset = torch.as_tensor(np.cumsum(lane_sets) - lane_sets,
+                                 device=dev)[:, None]
+        blk = block[torch.as_tensor(lanes, device=dev)]
+        fused = (torch.remainder(blk, sets_d) + offset).flatten()
+        tag = torch.div(blk, sets_d, rounding_mode="floor").to(
+            torch.int32).flatten()
+        hit, _, _ = walk_by_set(*cold_state(int(lane_sets.sum()), int(w),
+                                            device=dev),
+                                fused, tag, torch.ones_like(tag))
+        hits[torch.as_tensor(lanes, device=dev)] = hit.view(len(lanes), n_acc)
+    return hits
+
+
 _EXPANDED_TRACE_DEPRECATION = (
     "the expanded-trace per-access lanes are deprecated: serial depth is "
     "O(accesses) per lane.  Use the segment-lane API "
@@ -248,7 +294,10 @@ def batched_hits(byte_addrs, configs: list[LLCConfig], *,
                  device=None) -> np.ndarray:
     """(n_cfg, T) per-access hit bits of one byte trace — every lane
     bit-identical to the unbatched ``simulate_trace`` at that geometry,
-    replayed on ``device`` (``cuda`` when None).
+    replayed on ``device`` (``cuda`` when None).  On ``cuda`` the lanes
+    walk by ``llc_set_walk``, which takes 1..128 ways
+    (``kernels.llc.kernel.MAX_WAYS``): more raise there, with no plain
+    fallback; the CPU loop takes any way count.
 
     .. deprecated:: kept only as a parity oracle for the segment-lane
        engine; use ``segment_lane_hit_counts``."""
@@ -263,7 +312,8 @@ def batched_hit_rates(byte_addrs, configs: list[LLCConfig], *,
                       device=None) -> np.ndarray:
     """(n_cfg,) float32 hit rates of ``batched_hits``' lanes, as the
     reference's mean computes them: each lane's hit count times the
-    float32 reciprocal of T."""
+    float32 reciprocal of T.  On ``cuda`` 1..128 ways, as
+    ``batched_hits``."""
     warnings.warn(_EXPANDED_TRACE_DEPRECATION, DeprecationWarning,
                   stacklevel=2)
     addrs = np.asarray(byte_addrs, np.int64)[None, :]
@@ -275,7 +325,8 @@ def batched_hit_rates(byte_addrs, configs: list[LLCConfig], *,
 
 def batched_hits_per_trace(byte_addrs_2d, configs: list[LLCConfig], *,
                            device=None) -> np.ndarray:
-    """Like ``batched_hits`` but with one trace per lane (n_cfg, T).
+    """Like ``batched_hits`` but with one trace per lane (n_cfg, T);
+    on ``cuda`` 1..128 ways, as ``batched_hits``.
 
     .. deprecated:: the interference sweep feeds compressed co-runner
        lanes to the segment engine (``interference_lane_metrics_batch``)."""

@@ -935,3 +935,66 @@ def test_engines_on_card_are_the_cpu_engines():
     assert K.lane_scan_launches == before + 1
     np.testing.assert_array_equal(
         got, sweep.segment_lane_hit_counts(frame, cfgs, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dbb_stream_on_card_is_one_walk_and_the_plain_replay(seed):
+    """``socsim.simulate_dbb_stream`` on the card makes one set-walk
+    launch and gives the CPU route's (the generic pipeline's) latencies,
+    total and host cycles under seeded random stalls, and its final LLC
+    and DRAM states."""
+    from repro_torch.core import fame1, socsim
+    from repro_torch.core.dram import DRAMConfig
+
+    dev = _card()
+    rng = np.random.default_rng(seed)
+    addrs = np.concatenate([rng.integers(0, 1 << 16, 600) * 32,
+                            rng.integers(0, 1 << 35, 200) * 32])
+    stalls = rng.random((3 * addrs.shape[0], 2)) < 0.35
+    llc = LLCConfig(16384, 4, 64)
+    for early_exit in (True, False):
+        before = K.set_walk_launches
+        got = socsim.simulate_dbb_stream(addrs, llc=llc, host_stalls=stalls,
+                                         early_exit=early_exit, device=dev)
+        assert K.set_walk_launches == before + 1
+        want = socsim.simulate_dbb_stream(addrs, llc=llc, host_stalls=stalls,
+                                          early_exit=early_exit, device="cpu")
+        assert torch.equal(got.latencies.cpu(), want.latencies)
+        assert int(got.total_cycles) == int(want.total_cycles)
+        assert got.host_cycles == want.host_cycles
+        a = torch.as_tensor(addrs)
+        fires, drained, _ = fame1.plan_schedule(
+            a.shape[0], 2, stalls, stalls.shape[0], early_exit=early_exit)
+        (tags, age), rows = socsim._stream_on_card(
+            a.to(dev), llc, DRAMConfig(), fires, drained)[0]
+        pipe = fame1.FAME1Pipeline([
+            socsim.llc_component(llc, device="cpu"),
+            socsim.dram_component(llc, DRAMConfig(), device="cpu")])
+        ((w_tags, w_age), w_rows), _, _ = pipe.run(
+            a, host_stalls=stalls, max_host_cycles=stalls.shape[0],
+            early_exit=early_exit)
+        for g, w in ((tags, w_tags), (age, w_age), (rows, w_rows)):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_padded_lanes_on_card_are_the_plain_loop():
+    """``sweep.batched_hits`` on the card makes one set walk a distinct
+    way count and equals the plain per-access loop on the CPU, on
+    Fig. 5's 21 geometries over a 4,096-burst window."""
+    import warnings
+
+    from repro_torch.core import sweep, traces
+
+    dev = _card()
+    addrs = traces.expand(traces.default_dbb_window(max_bursts=4096))
+    cfgs = list(sweep.grid_configs((0.5, 2, 8, 64, 512, 1024, 4096),
+                                   (32, 64, 128)).values())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        before = K.set_walk_launches
+        got = sweep.batched_hits(addrs, cfgs, device=dev)
+        assert K.set_walk_launches == before + len({c.ways for c in cfgs})
+        want = sweep.batched_hits(addrs, cfgs, device="cpu")
+    np.testing.assert_array_equal(got, want)

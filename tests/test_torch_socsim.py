@@ -106,6 +106,113 @@ def test_dbb_stream_matches_reference_on_a_layer_window(early_exit):
         assert got.host_cycles == want.host_cycles
 
 
+def _card_route(monkeypatch, calls):
+    """The stream's card route on the CPU: the LLC walk's launch stood in
+    for by ``tests/test_torch_llc.py``'s numpy emulation of
+    ``llc_set_walk``, the plain walk and the generic replay refused."""
+    from test_torch_llc import _no_plain, _set_walk_stand_in
+
+    from repro_torch.kernels.llc import kernel as llc_k
+    from repro_torch.kernels.llc import ops as llc_ops
+    from repro_torch.kernels.llc import ref as llc_ref
+
+    monkeypatch.setattr(t_soc, "_on_card", lambda x: True)
+    monkeypatch.setattr(llc_ops, "_device_type", lambda x: "cuda")
+    monkeypatch.setattr(llc_ref, "set_walk_ref", _no_plain)
+    monkeypatch.setattr(llc_k, "set_walk_kernel", _set_walk_stand_in(calls))
+    monkeypatch.setattr(t_soc.FAME1Pipeline, "_replay", _no_plain)
+
+
+def _wide_trace(rng, n: int) -> np.ndarray:
+    """Bursts spread over the 40-bit address space: at one set, block //
+    sets passes 2**31."""
+    return (rng.integers(0, 1 << 35, n) * 32).astype(np.int64)
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_card_route_is_the_reference_and_the_generic_pipeline(
+        monkeypatch, seed, early_exit):
+    """``simulate_dbb_stream``'s card route (one set walk, emulated; the
+    DRAM by sort and compare) under seeded random stalls: latencies,
+    total and host cycles equal to the reference's, and the final LLC
+    and DRAM states (``_stream_on_card``) to the generic pipeline's."""
+    from repro_torch.core.fame1 import FAME1Pipeline, plan_schedule
+
+    rng = np.random.default_rng(seed)
+    addrs = np.concatenate([_trace(), rng.integers(0, 1 << 14, 80) * 32])
+    stalls = rng.random((3 * addrs.shape[0], 2)) < 0.35
+    llc = LLC if seed != 2 else LLCConfig(size_bytes=2048, ways=2,
+                                          block_bytes=32)
+    want = _j_stream(addrs, llc=j_cache.LLCConfig(
+        llc.size_bytes, llc.ways, llc.block_bytes),
+        host_stalls=jnp.asarray(stalls), early_exit=early_exit)
+    a = torch.as_tensor(addrs)
+    pipe = FAME1Pipeline([t_soc.llc_component(llc, device=CPU),
+                          t_soc.dram_component(llc, DRAMConfig(),
+                                               device=CPU)])
+    states, _, _ = pipe.run(a, host_stalls=stalls,
+                            max_host_cycles=stalls.shape[0],
+                            early_exit=early_exit)
+    calls = []
+    _card_route(monkeypatch, calls)
+    got = t_soc.simulate_dbb_stream(addrs, llc=llc, host_stalls=stalls,
+                                    early_exit=early_exit, device=CPU)
+    assert calls == ["set_walk"]
+    np.testing.assert_array_equal(got.latencies.numpy(),
+                                  np.asarray(want.latencies))
+    assert int(got.total_cycles) == int(want.total_cycles)
+    assert got.host_cycles == want.host_cycles
+    fires, drained, _ = plan_schedule(a.shape[0], 2, stalls, stalls.shape[0],
+                                      early_exit=early_exit)
+    (tags, age), open_rows = t_soc._stream_on_card(
+        a, llc, DRAMConfig(), fires, drained)[0]
+    (w_tags, w_age), w_rows = states
+    for g, w in ((tags, w_tags), (age, w_age), (open_rows, w_rows)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_card_route_keeps_address_wide_tags(monkeypatch, early_exit):
+    """At one set, tags (block // sets) pass 2**31: the card route walks
+    them as dense indices and maps them back, equal to the port's plain
+    replay (the reference runs int32 without x64)."""
+    rng = np.random.default_rng(7)
+    one_set = LLCConfig(size_bytes=4 * 64, ways=4, block_bytes=64)
+    addrs = _wide_trace(rng, 96)
+    addrs[1::3] = addrs[::3][:addrs[1::3].shape[0]]   # reuse: hits
+    assert (addrs // 64).max() >= 2**31
+    stalls = rng.random((300, 2)) < 0.35
+    want = t_soc.simulate_dbb_stream(addrs, llc=one_set, host_stalls=stalls,
+                                     early_exit=early_exit, device=CPU)
+    assert (want.latencies.numpy() == 20).any()
+    calls = []
+    _card_route(monkeypatch, calls)
+    got = t_soc.simulate_dbb_stream(addrs, llc=one_set, host_stalls=stalls,
+                                    early_exit=early_exit, device=CPU)
+    assert calls == ["set_walk"]
+    assert torch.equal(got.latencies, want.latencies)
+    assert got.host_cycles == want.host_cycles
+
+
+def test_card_route_raises_past_the_kernels_ways(monkeypatch):
+    """On the card the stream's LLC is one set walk, which takes 1..128
+    ways: a 256-way LLC raises there with no launch and no plain replay
+    (the CPU replays it)."""
+    from repro_torch.kernels.llc import kernel as llc_k
+
+    ways = 2 * llc_k.MAX_WAYS
+    wide = LLCConfig(size_bytes=64 * ways, ways=ways, block_bytes=64)
+    addrs = np.arange(64, dtype=np.int64) * 64
+    assert t_soc.simulate_dbb_stream(addrs, llc=wide,
+                                     device=CPU).latencies.shape == (64,)
+    calls = []
+    _card_route(monkeypatch, calls)
+    with pytest.raises(ValueError, match=f"1..{llc_k.MAX_WAYS} ways"):
+        t_soc.simulate_dbb_stream(addrs, llc=wide, device=CPU)
+    assert calls == []
+
+
 def test_dram_row_locality_visible_through_pipeline():
     dram = DRAMConfig()
     tiny = LLCConfig(size_bytes=64, ways=1, block_bytes=64)

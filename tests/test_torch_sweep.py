@@ -447,6 +447,80 @@ def test_per_access_oracles_match_reference_and_lanes():
         t_sweep.segment_lane_hit_rates(segs, configs, device=CPU))
 
 
+def test_padded_lanes_card_route_is_the_reference(monkeypatch):
+    """On a CUDA device ``_simulate_padded`` runs one ``llc_set_walk``
+    launch a distinct way count (emulated here by
+    ``tests/test_torch_llc.py``'s numpy copy of the kernel) over each
+    group's lanes laid end to end: ``batched_hits``, ``batched_hit_rates``
+    and ``batched_hits_per_trace`` on lanes of mixed ways and sets equal
+    the reference's, with their warnings."""
+    from test_torch_llc import _no_plain, _set_walk_stand_in
+
+    from repro_torch.kernels.llc import kernel as llc_k
+    from repro_torch.kernels.llc import ops as llc_ops
+    from repro_torch.kernels.llc import ref as llc_ref
+
+    segs, _ = _window(256)
+    addrs = t_tr.expand(segs)
+    configs = [LLC, LLCConfig(512, 8, 64), LLCConfig(2048, 2, 32),
+               LLCConfig(4096, 4, 128), LLCConfig(192, 3, 64),
+               LLCConfig(64 * 8, 8, 64)]
+    j_configs = [_jllc(c) for c in configs]
+    per_trace = np.stack([addrs, addrs[::-1].copy(), addrs + 4096,
+                          addrs // 2, addrs + 64, addrs[::-1] + 8192])
+    with pytest.warns(DeprecationWarning):
+        want = (np.asarray(j_sweep.batched_hits(addrs, j_configs)),
+                np.asarray(j_sweep.batched_hit_rates(addrs, j_configs)),
+                np.asarray(j_sweep.batched_hits_per_trace(per_trace,
+                                                          j_configs)))
+    calls = []
+    monkeypatch.setattr(t_sweep, "_on_card", lambda x: True)
+    monkeypatch.setattr(llc_ops, "_device_type", lambda x: "cuda")
+    monkeypatch.setattr(llc_ref, "set_walk_ref", _no_plain)
+    monkeypatch.setattr(llc_k, "set_walk_kernel", _set_walk_stand_in(calls))
+    with pytest.warns(DeprecationWarning, match="expanded-trace"):
+        got = (t_sweep.batched_hits(addrs, configs, device=CPU),
+               t_sweep.batched_hit_rates(addrs, configs, device=CPU),
+               t_sweep.batched_hits_per_trace(per_trace, configs,
+                                              device=CPU))
+    n_ways = len({c.ways for c in configs})
+    assert calls == ["set_walk"] * (3 * n_ways)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["batched_hits", "batched_hit_rates",
+                                  "batched_hits_per_trace"])
+def test_padded_lanes_card_route_raises_past_the_kernels_ways(monkeypatch,
+                                                              name):
+    """On the card the padded lanes walk by ``llc_set_walk``, which takes
+    1..128 ways: a 256-way lane raises there with no launch and no plain
+    loop (the CPU loop takes it)."""
+    from test_torch_llc import _no_plain, _set_walk_stand_in
+
+    from repro_torch.kernels.llc import kernel as llc_k
+    from repro_torch.kernels.llc import ops as llc_ops
+    from repro_torch.kernels.llc import ref as llc_ref
+
+    ways = 2 * llc_k.MAX_WAYS
+    configs = [LLC, LLCConfig(64 * ways, ways, 64)]
+    addrs = t_tr.expand(_window(64)[0])
+    arg = np.stack([addrs, addrs]) if name == "batched_hits_per_trace" \
+        else addrs
+    with pytest.warns(DeprecationWarning):
+        getattr(t_sweep, name)(arg, configs, device=CPU)
+    calls = []
+    monkeypatch.setattr(t_sweep, "_on_card", lambda x: True)
+    monkeypatch.setattr(llc_ops, "_device_type", lambda x: "cuda")
+    monkeypatch.setattr(llc_ref, "set_walk_ref", _no_plain)
+    monkeypatch.setattr(llc_k, "set_walk_kernel", _set_walk_stand_in(calls))
+    with pytest.warns(DeprecationWarning), \
+            pytest.raises(ValueError, match=f"1..{llc_k.MAX_WAYS} ways"):
+        getattr(t_sweep, name)(arg, configs, device=CPU)
+    assert calls == []
+
+
 @pytest.mark.parametrize("name", ["batched_hits", "batched_hit_rates",
                                   "batched_hits_per_trace"])
 def test_deprecated_oracles_warn_at_the_callers_line(name):
