@@ -122,7 +122,18 @@ port's paths through them:
   longest chain and the SM clock; every path above that replays the LLC
   (the simulated
   frame, Fig. 5 / 6, the lanes, the campaign, the farm, every serving
-  oracle) runs through them, their launches counted by phase.
+  oracle) runs through them, their launches counted by phase;
+* the widths the reference runs past the thread routes' 128 ways and
+  the one-warp switch's 32 ports (``wide_path``): ``simulate_trace`` on
+  the card (one set walk a call) at 8, 256, 1,024 and 200 ways, the
+  lane engine, ``simulate_segments`` / ``hit_rate`` and the FAME-1
+  stream at 4,096, 256 and 1,024 ways and a lane masked by a negative
+  mask at 256 ways, the farm at 32 and 64 ports and switches of 33, 64
+  and 1,000 ports, each held to its plain version on the card and to
+  the reference's anchors; each wide route (a warp a set, a warp a lane
+  set, a block a switch) timed beside its dependency floor
+  (``scripts/llc_sass.py``), with the routes whose state passes shared
+  memory (30,000 ways, a 13,000-way lane slot, 7,000 ports).
 
 Before the paths it times every kernel beside its plain version, a
 PyTorch library call where one computes the same function, and its
@@ -896,9 +907,15 @@ def check_llc(dev) -> dict:
     from repro_torch.kernels.llc import ops, ref
 
     phase("llc kernels against their plain versions")
-    if K.built_max_ways() != K.MAX_WAYS:
-        raise AssertionError(f"llc.cu takes up to {K.built_max_ways()} ways,"
-                             f" kernel.MAX_WAYS says {K.MAX_WAYS}")
+    bounds = (K.THREAD_WAYS, K.REG_WAYS, K.SHARED_BYTES)
+    if K.built_bounds() != bounds:
+        raise AssertionError(f"llc.cu's route bounds {K.built_bounds()}, "
+                             f"kernel.py says {bounds}")
+    for ways in (129, 256, 1000, 4096, 12672, 30000):
+        if K.built_wide_slot_bytes(ways) != K.wide_slot_bytes(ways):
+            raise AssertionError(f"llc.cu's warp-route slot at {ways} ways: "
+                                 f"{K.built_wide_slot_bytes(ways)} bytes, "
+                                 f"kernel.py {K.wide_slot_bytes(ways)}")
     if K.built_scan_threads() != K.SCAN_THREADS:
         raise AssertionError(f"llc.cu's lane-scan blocks have "
                              f"{K.built_scan_threads()} threads, the block "
@@ -993,6 +1010,46 @@ def sim_counted(by_path: dict, fn, *args):
     return out
 
 
+class Uncounted:
+    """Leaves the simulator kernels' launch counts as they were: the
+    launches made while active compare a kernel with its plain version
+    or time it, and are not the main path's."""
+
+    def __enter__(self):
+        from repro_torch.kernels.llc import kernel as K
+        from repro_torch.kernels.noc import kernel as noc_k
+
+        self.saved = (K.set_walk_launches, K.lane_scan_launches,
+                      noc_k.launches)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.llc import kernel as K
+        from repro_torch.kernels.noc import kernel as noc_k
+
+        K.set_walk_launches, K.lane_scan_launches, noc_k.launches = \
+            self.saved
+
+
+class Recorder:
+    """Records the calls of ``name`` in ``module`` while active, calling
+    through."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+        self.fn = getattr(module, name)
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            self.calls.append((args, kw))
+            return self.fn(*args, **kw)
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
 def set_walk_bytes(args) -> int:
     """Bytes a set walk must move once: the state read and written, the
     arrivals (tag and count) and each set's count and start read, a hit
@@ -1067,25 +1124,15 @@ def time_llc(dev) -> dict:
     from repro_torch.serve import PagedKVCache, SoCLatencyOracle
 
     phase("llc kernels: card time at the main paths' shapes")
-    walks, scans = [], []
     set_walk, lane_scan_many = ops.set_walk, ops.lane_scan_many
-
-    def walk_rec(*args):
-        walks.append(args)
-        return set_walk(*args)
-
-    def scan_rec(buckets, **kw):
-        scans.append((buckets, kw))
-        return lane_scan_many(buckets, **kw)
-
     run = swa_serve_runs()[LLC_ORACLE_ARCH]
     ws = decode_working_set(get_config(LLC_ORACLE_ARCH))
     kv = PagedKVCache(num_blocks=run["kv_blocks"], block_size=16,
                       token_bytes=ws.kv_token_bytes)
     for rid in range(4):
         kv.admit(rid, run["lengths"][0], run["max_new"])
-    ops.set_walk, ops.lane_scan_many = walk_rec, scan_rec
-    try:
+    with Recorder(ops, "set_walk") as walk_calls, \
+            Recorder(ops, "lane_scan_many") as scan_calls:
         t0 = time.perf_counter()
         SoCLatencyOracle(ws, weight_bytes=run["weight_bytes"],
                          device=dev).decode_step(kv, [0, 1, 2, 3])
@@ -1093,8 +1140,8 @@ def time_llc(dev) -> dict:
         t0 = time.perf_counter()
         sweep_llc(window_bursts=None, device=dev)
         frame_s = time.perf_counter() - t0
-    finally:
-        ops.set_walk, ops.lane_scan_many = set_walk, lane_scan_many
+    walks = [args for args, _ in walk_calls.calls]
+    scans = [(args[0], kw) for args, kw in scan_calls.calls]
     out = {}
     walk = max(walks, key=lambda a: a[2].numel())
     nbytes = set_walk_bytes(walk)
@@ -1212,13 +1259,17 @@ def check_noc(dev) -> float:
     from repro_torch.kernels.noc import ops, ref
 
     phase("noc switch kernel against its plain version")
-    if (K.built_max_ports(), K.built_shared_fifo_bytes()) != \
-            (K.MAX_PORTS, K.SHARED_FIFO_BYTES):
-        raise AssertionError(
-            f"noc.cu takes {K.built_max_ports()} ports and "
-            f"{K.built_shared_fifo_bytes()} bytes of rings on chip; "
-            f"kernel.py says {K.MAX_PORTS}, {K.SHARED_FIFO_BYTES}")
-    check_ptxas("noc", ("noc_switch_kernel",), 1)
+    bounds = (K.WARP_PORTS, K.WIDE_THREADS, K.STAGE_INTS,
+              K.SHARED_FIFO_BYTES)
+    if K.built_bounds() != bounds:
+        raise AssertionError(f"noc.cu's bounds {K.built_bounds()}, "
+                             f"kernel.py says {bounds}")
+    for ports in (33, 64, 100, 1000, 5000, 7000):
+        if K.built_table_bytes(ports) != K.table_bytes(ports):
+            raise AssertionError(f"noc.cu's port table at {ports} ports: "
+                                 f"{K.built_table_bytes(ports)} bytes, "
+                                 f"kernel.py {K.table_bytes(ports)}")
+    check_ptxas("noc", ("noc_switch_kernel", "noc_switch_wide_kernel"), 2)
     cases = []
     for n in NOC_NODES:
         sched, farm = farm_noc_schedule(n)
@@ -1287,7 +1338,7 @@ def time_noc(dev) -> dict:
                 for _ in range(2))
     n_chunks = ops.n_bundles(h_pad, bundle)
     ms = queued_ms(lambda: K.switch_kernel(
-        dests, status, granted, src, lat, None, link=kw["link"],
+        dests, status, granted, src, lat, None, None, link=kw["link"],
         depth=kw["depth"], total=kw["total"], bundle=bundle,
         n_chunks=n_chunks), 10)
     cycles = min(got.bundles * bundle, h_pad)
@@ -2881,6 +2932,487 @@ def farm_path(dev) -> dict:
             "noc_switch_launches": switch_launches,
             "profiled": {key: {"profiled_wall_ms": split["wall_ms"],
                                "device_ms": dev_ms}}}
+
+
+# wide_path: the LLC kernels past the thread routes' 128 ways and the
+# switch past the one-warp route's 32 ports, each held to its plain
+# version on the card and to anchors from the JAX reference on the CPU
+# (repro.core, x64 off, as its tests run it).
+# (a) simulate_trace over one seeded trace past every capacity: block
+# addresses np.random.default_rng(31).integers(0, 6144, 16384); anchors
+# (hits, sha256 of np.packbits(hits)) of repro.core.cache.simulate_trace(
+# jnp.asarray(blocks, jnp.int32), sets=, ways=)
+WIDE_TRACE = (31, 6144, 16384)
+WIDE_TRACE_ANCHORS = {
+    (512, 8): (9049, "cd9ab77ae7b682a1e08fa157262e9b98"
+                     "1a8cfe532ac235bbebbc6ff4a9778489"),
+    (16, 256): (9125, "edcba8dcaf9a19af4244c360b69539d2"
+                      "d2647054ef20987e2839078207456da6"),
+    (4, 1024): (9148, "f0e6f550d75fc1e0c028b54e56a80051"
+                      "661d2551587abb5ca45e588c573a2483"),
+    (1, 200): (542, "c4bb1e8bbceb59c4d89ed1900bfcf79f"
+                    "5a968330220cc121dc31d668fdf59b09")}
+# (b) LLCs of 4,096, 256 and 1,024 ways (1, 8 and 2 sets) over
+# traces.default_dbb_window(8192, 16) and then its segments in reverse
+# order (1,024 segments; a pass is 256 KiB of bursts, past each
+# capacity, and the reversed pass hits what LRU kept).  Anchors: the
+# reference's sweep.segment_lane_hit_counts(window, llcs) (each lane's
+# hits, sha256 of the (3, 1024) int64 array); per LLC,
+# cache.simulate_segments(window, llc).hits, cache.hit_rate(expand(window) // block bytes, llc) and
+# socsim.simulate_dbb_stream(expand(window), llc=llc) (total cycles,
+# sha256 of the int32 latencies)
+WIDE_WINDOW = (8192, 16)
+WIDE_LLCS = ((128 * 1024, 4096, 32), (128 * 1024, 256, 64),
+             (64 * 1024, 1024, 32))
+WIDE_LANE_ANCHOR = ([4096, 10240, 2048],
+                    "3ca01c865e1a028b5c9d920f7325dc07"
+                    "9242c7a925a0f0bacb5bb1fd53f7b02a")
+WIDE_LLC_ANCHORS = {
+    WIDE_LLCS[0]: (4096, 0.25, 505088, "39192880c92cba2c3845670e28f2d466"
+                                       "98abd400f4f737fc6bf71d356be2b37b"),
+    WIDE_LLCS[1]: (10240, 0.625, 419072, "60c492585c2e48180564e31c200b023f"
+                                         "445dd78b34d9f57caae11ddab588687f"),
+    WIDE_LLCS[2]: (2048, 0.125, 534516, "66d306fc21a850b26af016a9ecfa5a63"
+                                        "75a65796d48c255aa70fac7c458a3b4c")}
+# the masked lane: two passes of default_dbb_window(2048, 16) with 2
+# co-runners of the LLC's working set (sweep.corunner_meta, MixConfig(2,
+# "llc")) at 128 KiB / 256 ways / 64 B through cache.segment_lane_scan
+# (suffix "none", each segment's ceil(blocks / sets) rounds, cold
+# nowhere), the victim's segments allocating into every way but 0-3
+# (-16: bits 4 to 63 and, past them, the sign bit), the co-runners' into
+# ways 0-3 (0x0F): 3,072 hits where the unmasked lane has 2,048 (CPU).
+# Anchor: the reference's segment_lane_scan on the same arrays (hits,
+# sha256 of the per-segment hits as int64)
+WIDE_MASK_LLC, WIDE_MASK = (128 * 1024, 256, 64), (-16, 0x0F)
+WIDE_MASK_WINDOW = (2048, 16, 2)
+WIDE_MASK_ANCHOR = (3072, "6a93d9b6f036f04c89ae47780a4c610f"
+                          "85a9fc9cad6a5d6888e12174c7fde0eb")
+# (c) farms of 30 and 62 nodes (32 and 64 ports) at FARM_BURSTS over
+# FARM_LLC_BYTES / 8 ways / 64 B, unpartitioned: the reference's
+# farm.simulate_farm summaries, as FARM_ANCHORS; the 62-node switch at
+# 512 bursts held to the per-cycle scheduler at bundles 1, 7, 64
+WIDE_FARM_NODES, WIDE_PARITY_BURSTS = (30, 62), 512
+WIDE_FARM_ANCHORS = {
+    30: dict(p50=6003.0, p99=7830.0, wcet=7859.0, mean=6016.84375, n=128,
+             noc_mean=3701.5, mem_mean=459.34375, host_steps=245),
+    62: dict(p50=12115.0, p99=15958.0, wcet=16019.0, mean=12145.5, n=128,
+             noc_mean=7781.5, mem_mean=460.0, host_steps=501)}
+# seeded schedules (ports, cycles, injection probability, FIFO depth)
+# against the plain version: 33 and 64 ports (the block route; the
+# rings of 64 x 512 in global memory) and 1,000 (a thread a port)
+WIDE_SWITCHES = ((33, 300, 0.3, None), (64, 300, 0.3, 512),
+                 (1000, 40, 0.05, None))
+# the routes no path above reaches, timed beside the rest: a warm set
+# walk of 30,000 ways (in global memory) over 1,024 arrivals, a lane slot
+# of 13,000 ways (in global memory), a switch of 7,000 ports (its port
+# table in global memory)
+WIDE_GLOBAL = dict(walk_ways=30000, walk_arrivals=1024, scan_ways=13000,
+                   ports=7000)
+
+
+def wide_scan_plan(ways: int) -> tuple:
+    """``cache._lane_plan_tables``' arguments for one set of ``ways`` ways
+    of 64 B: a cold run of 15,000 blocks and a disjoint cold run of
+    10,000 (suffix inserts past the set, no rounds), then a revisit of
+    4,000 blocks (a round each)."""
+    segs = [(0, 32, 30000), (64 * 20000, 16, 40000), (0, 64, 4000)]
+    b, s_, c = (np.asarray(v, np.int64)[None] for v in zip(*segs))
+    nb = (b + (c - 1) * s_) // 64 - b // 64 + 1
+    cold = np.array([[True, True, False]])
+    return (b, s_, c, np.where(cold, 0, np.minimum(nb, ways)), cold, [1],
+            [ways], [64]), dict(r_pad=ways, suffix="full")
+
+
+def packed_sha(bits) -> str:
+    return hashlib.sha256(np.packbits(np.asarray(bits, bool)).tobytes()
+                          ).hexdigest()
+
+
+def array_sha(a, dtype) -> str:
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(a, dtype))
+                          .tobytes()).hexdigest()
+
+
+_LLC_SASS = []   # scripts/llc_sass.py, loaded once (it keeps the SASS)
+
+
+def wide_floor(name: str, trips: int, steps: int, clock_mhz: float) -> dict:
+    """A wide route's dependency floor (``scripts/llc_sass.py``): the
+    chain a step of its step loop (inner loops ``trips`` times) times
+    ``steps``, at the SM clock."""
+    import importlib.util
+
+    if not _LLC_SASS:
+        spec = importlib.util.spec_from_file_location(
+            "llc_sass", ROOT / "scripts" / "llc_sass.py")
+        _LLC_SASS.append(importlib.util.module_from_spec(spec))
+        spec.loader.exec_module(_LLC_SASS[0])
+    rec = _LLC_SASS[0].wide_floor_ns(name, trips, clock_mhz)
+    rec["floor_ms"] = rec["floor_ns_a_step"] * steps / 1e6
+    rec["steps"] = steps
+    return rec
+
+
+def wide_walk_row(route: str, args, clock: float, plain=None) -> dict:
+    """A set walk's card time (queued CUDA events), its plain walk's
+    wall (``plain``: a ``plain_wall`` of it made already), their
+    difference and the route's dependency floor."""
+    from repro_torch.kernels.llc import kernel as K
+    from repro_torch.kernels.llc import ops, ref
+
+    if K.set_walk_route(args[0].shape[1]) != route:
+        raise AssertionError(f"{tuple(args[0].shape)} is not the {route} "
+                             "route")
+    plain_ms, want = plain or plain_wall(lambda: ref.set_walk_ref(*args))
+    with Uncounted():
+        err = llc_diff(ops.set_walk(*args), want)
+        ms = queued_ms(lambda: ops.set_walk(*args), 5)
+    ways, steps = args[0].shape[1], int(args[4].max())
+    floor = wide_floor(f"llc_set_walk {route}",
+                       1 if route == "registers" else -(-ways // K.TRIP_WAYS),
+                       steps, clock)
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "sets": args[0].shape[0], "ways": ways,
+            "arrivals": args[2].numel(), "longest_walk": steps,
+            "ns_per_step": ms * 1e6 / max(1, steps), "floor": floor}
+
+
+def print_wide(name: str, row: dict) -> None:
+    fl = row["floor"]
+    print(f"  {name}: card {row['ms']:.4f} ms ({row['ns_per_step']:.1f} ns "
+          f"a step of {row['longest_walk']:,}), launches "
+          f"{row.get('launches', 1)}, dependency floor "
+          f"{fl['floor_ms']:.4f} ms ({fl['chain_a_step']} dependent "
+          f"instructions a step: {fl['outer_chain']} + {fl['trips']} x "
+          f"{fl['inner_chains']}), plain {row['plain_ms']:.1f} ms; "
+          f"bit-equal (max |diff| {row['max_abs_err']})", flush=True)
+
+
+def wide_path(dev) -> dict:
+    """The kernels at the widths the reference runs past the thread
+    routes' 128 ways and the one-warp route's 32 ports: (a)
+    ``simulate_trace`` on the card (one set walk a call) against the plain
+    loop and the reference; (b) the lane engine, ``simulate_segments`` /
+    ``hit_rate`` and ``simulate_dbb_stream`` at 4,096, 256 and 1,024 ways
+    and a lane masked by a negative mask at 256 ways against their plain
+    versions on the card and the reference; (c) farms of 32 and 64 ports
+    against the reference, the 64-port switch at bundles 1, 7, 64
+    against the per-cycle scheduler, seeded switches of 33, 64 and 1,000
+    ports against the plain version.  Each wide route's card time,
+    launches and dependency floor; the routes no path reaches (state or
+    tables past shared memory) timed on seeded cases."""
+    from repro_torch.core import cache, socsim, sweep, traces
+    from repro_torch.core.cache import LLCConfig
+    from repro_torch.core.dram import DRAMConfig
+    from repro_torch.core.farm import FarmConfig, farm_schedule, simulate_farm
+    from repro_torch.core.noc import NoCConfig, NoCSwitch, simulate_reference
+    from repro_torch.kernels.llc import kernel as K
+    from repro_torch.kernels.llc import ops, ref
+    from repro_torch.kernels.noc import kernel as noc_k
+    from repro_torch.kernels.noc import ops as noc_ops
+    from repro_torch.kernels.noc import ref as noc_ref
+    from repro_torch.utils.stats import latency_summary
+
+    phase("wide path (LLC kernels past 128 ways, the switch past 32 ports)")
+    t_phase = time.perf_counter()
+    clock = sm_clock_mhz()
+    out, rows, checks = {}, {}, {}
+
+    # (a) simulate_trace: one set walk a call, the plain loop's hits
+    seed, span, n = WIDE_TRACE
+    blocks = np.random.default_rng(seed).integers(0, span, n)
+    for sets, ways in WIDE_TRACE_ANCHORS:
+        before = K.set_walk_launches
+        with Recorder(ops, "set_walk") as walks:
+            got = cache.simulate_trace(blocks, sets=sets, ways=ways,
+                                       device=dev)
+        launched = K.set_walk_launches - before
+        want = cache.simulate_trace(blocks, sets=sets, ways=ways,
+                                    device="cpu")
+        key = f"trace {sets}x{ways}"
+        checks[f"{key}: one launch"] = launched == 1
+        checks[f"{key}: == the plain loop"] = np.array_equal(got, want)
+        checks[f"{key}: == the reference"] = (
+            int(got.sum()), packed_sha(got)) == WIDE_TRACE_ANCHORS[
+                (sets, ways)]
+        print(f"  simulate_trace {sets} sets x {ways} ways, {n:,} accesses: "
+              f"{int(got.sum()):,} hits, {launched} set walk, == the plain "
+              f"loop {np.array_equal(got, want)}, == the reference "
+              f"{checks[f'{key}: == the reference']}", flush=True)
+        if (sets, ways) == (16, 256):
+            rows["llc_set_walk registers"] = wide_walk_row(
+                "registers", walks.calls[0][0], clock)
+        if (sets, ways) == (4, 1024):
+            rows["llc_set_walk shared"] = wide_walk_row(
+                "shared", walks.calls[0][0], clock)
+
+    # (b) the engines at 4,096, 256 and 1,024 ways
+    window = [traces.segment_tuple(x) for x in traces.default_dbb_window(
+        max_bursts=WIDE_WINDOW[0], chunk_bursts=WIDE_WINDOW[1])]
+    window += window[::-1]
+    addrs = traces.expand([traces.Segment(*x) for x in window])
+    llcs = [LLCConfig(*c) for c in WIDE_LLCS]
+    before = K.lane_scan_launches
+    with Recorder(ops, "lane_scan_many") as scans:
+        counts = sweep.segment_lane_hit_counts(window, llcs, device=dev)
+    launched = K.lane_scan_launches - before
+    (buckets, kw), = [(a[0], k) for a, k in scans.calls]
+    plain_ms, wants = plain_wall(lambda: [ref.lane_scan_ref(
+        t, r, g, max_sets=ms_, max_ways=mw, r_pad=rp, collect=False,
+        suffix=sf) for t, r, g, ms_, mw, rp, sf in buckets])
+    with Uncounted():
+        err = max(llc_diff(g, w) for g, w in zip(
+            ops.lane_scan_many(buckets), wants))
+    got_anchor = (counts.sum(axis=1).tolist(), array_sha(counts, np.int64))
+    checks["lane engine: one warp-route launch"] = launched == 1
+    checks["lane engine: == the plain scan"] = err == 0.0
+    checks["lane engine: == the reference"] = got_anchor == WIDE_LANE_ANCHOR
+    steps = max(int(b[1].sum()) for b in buckets)
+    kw = dict(kw, host=False)
+    with Uncounted():
+        ms = queued_ms(lambda: ops.lane_scan_many(buckets, **kw), 5)
+    widest = max(b[4] for b in buckets)
+    rows["llc_lane_scan warp shared"] = {
+        "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+        "launches": launched, "buckets": len(buckets),
+        "longest_walk": steps, "ns_per_step": ms * 1e6 / steps,
+        "floor": wide_floor("llc_lane_scan warp shared",
+                            -(-widest // K.TRIP_WAYS), steps, clock)}
+    print(f"  segment_lane_hit_counts, {len(llcs)} lanes of "
+          f"{[c.ways for c in llcs]} ways over {len(window)} segments: hits "
+          f"{got_anchor[0]}, == the reference "
+          f"{checks['lane engine: == the reference']}", flush=True)
+    for c, spec in zip(llcs, WIDE_LLCS):
+        bb = c.block_bytes
+        with Recorder(ops, "set_walk") as walks:
+            seg = cache.simulate_segments(window, c, device=dev)
+            rate = cache.hit_rate(addrs // bb, c, device=dev)
+            stream = socsim.simulate_dbb_stream(addrs, llc=c, device=dev)
+        lats = stream.latencies.cpu().numpy()
+        got_anchor = (seg.hits, rate, int(stream.total_cycles),
+                      array_sha(lats, np.int32))
+        key = f"{c.ways} ways"
+        checks[f"{key}: == the reference"] = got_anchor == \
+            WIDE_LLC_ANCHORS[spec]
+        # simulate_segments' walk and the stream's against the plain walk;
+        # hit_rate's walk (an arrival an access, its raw tags) has the
+        # stream's arrivals up to the stream's dense tags, so its hits
+        # must be the stream's
+        (seg_w, _), (rate_w, _), (stream_w, _) = walks.calls
+        plains = [plain_wall(lambda a=a: ref.set_walk_ref(*a))
+                  for a in (seg_w, stream_w)]
+        with Uncounted():
+            errs = [llc_diff(ops.set_walk(*a), want)
+                    for a, (_, want) in zip((seg_w, stream_w), plains)]
+            same = torch.equal(ops.set_walk(*rate_w)[0],
+                               ops.set_walk(*stream_w)[0])
+        checks[f"{key}: set walks == the plain walk"] = max(errs) == 0.0 \
+            and same
+        print(f"  {c.sets} sets x {c.ways} ways: simulate_segments "
+              f"{seg.hits:,} hits, hit_rate {rate}, stream "
+              f"{int(stream.total_cycles):,} cycles; 3 set walks, == the "
+              f"plain walk on the card "
+              f"{checks[f'{key}: set walks == the plain walk']}; == the "
+              f"reference {checks[f'{key}: == the reference']}", flush=True)
+        if c.ways == 4096:
+            rows["llc_set_walk shared"]["fully_associative"] = \
+                wide_walk_row("shared", stream_w, clock, plains[1])
+    # the masked lane: a negative mask's sign bit allocates past bit 63
+    mc = LLCConfig(*WIDE_MASK_LLC)
+    bursts, chunk, passes = WIDE_MASK_WINDOW
+    b, s_, c_, nv = sweep.corunner_meta(
+        [traces.segment_tuple(x) for x in traces.default_dbb_window(
+            max_bursts=bursts, chunk_bursts=chunk)] * passes, llc=mc,
+        mix=sweep.MixConfig(2, "llc"))
+    sels = np.where(nv, WIDE_MASK[0], WIDE_MASK[1]).astype(np.int64)
+    nb = np.where(c_ > 0, (b + (c_ - 1) * s_) // mc.block_bytes
+                  - b // mc.block_bytes + 1, 0)
+    r_needed = -(-nb // mc.sets)
+    mask_args = (b[None], s_[None], c_[None], r_needed,
+                 np.zeros(b.shape[0], bool), [mc.sets], [mc.ways],
+                 [mc.block_bytes], sels[None])
+    mask_kw = dict(max_sets=mc.sets, max_ways=mc.ways,
+                   r_pad=int(r_needed.max()), suffix="none")
+    with Recorder(ops, "lane_scan_many") as scans:
+        hits = cache.segment_lane_scan(*mask_args, **mask_kw, device=dev)[0]
+    (buckets, _), = [(a[0], k) for a, k in scans.calls]
+    with Uncounted():
+        err = llc_diff(ops.lane_scan_many(buckets)[0], ref.lane_scan_ref(
+            *buckets[0][:3], max_sets=mc.sets, max_ways=mc.ways,
+            r_pad=mask_kw["r_pad"], collect=False, suffix="none"))
+    want_cpu = cache.segment_lane_scan(*mask_args, **mask_kw, device="cpu")[0]
+    got_anchor = (int(hits.sum()), array_sha(hits, np.int64))
+    checks["masked lane: == the plain scan, the CPU"] = err == 0.0 and \
+        np.array_equal(hits, want_cpu)
+    checks["masked lane: == the reference"] = got_anchor == WIDE_MASK_ANCHOR
+    print(f"  masked lane at {mc.ways} ways (victim {WIDE_MASK[0]}, "
+          f"co-runners {WIDE_MASK[1]:#x}), {b.shape[0]} segments: "
+          f"{got_anchor[0]:,} hits, "
+          f"== the plain scan {err == 0.0}, == the reference "
+          f"{checks['masked lane: == the reference']}", flush=True)
+
+    # (c) the farm and the switch past 32 ports
+    llc, dram = LLCConfig(FARM_LLC_BYTES, 8, 64), DRAMConfig()
+    farms = {}
+    for nodes in WIDE_FARM_NODES:
+        before = noc_k.launches
+        t0 = time.perf_counter()
+        res = simulate_farm(llc=llc, dram=dram, farm=FarmConfig(nodes=nodes),
+                            max_bursts=FARM_BURSTS, device=dev)
+        wall = time.perf_counter() - t0
+        got = {**latency_summary(res.steady()),
+               "noc_mean": float(res.noc_latency.mean()),
+               "mem_mean": float(res.mem_latency.mean()),
+               "host_steps": res.noc.host_steps}
+        farms[nodes] = got
+        checks[f"farm x{nodes}: == the reference"] = \
+            got == WIDE_FARM_ANCHORS[nodes]
+        checks[f"farm x{nodes}: one switch launch"] = \
+            noc_k.launches - before == 1
+        print(f"  farm x{nodes} ({nodes + 2} ports): p50 {got['p50']} p99 "
+              f"{got['p99']} noc_mean {got['noc_mean']} mem_mean "
+              f"{got['mem_mean']} host_steps {got['host_steps']}; "
+              f"{wall:.2f} s; == the reference "
+              f"{checks[f'farm x{nodes}: == the reference']}", flush=True)
+    nodes = WIDE_FARM_NODES[-1]
+    farm = FarmConfig(nodes=nodes)
+    sched = farm_schedule(2 * WIDE_PARITY_BURSTS // 16, farm)
+    cfg = NoCConfig(ports=nodes + 2, link_latency=farm.link_latency)
+    want = simulate_reference(sched, cfg)
+    for bundle in (1, 7, 64):
+        got = NoCSwitch(cfg, device=dev).simulate(sched, bundle_cycles=bundle)
+        checks[f"switch x{nodes} bundle {bundle}: == simulate_reference"] = \
+            all(np.array_equal(getattr(got, f), getattr(want, f)) for f in
+                ("deliver_cycle", "egress", "src", "latency"))
+    print(f"  switch x{nodes} ({nodes + 2} ports, {WIDE_PARITY_BURSTS} "
+          f"bursts, {want.cycles_run:,} cycles) at bundles 1, 7, 64 == "
+          f"simulate_reference: "
+          f"{all(v for k, v in checks.items() if k.startswith('switch'))}",
+          flush=True)
+    rng = np.random.default_rng(31)
+    for ports, cycles, p_inj, depth in WIDE_SWITCHES:
+        sched = np.where(rng.random((cycles, ports)) < p_inj,
+                         rng.integers(0, ports, (cycles, ports)), -1)
+        sched[:, :3] = ports - 1   # one egress oversubscribed
+        dests, kw = noc_case(sched, ports, 1, depth)
+        before = noc_k.launches
+        got = noc_ops.switch(dests.to(dev), bundle=64, **kw)
+        launched = noc_k.launches - before
+        plain_ms, want = plain_wall(lambda: noc_ref.switch_ref(
+            dests.to(dev), bundle=64, **kw))
+        err = noc_diff(got, want, f"{ports} ports")
+        checks[f"switch {ports} ports: == the plain version"] = err == 0.0 \
+            and launched == 1
+        row = wide_switch_row(dests.to(dev), kw, got, clock)
+        row.update(plain_ms=plain_ms, max_abs_err=err)
+        rows[f"noc_switch block {ports} ports"] = row
+        rings = "shared" if noc_k.fifo_in_shared(ports, kw["depth"]) \
+            else "global"
+        print_wide(f"noc_switch, {ports} ports (block route, "
+                   f"{noc_k.threads(ports)} threads, rings in {rings} "
+                   f"memory), {got.delivered:,} flits", row)
+    for name in ("llc_set_walk registers", "llc_set_walk shared",
+                 "llc_lane_scan warp shared"):
+        print_wide(name, rows[name])
+    print_wide("llc_set_walk shared, fully associative (1 set x 4,096 "
+               "ways, the stream)", rows["llc_set_walk shared"]
+               ["fully_associative"])
+
+    # the routes past shared memory, on seeded cases
+    g = np.random.default_rng(32)
+    ways, n = WIDE_GLOBAL["walk_ways"], WIDE_GLOBAL["walk_arrivals"]
+    walk = tuple(torch.as_tensor(a, device=dev) for a in (
+        g.integers(0, 2 * ways, (1, ways)).astype(np.int32),
+        g.integers(-2**31, 2**31, (1, ways)).astype(np.int32),
+        g.integers(0, 2 * ways, n).astype(np.int32),
+        g.integers(1, 2**31, n).astype(np.int32), np.array([n]),
+        np.zeros(1, np.int64)))
+    rows["llc_set_walk global"] = wide_walk_row("global", walk, clock)
+    print_wide(f"llc_set_walk global (1 set x {ways:,} ways, warm, {n:,} "
+               "arrivals)", rows["llc_set_walk global"])
+    ways = WIDE_GLOBAL["scan_ways"]
+    args, kw = wide_scan_plan(ways)
+    table, rounds, geo, _ = cache._lane_plan_tables(*args, **kw)
+    scan = [(torch.as_tensor(table, device=dev),
+             torch.as_tensor(rounds, device=dev),
+             torch.as_tensor(geo, device=dev), 1, ways, ways, "full")]
+    if K.wide_scratch_bytes([dict(lanes=1, max_sets=1, max_ways=ways)]) == 0:
+        raise AssertionError(f"{ways} ways fit a block's shared memory")
+    plain_ms, want = plain_wall(lambda: ref.lane_scan_ref(
+        *scan[0][:3], max_sets=1, max_ways=ways, r_pad=ways, collect=False,
+        suffix="full"))
+    with Uncounted():
+        err = llc_diff(ops.lane_scan_many(scan)[0], want)
+        ms = queued_ms(lambda: ops.lane_scan_many(scan), 3)
+    steps = int(rounds.sum())
+    rows["llc_lane_scan warp global"] = {
+        "ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "launches": 1,
+        "longest_walk": steps, "ns_per_step": ms * 1e6 / steps,
+        "floor": wide_floor("llc_lane_scan warp global",
+                            -(-ways // K.TRIP_WAYS), steps, clock)}
+    print_wide(f"llc_lane_scan warp global (1 set x {ways:,} ways, 3 "
+               "segments: 2 cold, ranked by the bitonic sort, and a "
+               "revisit)",
+               rows["llc_lane_scan warp global"])
+    ports = WIDE_GLOBAL["ports"]
+    sched = np.where(g.random((6, ports)) < 0.2,
+                     g.integers(0, ports, (6, ports)), -1)
+    sched[:, :3] = 5
+    dests, kw = noc_case(sched, ports, 1)
+    if noc_k.table_in_shared(ports):
+        raise AssertionError(f"{ports} ports' table fits shared memory")
+    got = noc_ops.switch(dests.to(dev), bundle=64, **kw)
+    plain_ms, want = plain_wall(lambda: noc_ref.switch_ref(
+        dests.to(dev), bundle=64, **kw))
+    err = noc_diff(got, want, f"{ports} ports")
+    row = wide_switch_row(dests.to(dev), kw, got, clock)
+    row.update(plain_ms=plain_ms, max_abs_err=err)
+    rows[f"noc_switch block {ports} ports"] = row
+    print_wide(f"noc_switch, {ports} ports (block route, its port table and "
+               "rings in global memory)", row)
+    checks["global routes == their plain versions"] = max(
+        rows["llc_set_walk global"]["max_abs_err"],
+        rows["llc_lane_scan warp global"]["max_abs_err"], err) == 0.0
+    checks["every wide route bit-equal"] = all(
+        r["max_abs_err"] == 0.0 for r in rows.values())
+    out.update(rows=rows, farms=farms,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  wide_path took {out['phase_s']:.1f} s")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"wide_path: {failed}")
+    return out
+
+
+def wide_switch_row(dests, kw, got, clock: float) -> dict:
+    """A switch launch's card time on buffers made once (queued CUDA
+    events), the cycles it ran and the block route's dependency floor
+    (a thread's ports as the inner loops' trips)."""
+    from repro_torch.kernels.noc import kernel as K
+    from repro_torch.kernels.noc import ops
+
+    dev = dests.device
+    h_pad, ports = kw["h_pad"], dests.shape[1]
+    status = torch.zeros(3, dtype=torch.int32, device=dev)
+    granted = torch.zeros((h_pad, ports), dtype=torch.bool, device=dev)
+    src, lat = (torch.zeros((h_pad, ports), dtype=torch.int32, device=dev)
+                for _ in range(2))
+    fifo = None if K.fifo_in_shared(ports, kw["depth"]) else torch.empty(
+        (ports, kw["depth"], 2), dtype=torch.int32, device=dev)
+    table = None if K.table_in_shared(ports) else torch.empty(
+        K.table_bytes(ports) // 4, dtype=torch.int32, device=dev)
+    n_chunks = ops.n_bundles(h_pad, 64)
+    with Uncounted():
+        ms = queued_ms(lambda: K.switch_kernel(
+            dests, status, granted, src, lat, fifo, table, link=kw["link"],
+            depth=kw["depth"], total=kw["total"], bundle=64,
+            n_chunks=n_chunks), 5)
+    cycles = min(got.bundles * 64, h_pad)
+    return {"ms": ms, "ports": ports, "flits": kw["total"],
+            "cycles_run": cycles, "longest_walk": cycles,
+            "ns_per_step": ms * 1e6 / cycles, "launches": 1,
+            "floor": wide_floor("noc_switch block",
+                                -(-ports // K.threads(ports)), cycles, clock)}
 
 
 def ptxas_report(log: str, kernel: str) -> dict:
@@ -4708,6 +5240,7 @@ def main() -> int:
     rg_launches, serve_rg = sim_counted(sim_by_path, serve_swa_path, dev,
                                         "recurrentgemma-9b")
     farm = sim_counted(sim_by_path, farm_path, dev)
+    wide = sim_counted(sim_by_path, wide_path, dev)
     dense_launches, dense = sim_counted(sim_by_path, dense_path, dev)
     moe_launches, moe = sim_counted(sim_by_path, moe_path, dev)
     encdec_launches, encdec = sim_counted(sim_by_path, encdec_path, dev)
@@ -4764,6 +5297,14 @@ def main() -> int:
         if "ns_per_step" in tm:  # the serial walks: a step's time, the clock
             kernels[-1].update(ns_per_step=tm["ns_per_step"],
                                sm_clock_mhz=tm["sm_clock_mhz"])
+        wide_rows = {k: v for k, v in wide["rows"].items()
+                     if k.startswith(name + " ")}
+        if wide_rows:  # past 128 ways or 32 ports: card time and floor
+            kernels[-1]["wide_routes"] = {
+                k[len(name) + 1:]: {"ms": v["ms"],
+                                    "floor_ms": v["floor"]["floor_ms"],
+                                    "plain_ms": v["plain_ms"]}
+                for k, v in wide_rows.items()}
     for k in kernels:
         if not k["launches"] > 0:
             raise AssertionError(f"{k['name']} never launched on the main "
@@ -4776,7 +5317,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "convcore_layers": rows,
          "engine_wall_s": engine_times, "sim_path": sim,
-         "campaign_path": campaign, "farm_path": farm,
+         "campaign_path": campaign, "farm_path": farm, "wide_path": wide,
          "dense_path": dense, "moe_path": moe, "encdec_path": encdec,
          "vlm_path": vlm, "int8_kv_path": int8, "train_path": trained,
          "train_ssm_path": trained_ssm, "quickstart_path": quick,

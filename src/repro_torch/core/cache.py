@@ -4,10 +4,12 @@ The FireSim LLC model is runtime-configurable in sets/ways/block size
 without an FPGA rebuild; this is the same knob set, in PyTorch.  Three
 execution paths, bit-identical in hit counts:
 
-* **exact per-access scan** (``simulate_trace``): a Python loop, one
-  true-LRU update per access — the reference semantics, used on
-  unit-test traces as the parity oracle (``hit_rate`` replays the same
-  per-access trace on the device through the segment engine);
+* **exact per-access scan** (``simulate_trace``): one true-LRU update
+  per access — the reference semantics, the parity oracle of the
+  engines below.  On ``cuda`` the trace is one ``llc_set_walk`` launch
+  (every access an arrival of count 1, from a cold state); on the CPU a
+  Python loop, its plain version (``hit_rate`` replays the same trace
+  through the segment engine);
 * **segment engine** (``simulate_segments``): one geometry, per-set
   rounds over block arrivals, with per-segment hits, exact miss runs
   for the DRAM row model, and warm-state continuation — what the
@@ -36,6 +38,8 @@ from repro_torch.kernels.llc import ops as llc_ops
 from repro_torch.utils.address import fdiv, first_access, last_access
 from repro_torch.utils.env import check_address_range, default_device
 
+_I32 = np.iinfo(np.int32)
+
 
 @dataclasses.dataclass(frozen=True)
 class LLCConfig:
@@ -60,15 +64,37 @@ def cold_state(sets: int, ways: int, *, device=None
             torch.zeros((sets, ways), dtype=torch.int32, device=dev))
 
 
-def simulate_trace(block_addrs, *, sets: int, ways: int) -> np.ndarray:
+def simulate_trace(block_addrs, *, sets: int, ways: int,
+                   device=None) -> np.ndarray:
     """block_addrs (T,) -> hits (T,) bool.  True-LRU, allocate-on-miss
     (writes allocate too — NVDLA's DBB read/write bursts both fill).  A
     hit touches the first matching way; a miss evicts the first way of
     greatest age; the touched way's age resets to 0 and every other way
-    of the set ages by one."""
+    of the set ages by one.  Runs on ``device`` (``cuda`` when None): on
+    the card one ``llc_set_walk`` launch over the trace ranked by set
+    (``walk_by_set``), each access an arrival of count 1 from
+    ``cold_state``, the hits brought back in one copy; on the CPU the
+    list loop below, the plain version.  Tags (``block // sets``) are
+    int32, as the reference casts them: a trace whose tags leave int32
+    raises ``OverflowError`` on either route."""
+    dev = default_device(device)
+    blocks = np.asarray(block_addrs, np.int64).reshape(-1)
+    if blocks.size and not (_I32.min <= blocks.min() // sets
+                            and blocks.max() // sets <= _I32.max):
+        raise OverflowError(
+            f"simulate_trace's tags (block // {sets} sets) are int32, as the "
+            f"reference's: blocks {int(blocks.min())}..{int(blocks.max())} "
+            "leave that range")
+    block = torch.as_tensor(blocks, device=dev)
+    if _on_card(block):
+        hit, _, _ = walk_by_set(
+            *cold_state(sets, ways, device=dev), torch.remainder(block, sets),
+            fdiv(block, sets).to(torch.int32),
+            torch.ones(blocks.shape[0], dtype=torch.int32, device=dev))
+        return hit.cpu().numpy()
     tags, age = (s.tolist() for s in cold_state(sets, ways, device="cpu"))
     hits = []
-    for b in np.asarray(block_addrs, np.int64).tolist():
+    for b in blocks.tolist():
         s, t = b % sets, b // sets
         row_t, row_a = tags[s], age[s]
         hit = t in row_t
@@ -79,10 +105,17 @@ def simulate_trace(block_addrs, *, sets: int, ways: int) -> np.ndarray:
     return np.asarray(hits, bool)
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lies on a CUDA device, where ``simulate_trace`` takes
+    the kernel route."""
+    return x.device.type == "cuda"
+
+
 def hit_rate(block_addrs, cfg: LLCConfig, *, device=None) -> float:
     """Exact LLC hit rate of a per-access block-address trace, replayed
     on ``device`` (``cuda`` when None): every access is one arrival of
-    the per-set round engine (``simulate_segments``), so the hits are
+    the per-set round engine (``simulate_segments``, one ``llc_set_walk``
+    launch on the card at any way count), so the hits are
     ``simulate_trace``'s.  The rate is float32 as the reference's mean
     computes it: the hit count times the float32 reciprocal of the
     access count."""

@@ -37,8 +37,9 @@ Two implementations, bit-identical for every bundle size
   *token bundles* of ``bundle_cycles`` target cycles, leaving at the
   first bundle boundary after every flit has delivered
   (``kernels.noc.ops.switch``): on ``cuda`` the whole loop is one launch
-  of the hand-written ``noc_switch`` kernel (``csrc/noc.cu``, a warp a
-  switch and a lane a port); on the CPU the plain version runs the
+  of the hand-written ``noc_switch`` kernel (``csrc/noc.cu``: up to 32
+  ports a warp a switch and a lane a port, more a block a switch and a
+  thread a port), at any port count; on the CPU the plain version runs the
   cycle as a torch step over FIFO state through ``fame1.chunked_scan``,
   one host step a bundle.  Bundle padding cycles are clock-gated no-ops,
   so results are invariant to the bundle size — including bundles that

@@ -115,9 +115,9 @@ def simulate_dbb_stream(byte_addrs, *, llc: LLCConfig,
     seeded generator.  ``early_exit=False`` replays the fixed-length
     host schedule; results are bit-identical either way, and
     ``host_cycles`` is the reference scheduler's exact count.  On
-    ``cuda`` the LLC is one ``llc_set_walk`` launch, which takes 1..128
-    ways (``kernels.llc.kernel.MAX_WAYS``): more raise there, with no
-    plain fallback; the CPU replays any way count.
+    ``cuda`` the LLC is one ``llc_set_walk`` launch at any way count (a
+    set a lane up to 128 ways, a set a warp past that), with no plain
+    fallback; the CPU replays the per-token pipeline.
     """
     dev = default_device(device)
     dram = dram or DRAMConfig()

@@ -253,8 +253,7 @@ def _padded_set_walks(block: torch.Tensor, sets, ways) -> torch.Tensor:
     hits = torch.zeros((n_lane, n_acc), dtype=torch.bool, device=dev)
     if n_acc == 0:
         return hits
-    # widest group first: a way count past the kernel's bound raises
-    # before any launch
+    # widest group first
     for w in np.unique(ways)[::-1]:
         lanes = np.nonzero(ways == w)[0]
         lane_sets = sets[lanes]
@@ -295,9 +294,8 @@ def batched_hits(byte_addrs, configs: list[LLCConfig], *,
     """(n_cfg, T) per-access hit bits of one byte trace — every lane
     bit-identical to the unbatched ``simulate_trace`` at that geometry,
     replayed on ``device`` (``cuda`` when None).  On ``cuda`` the lanes
-    walk by ``llc_set_walk``, which takes 1..128 ways
-    (``kernels.llc.kernel.MAX_WAYS``): more raise there, with no plain
-    fallback; the CPU loop takes any way count.
+    walk by ``llc_set_walk`` at any way count, with no plain fallback;
+    the CPU runs the padded per-access loop.
 
     .. deprecated:: kept only as a parity oracle for the segment-lane
        engine; use ``segment_lane_hit_counts``."""
@@ -312,7 +310,7 @@ def batched_hit_rates(byte_addrs, configs: list[LLCConfig], *,
                       device=None) -> np.ndarray:
     """(n_cfg,) float32 hit rates of ``batched_hits``' lanes, as the
     reference's mean computes them: each lane's hit count times the
-    float32 reciprocal of T.  On ``cuda`` 1..128 ways, as
+    float32 reciprocal of T.  On ``cuda`` by ``llc_set_walk``, as
     ``batched_hits``."""
     warnings.warn(_EXPANDED_TRACE_DEPRECATION, DeprecationWarning,
                   stacklevel=2)
@@ -326,7 +324,7 @@ def batched_hit_rates(byte_addrs, configs: list[LLCConfig], *,
 def batched_hits_per_trace(byte_addrs_2d, configs: list[LLCConfig], *,
                            device=None) -> np.ndarray:
     """Like ``batched_hits`` but with one trace per lane (n_cfg, T);
-    on ``cuda`` 1..128 ways, as ``batched_hits``.
+    on ``cuda`` by ``llc_set_walk``, as ``batched_hits``.
 
     .. deprecated:: the interference sweep feeds compressed co-runner
        lanes to the segment engine (``interference_lane_metrics_batch``)."""

@@ -64,6 +64,37 @@
 // the right side only on a strict compare.  Every int32 sum wraps as
 // torch's int32 does (computed in uint32_t).  Sets of 64 and 128 ways
 // keep their ways in local memory and scan them in order.
+//
+// Both take any way count.  The thread routes above take up to kThreadWays
+// (128) ways; wider sets take the warp routes below, a warp a set (the set
+// walk) or a (bucket, lane, set) (the lane scan), way q on lane q % 32:
+//
+// * llc_set_walk_warp: the warp stages 32 arrivals at a time (a lane each,
+//   coalesced, the next chunk loaded while this one is walked) and
+//   broadcasts them by __shfl_sync.  A step scores each lane's ways in
+//   order (the first of its greatest scores), then __reduce_max_sync finds
+//   the greatest score and __reduce_min_sync the first way holding it;
+//   __any_sync gives the hit.  The set lives in registers up to kRegWays
+//   (8 ways a lane), else in dynamic shared memory (8 bytes a way, up to
+//   kSharedBytes: 29,056 ways), else in place in global memory (L2); the
+//   loops over a lane's ways take kTripWays a trip, so that as many loads
+//   are in flight.  A step's chain is ceil(ways / 32) scores and updates a
+//   lane plus the three collectives, so a fully associative cache, one set
+//   and one warp, costs its trace length times that.
+// * llc_lane_scan_wide: the same victim search by __reduce_min_sync over
+//   the keys, the owning lane touching the way; the suffix insert ranks
+//   the ways by a bitonic sort of (stamp, way) pairs, 64-bit keys in the
+//   set's slot (ties break on the lower way, as the plain version's rank
+//   does), O(ways log^2 ways) a set where the thread route's pair compares
+//   are O(ways^2).  A slot is 8 bytes a way and 8 a sort key (the ways
+//   rounded up to a power of two): in dynamic shared memory while it fits
+//   kSharedBytes, else in a global scratch the wrapper allocates.  Only
+//   the lane's real ways are walked: padding ways never match, never win
+//   and hold no rank before a real way, so they change nothing.
+//
+// The only limits left are memory (the wrapper checks it) and int32
+// indexing (ways, sets, arrivals and blocks each under 2**31).
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,7 +102,12 @@ namespace {
 
 constexpr int32_t IMAX = 0x7fffffff;
 constexpr int32_t IMIN = -0x7fffffff - 1;
-constexpr int kMaxWays = 128;
+constexpr int kThreadWays = 128;  // a thread walks a set alone up to this
+constexpr int kRegWays = 256;     // a warp holds a set in registers up to this
+constexpr int kSharedBytes = 227 * 1024;  // a block's shared memory on Hopper
+constexpr unsigned FULL = 0xffffffffu;
+constexpr uint32_t NO_WAY = 0xffffffffu;  // a lane that holds no real way
+constexpr int kTripWays = 4;  // a lane's ways a trip of the warp routes' loops
 
 constexpr int WALK_SETS = 32;      // sets a block: a walker warp, a set a lane
 constexpr int WALK_PRODUCERS = 2;  // producer warps a block, WALK_SETS / 2 sets each
@@ -83,8 +119,8 @@ constexpr int SCAN_THREADS = 64;         // (lane, set) threads a block
 constexpr int SEG_CHUNK = SCAN_THREADS;  // segments a table chunk
 
 // A thread's loops over its ways unroll fully up to 32 ways, so the ways
-// stay in registers; wider sets (up to 128 ways) keep them in local memory
-// and loop.
+// stay in registers; wider sets (up to kThreadWays) keep them in local
+// memory and loop.
 template <int W>
 struct Unroll {
   static constexpr int value = W <= 32 ? W : 1;
@@ -736,10 +772,391 @@ cudaError_t lane_scan(const int64_t* buckets, const int32_t* blocks, int n_block
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the warp routes: sets wider than kThreadWays, a warp a set (the set walk)
+// or a (bucket, lane, set) (the lane scan), way q on lane q % 32.  A lane
+// visits its ways in order and keeps the first of its best; the warp's
+// best is found by __reduce_{max,min}_sync over the lanes' keys, then the
+// first way among the lanes holding it by __reduce_min_sync over their
+// ways: the first index of the extreme, as the plain versions take it.
+// ---------------------------------------------------------------------------
+struct Best {
+  int32_t key;
+  uint32_t way;  // NO_WAY while the lane has seen no real way
+};
+
+__device__ __forceinline__ uint32_t first_max(const Best& b) {
+  const int32_t most = __reduce_max_sync(FULL, b.key);
+  return __reduce_min_sync(FULL, b.key == most ? b.way : NO_WAY);
+}
+
+__device__ __forceinline__ uint32_t first_min(const Best& b) {
+  const int32_t least = __reduce_min_sync(FULL, b.key);
+  return __reduce_min_sync(FULL, b.key == least ? b.way : NO_WAY);
+}
+
+// Walk arrivals first .. first + n - 1 of the set-sorted order, 32 at a
+// time: lane i holds arrival c + i (loaded a chunk ahead, coalesced), each
+// step takes its arrival by broadcast, and lane i writes arrival c + i's
+// hit bit.  step(tag, access count) returns whether the arrival hit.
+template <class Step>
+__device__ __forceinline__ void walk_warp(const int32_t* __restrict__ tag_s,
+                                          const int32_t* __restrict__ acc_s,
+                                          bool* __restrict__ hit_s, int64_t first, int32_t n,
+                                          Step step) {
+  const int lane = threadIdx.x & 31;
+  int32_t next_t = lane < n ? tag_s[first + lane] : 0;
+  int32_t next_a = lane < n ? acc_s[first + lane] : 0;
+  for (int32_t c0 = 0; c0 < n; c0 += 32) {
+    const int32_t my_t = next_t, my_a = next_a;
+    const int64_t ahead = static_cast<int64_t>(c0) + 32 + lane;
+    if (ahead < n) {
+      next_t = tag_s[first + ahead];
+      next_a = acc_s[first + ahead];
+    }
+    const int steps = min(32, n - c0);
+    bool my_hit = false;
+    for (int i = 0; i < steps; ++i) {
+      const int32_t t = __shfl_sync(FULL, my_t, i);
+      const uint32_t a = static_cast<uint32_t>(__shfl_sync(FULL, my_a, i));
+      const bool hit = step(t, a);
+      my_hit = lane == i ? hit : my_hit;
+    }
+    if (lane < steps) hit_s[first + c0 + lane] = my_hit;
+  }
+}
+
+// llc_set_walk, a warp a set (blockIdx.x), the set's ways in registers:
+// K a lane, up to 32 K ways.  Scores as llc_set_walk_kernel's.
+template <int K>
+__global__ void __launch_bounds__(32)
+    llc_set_walk_warp_kernel(int32_t* __restrict__ tags, int32_t* __restrict__ age,
+                             const int32_t* __restrict__ tag_s, const int32_t* __restrict__ acc_s,
+                             const int64_t* __restrict__ per_set, const int64_t* __restrict__ first,
+                             bool* __restrict__ hit_s, int ways) {
+  const int lane = threadIdx.x;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * ways;
+  int32_t tg[K], ag[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = lane + 32 * k;
+    tg[k] = q < ways ? tags[row + q] : 0;
+    ag[k] = q < ways ? age[row + q] : 0;
+  }
+  walk_warp(tag_s, acc_s, hit_s, first[blockIdx.x], static_cast<int32_t>(per_set[blockIdx.x]),
+            [&](int32_t t, uint32_t a) {
+              Best b{IMIN, NO_WAY};
+              bool match = false;
+#pragma unroll
+              for (int k = 0; k < K; ++k) {
+                const int q = lane + 32 * k;
+                if (q < ways) {
+                  const bool m = tg[k] == t;
+                  match |= m;
+                  const int32_t score = m ? IMAX : ag[k];
+                  if (b.way == NO_WAY || score > b.key) {
+                    b.key = score;
+                    b.way = q;
+                  }
+                }
+              }
+              const uint32_t way = first_max(b);
+#pragma unroll
+              for (int k = 0; k < K; ++k) {
+                const bool touched = static_cast<uint32_t>(lane + 32 * k) == way;
+                tg[k] = touched ? t : tg[k];
+                ag[k] = touched ? 0 : static_cast<int32_t>(static_cast<uint32_t>(ag[k]) + a);
+              }
+              return __any_sync(FULL, match) != 0;
+            });
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = lane + 32 * k;
+    if (q < ways) {
+      tags[row + q] = tg[k];
+      age[row + q] = ag[k];
+    }
+  }
+}
+
+// llc_set_walk, a warp a set (blockIdx.x), the set's ways in dynamic shared
+// memory (kShared: tags then ages, copied in and out) or walked in place in
+// global memory.  A lane reads and writes only its own ways, so the steps
+// need no barrier.
+template <bool kShared>
+__global__ void __launch_bounds__(32)
+    llc_set_walk_mem_kernel(int32_t* __restrict__ tags, int32_t* __restrict__ age,
+                            const int32_t* __restrict__ tag_s, const int32_t* __restrict__ acc_s,
+                            const int64_t* __restrict__ per_set, const int64_t* __restrict__ first,
+                            bool* __restrict__ hit_s, int ways) {
+  extern __shared__ int32_t walk_sm[];
+  const uint32_t lane = threadIdx.x, n_ways = static_cast<uint32_t>(ways);
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * ways;
+  int32_t* tg = kShared ? walk_sm : tags + row;
+  int32_t* ag = kShared ? walk_sm + ways : age + row;
+  if constexpr (kShared) {
+    for (uint32_t q = lane; q < n_ways; q += 32) {
+      tg[q] = tags[row + q];
+      ag[q] = age[row + q];
+    }
+  }
+  walk_warp(tag_s, acc_s, hit_s, first[blockIdx.x], static_cast<int32_t>(per_set[blockIdx.x]),
+            [&](int32_t t, uint32_t a) {
+              Best b{IMIN, NO_WAY};
+              bool match = false;
+#pragma unroll 1
+              for (uint32_t q0 = lane; q0 < n_ways; q0 += 32 * kTripWays) {
+#pragma unroll
+                for (int u = 0; u < kTripWays; ++u) {  // the lane's ways in order
+                  const uint32_t q = q0 + 32 * u;
+                  if (q < n_ways) {
+                    const bool m = tg[q] == t;
+                    match |= m;
+                    const int32_t score = m ? IMAX : ag[q];
+                    if (b.way == NO_WAY || score > b.key) {
+                      b.key = score;
+                      b.way = q;
+                    }
+                  }
+                }
+              }
+              const uint32_t way = first_max(b);
+#pragma unroll 1
+              for (uint32_t q0 = lane; q0 < n_ways; q0 += 32 * kTripWays) {
+#pragma unroll
+                for (int u = 0; u < kTripWays; ++u) {
+                  const uint32_t q = q0 + 32 * u;
+                  if (q < n_ways) {
+                    const int32_t aged = static_cast<int32_t>(static_cast<uint32_t>(ag[q]) + a);
+                    if (q == way) tg[q] = t;
+                    ag[q] = q == way ? 0 : aged;
+                  }
+                }
+              }
+              return __any_sync(FULL, match) != 0;
+            });
+  if constexpr (kShared) {
+    for (uint32_t q = lane; q < n_ways; q += 32) {
+      tags[row + q] = tg[q];
+      age[row + q] = ag[q];
+    }
+  }
+}
+
+// A warp-route lane-scan slot: tags and stamps of up to `ways` ways (int32,
+// rounded up to an even count) and 64-bit sort keys for pow2(ways) ways
+// (kernels/llc/kernel.py::wide_slot_bytes).
+__host__ __device__ inline int64_t wide_slot_bytes(int64_t ways) {
+  int64_t span = 1;
+  while (span < ways) span <<= 1;
+  return 8 * ((ways + 1) & ~int64_t{1}) + 8 * span;
+}
+
+// llc_lane_scan's warp route: block b walks (bucket, lane, set) =
+// blocks[b] with one warp, the set's state in its slot (dynamic shared
+// memory, kShared, or slot b of a global scratch of `slot_words` int32
+// each).  The segment walk is llc_lane_scan_kernel's; the way a lane
+// allocates into is the int64 mask's bit q, its sign bit past bit 63, as
+// derive() makes the thread route's words.
+template <bool kShared>
+__global__ void __launch_bounds__(32)
+    llc_lane_scan_wide_kernel(const int64_t* __restrict__ buckets,
+                              const int32_t* __restrict__ blocks, int32_t* __restrict__ scratch,
+                              int64_t slot_words) {
+  extern __shared__ uint64_t scan_sm[];
+  const int b = blocks[3 * blockIdx.x], l = blocks[3 * blockIdx.x + 1];
+  const int s = blocks[3 * blockIdx.x + 2];
+  const uint32_t lane = threadIdx.x;
+  const int64_t* d = buckets + static_cast<int64_t>(b) * kBucketFields;
+  const int n_seg = static_cast<int>(d[kSegs]);
+  const int max_sets = static_cast<int>(d[kMaxSets]), max_ways = static_cast<int>(d[kMaxWaysB]);
+  const int64_t r_pad = d[kRPad];
+  const int suffix = static_cast<int>(d[kSuffix]);
+  const auto* table = reinterpret_cast<const int64_t*>(d[kTable]) +
+                      static_cast<int64_t>(l) * n_seg * kFields;
+  const auto* rounds = reinterpret_cast<const int32_t*>(d[kRounds]);
+  const auto* geo = reinterpret_cast<const int64_t*>(d[kGeo]) + 3 * l;
+  auto* hits = reinterpret_cast<unsigned long long*>(d[kHits]) + static_cast<int64_t>(l) * n_seg;
+  auto* miss = reinterpret_cast<bool*>(d[kMiss]);
+  const uint32_t sets = static_cast<uint32_t>(geo[0]), ways = static_cast<uint32_t>(geo[1]);
+  const uint32_t bb = static_cast<uint32_t>(geo[2]);
+  const FastDiv by_sets = make_fastdiv(sets), by_ways = make_fastdiv(ways);
+  const bool active = static_cast<uint32_t>(s) < sets;
+  const uint32_t su = static_cast<uint32_t>(s);
+  const uint32_t step = sets * bb;
+  const uint32_t ways_r = (ways + 1) & ~1u;
+  int32_t* tg = kShared ? reinterpret_cast<int32_t*>(scan_sm)
+                        : scratch + static_cast<int64_t>(blockIdx.x) * slot_words;
+  int32_t* st = tg + ways_r;
+  uint64_t* keys = reinterpret_cast<uint64_t*>(st + ways_r);
+  for (uint32_t q = lane; q < ways; q += 32) {
+    tg[q] = -1;
+    st[q] = 0;
+  }
+
+  for (int j = 0; j < n_seg; ++j) {
+    int64_t f[kFields];
+#pragma unroll
+    for (int x = 0; x < kFields; ++x) f[x] = table[static_cast<int64_t>(j) * kFields + x];
+    const Seg g = derive(f, rounds[j], by_sets, ways);
+    const int64_t wsel = f[kWsel];
+    if (g.rounds > 0) {
+      uint32_t mine = 0;
+      if (active) {
+        const bool wrap = su < g.ub;
+        uint32_t i = wrap ? su + sets - g.ub : su - g.ub;  // block ordinal
+        uint32_t t = g.qb + wrap;
+        uint32_t lo = (g.b_first + i) * bb - static_cast<uint32_t>(g.base);
+        bool* miss_j =
+            miss == nullptr ? nullptr
+                            : miss + (static_cast<int64_t>(l) * n_seg + j) * r_pad * max_sets + s;
+        for (int k = 0; k < g.rounds && i < static_cast<uint32_t>(g.n_pre);
+             ++k, i += sets, ++t, lo += step) {
+          const uint32_t j_hi = last_access(g, lo + bb - 1);
+          const uint32_t j_lo =
+              static_cast<int32_t>(lo) <= 0 ? 0 : g.by_stride.div(lo + g.stride - 1);
+          Best best{IMAX, NO_WAY};
+#pragma unroll 1
+          for (uint32_t q0 = lane; q0 < ways; q0 += 32 * kTripWays) {
+#pragma unroll
+            for (int u = 0; u < kTripWays; ++u) {  // the lane's ways in order
+              const uint32_t q = q0 + 32 * u;
+              if (q < ways) {
+                const bool alloc = wsel == 0 || (q < 64 ? ((static_cast<uint64_t>(wsel) >> q) & 1u) != 0
+                                                        : wsel < 0);
+                const int32_t key =
+                    tg[q] == static_cast<int32_t>(t) ? -1 : (alloc ? st[q] : IMAX);
+                if (best.way == NO_WAY || key < best.key) {
+                  best.key = key;
+                  best.way = q;
+                }
+              }
+            }
+          }
+          const int32_t kmin = __reduce_min_sync(FULL, best.key);
+          const uint32_t way = __reduce_min_sync(FULL, best.key == kmin ? best.way : NO_WAY);
+          const bool hit = kmin == -1;
+          if ((way & 31u) == lane) {  // the way's own lane touches it
+            tg[way] = static_cast<int32_t>(t);
+            st[way] = static_cast<int32_t>(g.counter + j_hi + 1);
+          }
+          mine += j_hi - j_lo + hit;
+          if (miss_j != nullptr && !hit && lane == 0) miss_j[static_cast<int64_t>(k) * max_sets] = true;
+        }
+      }
+      if (lane == 0 && mine != 0) red_add(hits + j, static_cast<unsigned long long>(mine));
+    }
+    if (!active || suffix == kNone || g.n_suf <= 0) continue;
+    const bool wrap = su < g.usb;
+    const uint32_t off_suf = wrap ? su + sets - g.usb : su - g.usb;
+    if (off_suf >= static_cast<uint32_t>(g.n_suf)) continue;  // no suffix block in this set
+    const uint32_t t_suf = g.qsb + wrap;
+    const uint32_t blk0 = g.sb_first + off_suf;
+    if (suffix == kOne) {  // one suffix block: it evicts the first oldest way
+      Best best{IMAX, NO_WAY};
+#pragma unroll 1
+      for (uint32_t q0 = lane; q0 < ways; q0 += 32 * kTripWays) {
+#pragma unroll
+        for (int u = 0; u < kTripWays; ++u) {
+          const uint32_t q = q0 + 32 * u;
+          if (q < ways && (best.way == NO_WAY || st[q] < best.key)) {
+            best.key = st[q];
+            best.way = q;
+          }
+        }
+      }
+      const uint32_t way = first_min(best);
+      if ((way & 31u) == lane) {
+        tg[way] = static_cast<int32_t>(t_suf);
+        st[way] = static_cast<int32_t>(g.counter + last_access(g, blk0 * bb - g.base + bb - 1) + 1);
+      }
+      continue;
+    }
+    // the general insert (llc_lane_scan_kernel's): the ways ranked
+    // oldest-first by a bitonic sort of (stamp, way) keys, ascending (the
+    // stamp's sign flipped so that unsigned order is int32 order; the way
+    // breaks ties), pow2(ways) keys with the padding last
+    const uint32_t m = by_sets.div(static_cast<uint32_t>(g.n_suf) - off_suf + sets - 1);
+    const uint32_t e = by_ways.mod(m - 1);
+    uint32_t span = 1;
+    while (span < ways) span <<= 1;
+    for (uint32_t p = lane; p < span; p += 32) {
+      keys[p] = p < ways ? (static_cast<uint64_t>(static_cast<uint32_t>(st[p]) ^ 0x80000000u) << 32) | p
+                         : ~uint64_t{0};
+    }
+    __syncwarp();
+    for (uint64_t k2 = 2; k2 <= span; k2 <<= 1) {
+      for (uint32_t jj = static_cast<uint32_t>(k2 >> 1); jj > 0; jj >>= 1) {
+        for (uint32_t x = lane; x < span / 2; x += 32) {  // pair x: i with bit jj clear
+          const uint32_t i = ((x & ~(jj - 1)) << 1) | (x & (jj - 1));
+          const uint32_t ixj = i | jj;
+          const uint64_t u = keys[i], v = keys[ixj];
+          if ((u > v) == ((i & k2) == 0)) {
+            keys[i] = v;
+            keys[ixj] = u;
+          }
+        }
+        __syncwarp();
+      }
+    }
+    for (uint32_t r = lane; r < ways; r += 32) {  // the way of rank r
+      const uint32_t a = static_cast<uint32_t>(keys[r]);
+      const uint32_t dd = e >= r ? e - r : e + ways - r;
+      if (dd < m) {
+        const uint32_t back = m - 1 - dd;  // the suffix block's rank in the set
+        const uint32_t blk = blk0 + back * sets;
+        tg[a] = static_cast<int32_t>(t_suf + back);
+        st[a] = static_cast<int32_t>(g.counter + last_access(g, blk * bb - g.base + bb - 1) + 1);
+      }
+    }
+    __syncwarp();
+  }
+  auto* tags_out = reinterpret_cast<int32_t*>(d[kTags]);
+  auto* ts_out = reinterpret_cast<int32_t*>(d[kStamps]);
+  const int64_t col = static_cast<int64_t>(l) * max_ways * max_sets + s;
+  for (uint32_t q = lane; q < static_cast<uint32_t>(max_ways); q += 32) {
+    tags_out[col + static_cast<int64_t>(q) * max_sets] = q < ways ? tg[q] : -1;
+    ts_out[col + static_cast<int64_t>(q) * max_sets] = q < ways ? st[q] : 0;
+  }
+}
+
+cudaError_t set_walk_wide(int32_t* tags, int32_t* age, const int32_t* tag_s, const int32_t* acc_s,
+                          const int64_t* per_set, const int64_t* first, bool* hit_s, int sets,
+                          int ways, cudaStream_t stream) {
+  const dim3 grid(sets);
+  if (ways <= kRegWays) {
+    llc_set_walk_warp_kernel<kRegWays / 32><<<grid, 32, 0, stream>>>(tags, age, tag_s, acc_s,
+                                                                      per_set, first, hit_s, ways);
+    return cudaGetLastError();
+  }
+  const int64_t bytes = 8LL * ways;
+  if (bytes <= kSharedBytes) {
+    const int smem = static_cast<int>(bytes);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          llc_set_walk_mem_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+    }
+    llc_set_walk_mem_kernel<true><<<grid, 32, smem, stream>>>(tags, age, tag_s, acc_s, per_set,
+                                                             first, hit_s, ways);
+    return cudaGetLastError();
+  }
+  llc_set_walk_mem_kernel<false><<<grid, 32, 0, stream>>>(tags, age, tag_s, acc_s, per_set, first,
+                                                         hit_s, ways);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// The largest way count the kernels take (kernels/llc/kernel.py::MAX_WAYS).
-extern "C" int llc_max_ways() { return kMaxWays; }
+// The routes' bounds (kernels/llc/kernel.py): the widest set a thread
+// walks alone, the widest a warp holds in registers, a block's shared
+// memory.
+extern "C" int llc_thread_ways() { return kThreadWays; }
+extern "C" int llc_reg_ways() { return kRegWays; }
+extern "C" int llc_shared_bytes() { return kSharedBytes; }
+
+// The bytes of a lane-scan warp-route slot (kernels/llc/kernel.py::wide_slot_bytes).
+extern "C" long long llc_wide_slot_bytes(int ways) { return wide_slot_bytes(ways); }
 
 // Threads a lane-scan block (kernels/llc/kernel.py::SCAN_THREADS).
 extern "C" int llc_scan_threads() { return SCAN_THREADS; }
@@ -747,7 +1164,7 @@ extern "C" int llc_scan_threads() { return SCAN_THREADS; }
 extern "C" int llc_set_walk_launch(void* tags, void* age, const void* tag_s, const void* acc_s,
                                    const void* per_set, const void* first, void* hit_s,
                                    int sets, int ways, void* stream) {
-  if (sets < 1 || ways < 1 || ways > kMaxWays) return static_cast<int>(cudaErrorInvalidValue);
+  if (sets < 1 || ways < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto* tg = static_cast<int32_t*>(tags);
   auto* ag = static_cast<int32_t*>(age);
   const auto* t = static_cast<const int32_t*>(tag_s);
@@ -756,6 +1173,7 @@ extern "C" int llc_set_walk_launch(void* tags, void* age, const void* tag_s, con
   const auto* f = static_cast<const int64_t*>(first);
   auto* h = static_cast<bool*>(hit_s);
   auto st = static_cast<cudaStream_t>(stream);
+  if (ways > kThreadWays) return static_cast<int>(set_walk_wide(tg, ag, t, a, n, f, h, sets, ways, st));
   if (ways <= 2) return static_cast<int>(set_walk<2>(tg, ag, t, a, n, f, h, sets, ways, st));
   if (ways <= 4) return static_cast<int>(set_walk<4>(tg, ag, t, a, n, f, h, sets, ways, st));
   if (ways <= 8) return static_cast<int>(set_walk<8>(tg, ag, t, a, n, f, h, sets, ways, st));
@@ -766,10 +1184,11 @@ extern "C" int llc_set_walk_launch(void* tags, void* age, const void* tag_s, con
 }
 
 // buckets: (B, kBucketFields) int64 on the device; blocks: (n_blocks, 3)
-// int32 (bucket, lane, first set); max_ways: the largest of the buckets'.
+// int32 (bucket, lane, first set) of buckets of at most kThreadWays ways;
+// max_ways: the largest of their max_ways.
 extern "C" int llc_lane_scan_launch(const void* buckets, const void* blocks, int n_blocks,
                                     int max_ways, void* stream) {
-  if (n_blocks < 1 || max_ways < 1 || max_ways > kMaxWays) {
+  if (n_blocks < 1 || max_ways < 1 || max_ways > kThreadWays) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* bk = static_cast<const int64_t*>(buckets);
@@ -782,6 +1201,34 @@ extern "C" int llc_lane_scan_launch(const void* buckets, const void* blocks, int
   if (max_ways <= 32) return static_cast<int>(lane_scan<32>(bk, bl, n_blocks, st));
   if (max_ways <= 64) return static_cast<int>(lane_scan<64>(bk, bl, n_blocks, st));
   return static_cast<int>(lane_scan<128>(bk, bl, n_blocks, st));
+}
+
+// The warp route of the same buckets table: blocks (n_blocks, 3) int32
+// (bucket, lane, set), one warp each, of buckets wider than kThreadWays;
+// max_ways: the largest of their max_ways; scratch: n_blocks slots of
+// wide_slot_bytes(max_ways) in global memory, or null to keep each slot in
+// shared memory (it must fit kSharedBytes).
+extern "C" int llc_lane_scan_wide_launch(const void* buckets, const void* blocks, int n_blocks,
+                                         int max_ways, void* scratch, void* stream) {
+  if (n_blocks < 1 || max_ways < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* bk = static_cast<const int64_t*>(buckets);
+  const auto* bl = static_cast<const int32_t*>(blocks);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int64_t slot = wide_slot_bytes(max_ways);
+  if (scratch != nullptr) {
+    llc_lane_scan_wide_kernel<false><<<n_blocks, 32, 0, st>>>(
+        bk, bl, static_cast<int32_t*>(scratch), slot / 4);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (slot > kSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(slot);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        llc_lane_scan_wide_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  llc_lane_scan_wide_kernel<true><<<n_blocks, 32, smem, st>>>(bk, bl, nullptr, 0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* llc_error_string(int err) {

@@ -1,12 +1,14 @@
 """Public LLC replay ops.  Tensors on a CUDA device go through the
-Hopper kernels (``kernel.py``) — or raise; CPU tensors take the plain
-versions (``ref.py``)."""
+Hopper kernels (``kernel.py``) at any way count — or raise, past the
+card's memory or int32 indexing; CPU tensors take the plain versions
+(``ref.py``)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.llc import kernel as K
 from repro_torch.kernels.llc import ref
+from repro_torch.utils.env import check_device_memory
 
 
 def _device_type(x: torch.Tensor) -> str:
@@ -21,12 +23,6 @@ def _route(x: torch.Tensor, what: str) -> str:
     return dev
 
 
-def _check_ways(ways: int, what: str) -> None:
-    if not 1 <= ways <= K.MAX_WAYS:
-        raise ValueError(f"{what}'s kernel takes 1..{K.MAX_WAYS} ways, got "
-                         f"{ways}; there is no plain fallback on the card")
-
-
 def set_walk(tags: torch.Tensor, age: torch.Tensor, tag_s: torch.Tensor,
              acc_s: torch.Tensor, per_set: torch.Tensor,
              first: torch.Tensor):
@@ -35,7 +31,9 @@ def set_walk(tags: torch.Tensor, age: torch.Tensor, tag_s: torch.Tensor,
     bool, tags, age) as new tensors; the inputs are not written."""
     if _route(tag_s, "set_walk") == "cpu":
         return ref.set_walk_ref(tags, age, tag_s, acc_s, per_set, first)
-    _check_ways(tags.shape[1], "set_walk")
+    check_device_memory(tag_s.device, 8 * tags.numel() + tag_s.numel(),
+                        f"set_walk's state ({tuple(tags.shape)} sets x "
+                        "ways, int32 tags and ages) and hit bits")
     tags = tags.to(torch.int32).clone(memory_format=torch.contiguous_format)
     age = age.to(torch.int32).clone(memory_format=torch.contiguous_format)
     hit = torch.zeros(tag_s.shape, dtype=torch.bool, device=tag_s.device)
@@ -55,9 +53,10 @@ def lane_scan_many(buckets: list[tuple], *, collect: bool = False,
                    host: bool = False, depths: list[int] | None = None
                    ) -> list[tuple]:
     """Several lane batches' segment replays from their host plans, one
-    launch for all of them on the card.  ``buckets``: per batch (table,
-    rounds, geo, max_sets, max_ways, r_pad, suffix), each what
-    ``lane_scan`` takes.  Returns per batch what ``lane_scan`` returns;
+    launch for all of them on the card (two when batches of up to
+    ``kernel.THREAD_WAYS`` ways and wider ones meet).  ``buckets``: per
+    batch (table, rounds, geo, max_sets, max_ways, r_pad, suffix), each
+    what ``lane_scan`` takes.  Returns per batch what ``lane_scan`` returns;
     with ``host`` the outputs come to the host in one copy (CPU
     tensors).  ``depths`` (each batch's total rounds, known to the host
     plan) orders the kernel's blocks, the deepest first; without it the
@@ -80,7 +79,6 @@ def lane_scan_many(buckets: list[tuple], *, collect: bool = False,
         return at, shape, dtype
 
     for table, rounds, geo, max_sets, max_ways, r_pad, suffix in buckets:
-        _check_ways(max_ways, "lane_scan")
         table, rounds, geo = (t.contiguous() for t in (table, rounds, geo))
         sizes = K.bucket_sizes(table, rounds, geo, max_sets=max_sets,
                                max_ways=max_ways, r_pad=r_pad, suffix=suffix)
@@ -91,6 +89,10 @@ def lane_scan_many(buckets: list[tuple], *, collect: bool = False,
                       span((lanes, n_seg, r_pad, max_sets), torch.bool)
                       if collect else (0, None, None),
                       span(state, torch.int32), span(state, torch.int32)])
+    miss = sum(torch.Size(s[1][1]).numel() for s in spans) if collect else 0
+    check_device_memory(dev, off + K.wide_scratch_bytes(
+        [p[3] for p in plans]), f"lane_scan's outputs (the miss bits (L, "
+        f"S, r_pad, max_sets) {miss:,} bytes of them) and scratch")
     # one zeroed buffer holds every output, so one copy brings them back
     buf = torch.zeros(off, dtype=torch.uint8, device=dev)
     outs = [_carve(buf, s) for s in spans]

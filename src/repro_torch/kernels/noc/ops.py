@@ -1,5 +1,6 @@
 """Public NoC switch op.  Tensors on a CUDA device go through the Hopper
-kernel (``kernel.py``) — or raise; CPU tensors take the plain version
+kernel (``kernel.py``) at any port count — or raise, past the card's
+memory or int32 indexing; CPU tensors take the plain version
 (``ref.py``)."""
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import torch
 from repro_torch.kernels.noc import kernel as K
 from repro_torch.kernels.noc import ref
 from repro_torch.kernels.noc.ref import SwitchRun
+from repro_torch.utils.env import check_device_memory
 
 
 def _device_type(x: torch.Tensor) -> str:
@@ -47,13 +49,9 @@ def switch(dests: torch.Tensor, *, link: int, depth: int, total: int,
     if dev != "cuda":
         raise ValueError(f"switch runs on cuda (kernel) or cpu (plain "
                          f"version), not {dev}")
-    if ports > K.MAX_PORTS:
-        raise ValueError(f"the switch kernel takes 1..{K.MAX_PORTS} ports (a "
-                         f"lane a port), got {ports}; there is no plain "
-                         "fallback on the card")
-    if h_pad > K.INT32_MAX:
-        raise ValueError(f"the switch kernel's cycles are int32: h_pad "
-                         f"{h_pad} is not below 2**31")
+    if h_pad > K.INT32_MAX or ports > K.INT32_MAX:
+        raise ValueError(f"the switch kernel indexes in int32: h_pad {h_pad} "
+                         f"and {ports} ports must be below 2**31")
     # the status and the log in one zeroed buffer: one copy brings them back
     spans, off = [], 0
     for shape, dt in (((3,), torch.int32), ((h_pad, ports), torch.int32),
@@ -61,12 +59,22 @@ def switch(dests: torch.Tensor, *, link: int, depth: int, total: int,
                       ((h_pad, ports), torch.bool)):
         spans.append((off, shape, dt))
         off += -(-torch.Size(shape).numel() * dt.itemsize // 8) * 8
+    # the rings and the port table in global scratches where shared
+    # memory does not hold them
+    ring_bytes = 0 if K.fifo_in_shared(ports, depth) else 8 * ports * depth
+    table_bytes = 0 if K.table_in_shared(ports) else K.table_bytes(ports)
+    check_device_memory(dests.device, off + ring_bytes + table_bytes,
+                        f"the switch's log ({h_pad} cycles x {ports} "
+                        f"ports), rings ({ports} x depth {depth}) and port "
+                        "table")
     buf = torch.zeros(off, dtype=torch.uint8, device=dests.device)
     status, src, lat, granted = _carve(buf, spans)
-    fifo = None if K.fifo_in_shared(ports, depth) else torch.empty(
-        (ports, depth, 2), dtype=torch.int32, device=dests.device)
+    fifo = torch.empty((ports, depth, 2), dtype=torch.int32,
+                       device=dests.device) if ring_bytes else None
+    table = torch.empty(table_bytes // 4, dtype=torch.int32,
+                        device=dests.device) if table_bytes else None
     K.switch_kernel(dests.to(torch.int32).contiguous(), status, granted, src,
-                    lat, fifo, link=link, depth=depth, total=total,
+                    lat, fifo, table, link=link, depth=depth, total=total,
                     bundle=bundle, n_chunks=n_bundles(h_pad, bundle))
     status, src, lat, granted = _carve(buf.cpu(), spans)
     delivered, overflow, bundles = status.tolist()

@@ -5,7 +5,10 @@
   when CUDA is asked for and absent;
 * ``as_address_tensor`` — DBB byte addresses as int64 tensors, range
   -checked against the ``DRAM_ADDR_BITS``-bit physical address space so
-  a generator bug cannot pass as a bigger DRAM.
+  a generator bug cannot pass as a bigger DRAM;
+* ``check_device_memory`` — a kernel wrapper's allocations held to the
+  card's free memory before it makes them, so that a geometry too big
+  for the card raises with what it needed.
 """
 from __future__ import annotations
 
@@ -47,3 +50,26 @@ def check_address_range(arr: np.ndarray, what: str = "address") -> None:
         raise OverflowError(
             f"{what} values outside the {DRAM_ADDR_BITS}-bit DRAM address "
             f"space [0, {1 << DRAM_ADDR_BITS:#x})")
+
+
+def free_device_bytes(dev: torch.device) -> int:
+    """Device memory a new allocation can take: what ``cudaMemGetInfo``
+    reports free and what PyTorch's allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    return free + torch.cuda.memory_reserved(dev) \
+        - torch.cuda.memory_allocated(dev)
+
+
+def check_device_memory(dev: torch.device, nbytes: int, what: str) -> None:
+    """Raise ``MemoryError`` naming ``what`` if ``nbytes`` do not fit a
+    CUDA device's free memory (other devices are not checked)."""
+    if dev.type != "cuda":
+        return
+    # what the allocator already holds unused needs no device query
+    if nbytes <= torch.cuda.memory_reserved(dev) \
+            - torch.cuda.memory_allocated(dev):
+        return
+    free = free_device_bytes(dev)
+    if nbytes > free:
+        raise MemoryError(f"{what} need {nbytes:,} bytes of device memory; "
+                          f"{free:,} are free")

@@ -26,6 +26,11 @@ from repro_torch.core import soc as t_soc  # noqa: E402
 from repro_torch.core import sweep as t_sweep  # noqa: E402
 from repro_torch.core import traces as t_tr  # noqa: E402
 from repro_torch.core.cache import LLCConfig  # noqa: E402
+from repro_torch.kernels.llc import kernel as llc_k  # noqa: E402
+from repro_torch.kernels.llc import ops as llc_ops  # noqa: E402
+from repro_torch.kernels.llc import ref as llc_ref  # noqa: E402
+from test_torch_llc import (_card_route, _lane_scan_stand_in,  # noqa: E402
+                            _no_plain)
 
 CPU = "cpu"
 
@@ -55,7 +60,8 @@ def _oracle_counts(segs, c):
     """Per-segment hits from expanding the trace through the port's
     per-access oracle."""
     blocks = t_tr.expand([t_tr.Segment(*s) for s in segs]) // c.block_bytes
-    bits = t_cache.simulate_trace(blocks, sets=c.sets, ways=c.ways)
+    bits = t_cache.simulate_trace(blocks, sets=c.sets, ways=c.ways,
+                                  device=CPU)
     out, o = [], 0
     for s in segs:
         out.append(int(bits[o:o + s[2]].sum()))
@@ -74,16 +80,88 @@ def test_simulate_trace_matches_reference(sets, ways, trace):
     (equal-age ways after a cold start) common."""
     j = np.asarray(j_cache.simulate_trace(
         jnp.asarray(trace, jnp.int32), sets=sets, ways=ways))
-    t = t_cache.simulate_trace(trace, sets=sets, ways=ways)
+    t = t_cache.simulate_trace(trace, sets=sets, ways=ways, device=CPU)
     np.testing.assert_array_equal(t, j)
 
 
 def test_simulate_trace_lru_order():
-    assert t_cache.simulate_trace([0, 1, 0], sets=1, ways=2).tolist() == \
+    assert t_cache.simulate_trace([0, 1, 0], sets=1, ways=2,
+                                  device=CPU).tolist() == \
         [False, False, True]
-    assert t_cache.simulate_trace([0, 1, 0, 2, 0, 1], sets=1,
-                                  ways=2).tolist() == \
+    assert t_cache.simulate_trace([0, 1, 0, 2, 0, 1], sets=1, ways=2,
+                                  device=CPU).tolist() == \
         [False, False, True, False, True, False]
+
+
+def test_simulate_trace_runs_on_cuda_by_default():
+    """``simulate_trace`` is an entry point of the port: with no device
+    it runs on ``cuda``, so without a card it raises rather than run the
+    host loop."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_cache.simulate_trace([0, 1, 0], sets=1, ways=2)
+
+
+def test_simulate_trace_tags_are_int32():
+    """Tags (block // sets) that leave int32 raise on either route, as
+    the reference casts them to int32."""
+    for blocks in ([0, 2**31 * 4], [-(2**31) * 4 - 4, 0]):
+        with pytest.raises(OverflowError, match="int32"):
+            t_cache.simulate_trace(blocks, sets=4, ways=2, device=CPU)
+    assert t_cache.simulate_trace([2**31 * 4 - 1], sets=4, ways=2,
+                                  device=CPU).tolist() == [False]
+
+
+@settings(max_examples=16, deadline=None, database=None)
+@given(sets=st.sampled_from([1, 2, 4]),
+       ways=st.sampled_from([1, 3, 8, 129, 160, 256, 1024]),
+       seed=st.integers(0, 2**32 - 1))
+def test_simulate_trace_card_route_is_one_walk_and_the_reference(
+        sets, ways, seed):
+    """On the card route ``simulate_trace`` is one set walk (no
+    per-access host loop): every access an arrival of count 1 from a
+    cold state, its hits the plain loop's and the reference's jitted
+    scan's, on traces past the capacity (victims chosen) and at way
+    counts past the thread routes' 128."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, 3 * sets * ways // 2 + 2, 2 * sets * ways + 8)
+    want = t_cache.simulate_trace(blocks, sets=sets, ways=ways, device=CPU)
+    ref = np.asarray(j_cache.simulate_trace(jnp.asarray(blocks, jnp.int32),
+                                            sets=sets, ways=ways))
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        _card_route(mp, calls)
+        got = t_cache.simulate_trace(blocks, sets=sets, ways=ways,
+                                     device=CPU)
+    assert calls == ["set_walk"]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, ref)
+    assert 0 < want.sum() < want.shape[0]
+
+
+@pytest.mark.parametrize("ways", [129, 160, 256, 1024])
+def test_wide_lane_engine_is_the_reference(monkeypatch, ways):
+    """The lane engine (``segment_lane_hit_counts``) at way counts past
+    128, on the card route (the warp route's emulation standing in for
+    the launch) and on the CPU, against the reference's, on a window
+    that overflows every geometry."""
+    segs = [t_tr.segment_tuple(s) for s in
+            t_tr.default_dbb_window(max_bursts=4096, chunk_bursts=16)[:48]]
+    segs = [(b % (1 << 18), s_, c) for b, s_, c in segs] * 2
+    cfgs = [LLCConfig(ways * 64, ways, 64), LLCConfig(ways * 64 * 4, ways, 32)]
+    want = np.asarray(j_sweep.segment_lane_hit_counts(
+        segs, [_jllc(c) for c in cfgs]))
+    got_cpu = t_sweep.segment_lane_hit_counts(segs, cfgs, device=CPU)
+    calls = []
+    monkeypatch.setattr(llc_ops, "_device_type", lambda x: "cuda")
+    monkeypatch.setattr(llc_ref, "lane_scan_ref", _no_plain)
+    monkeypatch.setattr(llc_k, "lane_scan_kernel", _lane_scan_stand_in(calls))
+    got = t_sweep.segment_lane_hit_counts(segs, cfgs, device=CPU)
+    assert calls == ["lane_scan warp"]
+    np.testing.assert_array_equal(got_cpu, want)
+    np.testing.assert_array_equal(got, want)
+    assert (want.sum(axis=1) < sum(c for _, _, c in segs)).all()
 
 
 def test_cold_state_layout():
@@ -212,3 +290,86 @@ def test_whole_frame_per_segment_hits_exact():
     j = j_sweep.segment_lane_hit_counts(j_tr.network_trace(), [_jllc(cfg)])
     np.testing.assert_array_equal(t, j)
     assert t.shape == (1, 328)
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.parametrize("part", ["trace", "engines", "mask", "farm"])
+def test_chip_smoke_wide_anchors_are_the_references(part):
+    """``chip_smoke.py``'s ``wide_path`` anchors are the reference's,
+    recomputed here by the recipe beside them (all but the lane engine's
+    (3, 1024) counts, ~1 min of the reference on this CPU), and the
+    port's CPU route gives them too."""
+    from repro.core import dram as j_dram
+    from repro.core import farm as j_farm
+    from repro.core import socsim as j_socsim
+    from repro.utils.stats import latency_summary as j_summary
+
+    cs = _chip_smoke()
+    if part == "trace":
+        seed, span, n = cs.WIDE_TRACE
+        blocks = np.random.default_rng(seed).integers(0, span, n)
+        for (sets, ways), want in cs.WIDE_TRACE_ANCHORS.items():
+            hits = np.asarray(j_cache.simulate_trace(
+                jnp.asarray(blocks, jnp.int32), sets=sets, ways=ways))
+            assert (int(hits.sum()), cs.packed_sha(hits)) == want
+    elif part == "engines":
+        window = [j_tr.segment_tuple(x) for x in j_tr.default_dbb_window(
+            max_bursts=cs.WIDE_WINDOW[0], chunk_bursts=cs.WIDE_WINDOW[1])]
+        window += window[::-1]
+        addrs = j_tr.expand([j_tr.Segment(*x) for x in window])
+        for spec, want in cs.WIDE_LLC_ANCHORS.items():
+            cfg = j_cache.LLCConfig(*spec)
+            stream = j_socsim.simulate_dbb_stream(jnp.asarray(addrs), llc=cfg)
+            got = (int(j_cache.simulate_segments(window, cfg).hits),
+                   j_cache.hit_rate(addrs // cfg.block_bytes, cfg),
+                   int(stream.total_cycles),
+                   cs.array_sha(stream.latencies, np.int32))
+            assert got == want, spec
+            port = t_cache.simulate_segments(window, LLCConfig(*spec),
+                                             device=CPU)
+            assert port.hits == want[0]
+    elif part == "mask":
+        mc = LLCConfig(*cs.WIDE_MASK_LLC)
+        bursts, chunk, passes = cs.WIDE_MASK_WINDOW
+        b, s_, c, nv = t_sweep.corunner_meta(
+            [t_tr.segment_tuple(x) for x in t_tr.default_dbb_window(
+                max_bursts=bursts, chunk_bursts=chunk)] * passes, llc=mc,
+            mix=t_sweep.MixConfig(2, "llc"))
+        sels = np.where(nv, cs.WIDE_MASK[0], cs.WIDE_MASK[1])
+        nb = np.where(c > 0, (b + (c - 1) * s_) // mc.block_bytes
+                      - b // mc.block_bytes + 1, 0)
+        r_needed = -(-nb // mc.sets)
+        kw = dict(max_sets=mc.sets, max_ways=mc.ways,
+                  r_pad=int(r_needed.max()), suffix="none")
+        ref = np.asarray(j_cache.segment_lane_scan(
+            *(jnp.asarray(a, jnp.int32) for a in (b, s_, c, r_needed)),
+            np.zeros(b.shape[0], bool), mc.sets, mc.ways, mc.block_bytes,
+            sels, **kw))
+        assert (int(ref.sum()), cs.array_sha(ref, np.int64)) == \
+            cs.WIDE_MASK_ANCHOR
+        port = t_cache.segment_lane_scan(
+            b[None], s_[None], c[None], r_needed, np.zeros(b.shape[0], bool),
+            [mc.sets], [mc.ways], [mc.block_bytes], sels[None], **kw,
+            device=CPU)[0]
+        np.testing.assert_array_equal(port, ref)
+    else:
+        for nodes, want in cs.WIDE_FARM_ANCHORS.items():
+            res = j_farm.simulate_farm(
+                llc=j_cache.LLCConfig(cs.FARM_LLC_BYTES, 8, 64),
+                dram=j_dram.DRAMConfig(), farm=j_farm.FarmConfig(nodes=nodes),
+                max_bursts=cs.FARM_BURSTS)
+            assert {**j_summary(res.steady()),
+                    "noc_mean": float(res.noc_latency.mean()),
+                    "mem_mean": float(res.mem_latency.mean()),
+                    "host_steps": res.noc.host_steps} == want, nodes

@@ -8,7 +8,12 @@ scan every thread of the block table (``kernel.launch_plan``: one
 launch for every lane bucket) running the kernel's 32-bit arithmetic,
 divisions by a reciprocal (``_fastdiv``), the round's tag t0 + k, the
 argmin tree, the suffix's ranks taken mod ways without a division.
-Int32 sums wrap as uint32.  On the CPU they are held bit for bit to the
+Past 128 ways the warp routes: a warp a set or a (bucket, lane, set),
+way q on lane q % 32, the lanes' first best keys and the warp's pick
+by two reductions (``_warp_pick``), the suffix's ranks by the bitonic
+network over (stamp, way) keys (``_bitonic_ranks``), a call of both
+widths as two launches (``kernel.route_plans``).  Int32 sums wrap as
+uint32.  On the CPU they are held bit for bit to the
 plain versions (``kernels/llc/ref.py``, the loops ``core/cache.py`` ran)
 over hypothesis-drawn arrivals, traces, geometries and bucket sets and
 at explicit edges (ties, wraps, int32 limits, odd strides and way
@@ -44,7 +49,8 @@ def _i32(x):
 
 
 def _template_ways(ways: int) -> int:
-    """The kernels' compile-time way bound for ``ways`` (their dispatch)."""
+    """The thread routes' compile-time way bound for ``ways`` (their
+    dispatch, up to ``K.THREAD_WAYS``)."""
     return next((w for w in (2, 4, 8, 16, 32, 64) if ways <= w), 128)
 
 
@@ -94,13 +100,56 @@ def _first(v, better):
     return idx[..., 0], v[..., 0]
 
 
+def _warp_pick(keys, better):
+    """The warp routes' pick over one set's ``keys`` (a key a way, way q
+    on lane q % 32): each lane's first best over its own ways in order,
+    then the best key over the lanes (``__reduce_max_sync`` /
+    ``__reduce_min_sync``) and the least way among the lanes holding it
+    (``__reduce_min_sync``); a lane with no way votes for none.  Returns
+    (way, key)."""
+    lane_key, lane_way = [], []
+    for lane in range(min(32, keys.shape[0])):
+        own = keys[lane::32]
+        k = int(np.argmax(own) if better is np.greater else np.argmin(own))
+        lane_key.append(int(own[k]))
+        lane_way.append(lane + 32 * k)
+    best = max(lane_key) if better is np.greater else min(lane_key)
+    return min(w for k, w in zip(lane_key, lane_way) if k == best), best
+
+
+def _emulate_set_walk_warp(tags, age, tag_s, acc_s, per_set, first, hit_s):
+    """``llc_set_walk_warp_kernel`` / ``llc_set_walk_mem_kernel`` (ways
+    past ``K.THREAD_WAYS``): a warp a set takes its arrivals in order
+    (staged 32 at a time and broadcast, which orders nothing), scores
+    each way (INT32_MAX for a matching tag, else its age), touches the
+    warp's pick (``_warp_pick``: the first way of the greatest score),
+    ages every other way by the access count (wrapping as int32), and
+    the hit is any lane's match.  The state's place (registers, shared
+    or global memory) changes no value."""
+    sets, ways = tags.shape
+    for s in range(sets):
+        tg, ag = tags[s].astype(np.int64), age[s].astype(np.int64)
+        for r in range(int(first[s]), int(first[s] + per_set[s])):
+            t, a = int(tag_s[r]), int(acc_s[r]) & M32
+            match = tg == t
+            way, _ = _warp_pick(np.where(match, IMAX, ag), np.greater)
+            ag = np.where(np.arange(ways) == way, 0, _i32(ag + a))
+            tg[way] = t
+            hit_s[r] = bool(match.any())
+        tags[s], age[s] = tg, ag
+
+
 def _emulate_set_walk(tags, age, tag_s, acc_s, per_set, first, hit_s):
     """``llc_set_walk_kernel``: a block of 32 lanes walks 32 sets; each
     chunk of 32 arrivals a set is staged, walked (scores: INT32_MAX for a
     matching tag, the age otherwise, IMIN past the real ways; the argmax
     tree), and its hit bits written out; tags / age (sets, ways) int32
-    walked in place, hit_s (n,) bool written."""
+    walked in place, hit_s (n,) bool written.  Sets wider than
+    ``K.THREAD_WAYS`` take the warp route (``_emulate_set_walk_warp``)."""
     sets, ways = tags.shape
+    if ways > K.THREAD_WAYS:
+        return _emulate_set_walk_warp(tags, age, tag_s, acc_s, per_set,
+                                      first, hit_s)
     width = _template_ways(ways)
     q = np.arange(width)
     for b0 in range(0, sets, WALK_THREADS):
@@ -147,7 +196,8 @@ def _emulate_lane_scan(buckets, blocks, outs, threads=K.SCAN_THREADS):
     set).  ``buckets``: per bucket (table, rounds, geo, sizes) numpy;
     ``outs``: per bucket (hits, miss or None, tags, ts) numpy, written
     as the kernel writes them (hits and miss bits on zeros)."""
-    width = _template_ways(max(b[3]["max_ways"] for b in buckets))
+    width = _template_ways(max(buckets[b][3]["max_ways"]
+                               for b in set(blocks[:, 0].tolist())))
     q = np.arange(width)
     bk = np.repeat(blocks[:, 0], threads).astype(np.int64)
     ln = np.repeat(blocks[:, 1], threads).astype(np.int64)
@@ -260,9 +310,137 @@ def _emulate_lane_scan(buckets, blocks, outs, threads=K.SCAN_THREADS):
             st = np.where(valid, _i32(counter[:, None] + last + 1), st)
     for b, (_, _, tags, ts) in enumerate(outs):
         m = (bk == b) & in_state
+        if not m.any():   # a bucket of the other route
+            continue
         mw = buckets[b][3]["max_ways"]
         at = (ln[m][:, None], np.arange(mw)[None, :], s[m][:, None])
         tags[at], ts[at] = tg[m, :mw], np.where(real[m, :mw], st[m, :mw], 0)
+
+
+def _bitonic_ranks(st):
+    """The warp route's suffix ranks: the kernel's bitonic network, pass
+    by pass (a pass's pairs are disjoint), sorting pow2(ways) 64-bit keys
+    ascending ((stamp ^ 0x80000000) << 32 | way; the padding keys all
+    ones, last).  Returns the way of each rank."""
+    ways = st.shape[0]
+    span = 1 << max(0, ways - 1).bit_length()
+    keys = np.full(span, 2**64 - 1, np.uint64)
+    keys[:ways] = (((st.astype(np.int64) & M32) ^ 0x80000000).astype(
+        np.uint64) << np.uint64(32)) | np.arange(ways, dtype=np.uint64)
+    x = np.arange(span // 2)
+    k2 = 2
+    while k2 <= span:
+        jj = k2 >> 1
+        while jj > 0:
+            i = ((x & ~(jj - 1)) << 1) | (x & (jj - 1))
+            ixj = i | jj
+            u, v = keys[i], keys[ixj]
+            swap = (u > v) == ((i & k2) == 0)
+            keys[i], keys[ixj] = np.where(swap, v, u), np.where(swap, u, v)
+            jj >>= 1
+        k2 <<= 1
+    return (keys[:ways] & np.uint64(M32)).astype(np.int64)
+
+
+def _emulate_lane_scan_warp(buckets, blocks, outs):
+    """``llc_lane_scan_wide_kernel`` over the block table ``blocks`` ((n,
+    3): bucket, lane, set), one warp a row walking its lane's real ways
+    only (padding ways are written out as -1 / 0): the kernel's 32-bit
+    arithmetic (``derive``, the reciprocal divisions), the round's key
+    (-1 for a match, the stamp where the int64 mask allows the way, its
+    sign bit past bit 63, else INT32_MAX) and the warp's pick
+    (``_warp_pick``), the suffix's one eviction by the same pick and its
+    ranks by the bitonic network (``_bitonic_ranks``)."""
+    def div(n, d):
+        mul, shift = _fastdiv(d)
+        return (((n * mul) >> 32) + n) >> shift
+
+    for b, l, s in blocks.tolist():
+        table, rnd, geo, sz = buckets[b]
+        hits, miss, tags_out, ts_out = outs[b]
+        sets, ways, bb = (int(v) for v in geo[l])
+        q = np.arange(ways)
+        tg = np.full(ways, -1, np.int64)
+        st = np.zeros(ways, np.int64)
+        active = s < sets
+        step = sets * bb & M32
+        for j in range(sz["n_seg"]):
+            base, stride, count, b_first, n_pre, sb_first, n_suf, counter, \
+                wsel = (int(v) for v in table[l, j])
+            counter &= M32
+            b_first, sb_first = b_first & M32, sb_first & M32
+            qb = div(b_first, sets)
+            ub = b_first - qb * sets
+            by_stride = stride if stride > 0 else 1
+
+            def last(x):   # last_access
+                return min(div(x & M32, by_stride), (count - 1) & M32)
+
+            alloc = (wsel == 0) | np.where(
+                q < 64, (wsel >> np.minimum(q, 63)) & 1, wsel < 0).astype(bool)
+            if rnd[j] > 0:
+                mine = 0
+                if active:
+                    wrap = s < ub
+                    i = s + sets - ub if wrap else s - ub
+                    t = qb + wrap
+                    lo = ((b_first + i) * bb - base) & M32
+                    k = 0
+                    while k < rnd[j] and i < n_pre:
+                        j_hi = last(lo + bb - 1)
+                        j_lo = 0 if _i32(lo) <= 0 else div(
+                            (lo + stride - 1) & M32, by_stride)
+                        key = np.where(tg == t, -1, np.where(alloc, st, IMAX))
+                        way, kmin = _warp_pick(key, np.less)
+                        hit = kmin == -1
+                        tg[way], st[way] = t, _i32(counter + j_hi + 1)
+                        mine = (mine + j_hi - j_lo + hit) & M32
+                        if miss is not None and not hit:
+                            miss[l, j, k, s] = True
+                        k, i, t, lo = k + 1, i + sets, t + 1, (lo + step) & M32
+                hits[l, j] += mine
+            if not active or sz["suffix"] == 0 or n_suf <= 0:
+                continue
+            qsb = div(sb_first, sets)
+            usb = sb_first - qsb * sets
+            wrap = s < usb
+            off_suf = s + sets - usb if wrap else s - usb
+            if off_suf >= n_suf:
+                continue
+            t_suf, blk0 = qsb + wrap, (sb_first + off_suf) & M32
+
+            def stamp(blk):
+                return _i32(counter + last(blk * bb - base + bb - 1) + 1)
+
+            if sz["suffix"] == 1:
+                way, _ = _warp_pick(st, np.less)
+                tg[way], st[way] = t_suf, stamp(blk0)
+                continue
+            m = div((n_suf - off_suf + sets - 1) & M32, sets)
+            e = (m - 1) & M32
+            e -= div(e, ways) * ways
+            for r, a in enumerate(_bitonic_ranks(st).tolist()):
+                dd = e - r if e >= r else e + ways - r
+                if dd < m:
+                    back = m - 1 - dd
+                    tg[a] = t_suf + back
+                    st[a] = stamp((blk0 + back * sets) & M32)
+        mw = sz["max_ways"]
+        tags_out[l, :, s] = np.concatenate([tg, np.full(mw - ways, -1)])
+        ts_out[l, :, s] = np.concatenate([st, np.zeros(mw - ways, np.int64)])
+
+
+def _emulate_launches(buckets, outs, depths):
+    """``kernel.lane_scan_kernel``'s launches (``kernel.route_plans``):
+    the thread route over the narrow buckets, then the warp route over
+    the wide ones.  Returns the routes launched."""
+    sizes = [b[3] for b in buckets]
+    routes = []
+    for wide, _, blocks in K.route_plans(sizes, depths):
+        (_emulate_lane_scan_warp if wide else _emulate_lane_scan)(
+            buckets, blocks, outs)
+        routes.append("warp" if wide else "thread")
+    return routes
 
 
 def _launch_outs(sizes, collect=True, fill=7):
@@ -286,13 +464,16 @@ def _set_walk_stand_in(calls):
 
 
 def _lane_scan_stand_in(calls):
+    """Stands in for ``kernel.lane_scan_kernel``: its launches emulated,
+    one call noted a launch ("lane_scan"; "lane_scan warp" for the warp
+    route's)."""
     def launch(plans, outs, depths):
-        calls.append("lane_scan")
-        blocks = K.launch_plan([p[3] for p in plans], depths)
-        _emulate_lane_scan(
+        routes = _emulate_launches(
             [(p[0].numpy(), p[1].numpy(), p[2].numpy(), p[3]) for p in plans],
-            blocks, [tuple(None if o is None else o.numpy() for o in out)
-                     for out in outs])
+            [tuple(None if o is None else o.numpy() for o in out)
+             for out in outs], depths)
+        calls.extend("lane_scan" + (" warp" if r == "warp" else "")
+                     for r in routes)
     return launch
 
 
@@ -377,6 +558,78 @@ def _lane_plans(draw):
             suffix)
 
 
+WIDE_WAYS = [129, 160, 256, 1024]   # past the thread routes' 128
+
+
+@st.composite
+def _wide_arrivals(draw):
+    """Set-sorted arrivals of a geometry past ``K.THREAD_WAYS``: 1-2
+    sets of 129, 160, 256 or 1,024 ways, each set past its capacity
+    (from 1.5x its ways in distinct tags, so that victims are chosen),
+    a cold state or a warm one with ages over all of int32, access
+    counts small or up to 2**31 - 1 (sums wrap)."""
+    sets = draw(st.sampled_from([1, 2]))
+    ways = draw(st.sampled_from(WIDE_WAYS))
+    rng = np.random.default_rng(draw(st.integers(0, 2**32 - 1)))
+    per_set = rng.integers(ways, 2 * ways + 1, sets)
+    n = int(per_set.sum())
+    first = np.cumsum(per_set) - per_set
+    span = 3 * ways // 2
+    if draw(st.booleans()):
+        tags = rng.integers(-1, span, (sets, ways)).astype(np.int32)
+        age = rng.integers(-2**31, 2**31, (sets, ways)).astype(np.int32)
+    else:
+        tags = np.full((sets, ways), -1, np.int32)
+        age = np.zeros((sets, ways), np.int32)
+    tag_s = rng.integers(0, span, n).astype(np.int32)
+    acc_s = rng.integers(1, 2**31 if draw(st.booleans()) else 40,
+                         n).astype(np.int32)
+    return tags, age, tag_s, acc_s, per_set, first
+
+
+@st.composite
+def _wide_lane_plans(draw):
+    """A lane batch past ``K.THREAD_WAYS`` through the host plan: 1-2
+    lanes of 129, 160, 256 or 1,024 ways (a narrow lane of 8 ways beside
+    them in the same bucket), 1-4 sets, blocks of 32/64 bytes, streams
+    that overflow the sets, cold flags, masks including negative ones
+    (the sign bit allocates every way past bit 63), every suffix mode."""
+    geos = [(draw(st.sampled_from([1, 2, 4])), draw(st.sampled_from(
+        WIDE_WAYS)), draw(st.sampled_from([32, 64])))
+        for _ in range(draw(st.integers(1, 2)))]
+    if draw(st.booleans()):
+        geos.append((draw(st.sampled_from([1, 2])), 8, 64))
+    sets, ways, bbs = (np.asarray(v, np.int64) for v in zip(*geos))
+    n_lane, n_seg = len(geos), draw(st.integers(2, 8))
+    rng = np.random.default_rng(draw(st.integers(0, 2**32 - 1)))
+    span = int((sets * ways * bbs).max()) * 3 // 2
+    bases = rng.integers(0, span // 16, (1, n_seg)) * 16
+    strides = rng.choice([4, 8, 16, 32], (1, n_seg))
+    counts = rng.integers(0, span // 8, (1, n_seg))
+    counts[rng.random((1, n_seg)) < 0.15] = 0
+    cold = rng.random((1, n_seg)) < 0.3
+    way_sels = None
+    if draw(st.booleans()):
+        pick = rng.integers(0, 4, (n_lane, n_seg))
+        low = rng.integers(1, 2**62, (n_lane, n_seg))
+        way_sels = np.where(pick == 0, 0, np.where(pick == 1, -low, low))
+    shape = (n_lane, n_seg)
+    b, s_, c = (np.broadcast_to(a, shape) for a in (bases, strides, counts))
+    nb = np.where(c > 0, (b + (c - 1) * s_) // bbs[:, None]
+                  - b // bbs[:, None] + 1, 0)
+    r_needed = np.minimum(ways[:, None], -(-nb // sets[:, None]))
+    if way_sels is not None:
+        r_needed = np.where(way_sels != 0, -(-nb // sets[:, None]),
+                            r_needed)
+    r_pad = max(1, int(r_needed.max()))
+    suffix = draw(st.sampled_from(["full", "one", "none"]))
+    table, rounds, geo, _ = cache._lane_plan_tables(
+        bases, strides, counts, r_needed, cold, sets, ways, bbs, way_sels,
+        r_pad=r_pad, suffix=suffix)
+    return (table, rounds, geo, int(sets.max()), int(ways.max()), r_pad,
+            suffix)
+
+
 def _plain_lane_scan(table, rounds, geo, max_sets, max_ways, r_pad, suffix,
                      collect=True):
     return ref.lane_scan_ref(torch.as_tensor(table), torch.as_tensor(rounds),
@@ -393,12 +646,12 @@ def _sizes(table, rounds, geo, max_sets, max_ways, r_pad, suffix):
 
 def _emulated_lane_scan_many(plans, collect=True):
     """Lane batches (each ``_lane_plans``' tuple) through one emulated
-    launch: the block table, then the kernel's threads."""
+    call: the block tables of its routes, then the kernels' threads and
+    warps."""
     sizes = [_sizes(*p) for p in plans]
     outs = [_launch_outs(sz, collect) for sz in sizes]
-    blocks = K.launch_plan(sizes, [int(np.sum(p[1])) for p in plans])
-    _emulate_lane_scan([(p[0], p[1], p[2], sz) for p, sz in zip(plans, sizes)],
-                       blocks, outs)
+    _emulate_launches([(p[0], p[1], p[2], sz) for p, sz in zip(plans, sizes)],
+                      outs, [int(np.sum(p[1])) for p in plans])
     return outs
 
 
@@ -455,6 +708,92 @@ def test_one_launch_of_many_buckets_is_each_buckets_plain_scan(plans,
     for g, plan in zip(got, plans):
         _assert_lane_scan_equal(g, _plain_lane_scan(*plan, collect=collect),
                                 collect)
+
+
+@settings(max_examples=12, deadline=None, database=None)
+@given(case=_wide_arrivals())
+def test_warp_set_walk_emulation_is_the_plain_walk(case):
+    """The set walk's warp route (ways past 128): the lanes' first
+    greatest scores and the warp's first way among them, over sets past
+    their capacity, bit for bit the plain walk's hits and state."""
+    hit, want_tags, want_age = ref.set_walk_ref(
+        *(torch.as_tensor(a) for a in case))
+    tags, age, tag_s, acc_s, per_set, first = case
+    tg, ag = tags.copy(), age.copy()
+    got = np.zeros(tag_s.shape, bool)
+    _emulate_set_walk(tg, ag, tag_s, acc_s, per_set, first, got)
+    np.testing.assert_array_equal(got, hit.numpy())
+    np.testing.assert_array_equal(tg, want_tags.numpy())
+    np.testing.assert_array_equal(ag, want_age.numpy())
+
+
+@settings(max_examples=15, deadline=None, database=None)
+@given(plan=_wide_lane_plans(), collect=st.booleans())
+def test_warp_lane_scan_emulation_is_the_plain_scan(plan, collect):
+    """The lane scan's warp route: the warp's argmin with first-index
+    ties, negative masks, and the suffix ranks by the bitonic network,
+    bit for bit the plain scan's hits, miss bits and state."""
+    want = _plain_lane_scan(*plan, collect=collect)
+    _assert_lane_scan_equal(_emulated_lane_scan(*plan), want, collect)
+
+
+@settings(max_examples=8, deadline=None, database=None)
+@given(narrow=_lane_plans(), wide=_wide_lane_plans())
+def test_one_call_of_narrow_and_wide_buckets_is_two_launches(narrow, wide):
+    """A call that holds buckets of both widths launches the thread
+    route, then the warp route, and each bucket is its own plain scan."""
+    sizes = [_sizes(*p) for p in (narrow, wide, narrow)]
+    routes = [w for w, _, _ in K.route_plans(sizes, [3, 1, 2])]
+    assert routes == [False, True]
+    got = _emulated_lane_scan_many([narrow, wide, narrow])
+    for g, plan in zip(got, (narrow, wide, narrow)):
+        _assert_lane_scan_equal(g, _plain_lane_scan(*plan))
+
+
+def test_bitonic_ranks_are_the_stable_oldest_first_order():
+    """The warp route's suffix ranks: ascending stamps, ties on the lower
+    way, over all of int32 and at way counts that are and are not powers
+    of two."""
+    rng = np.random.default_rng(31)
+    for ways in (1, 2, 3, 129, 160, 256, 1000, 1024):
+        for st_ in (rng.integers(-2**31, 2**31, ways),
+                    rng.integers(0, 4, ways),
+                    np.full(ways, 2**31 - 1), np.full(ways, -2**31)):
+            want = np.lexsort((np.arange(ways), st_))
+            np.testing.assert_array_equal(_bitonic_ranks(st_), want)
+
+
+def test_warp_pick_takes_the_first_index_of_the_extreme():
+    """The warp's two reductions give the plain argmax / argmin's first
+    index, ties across lanes and within a lane alike."""
+    rng = np.random.default_rng(7)
+    for ways in (129, 160, 256, 1024):
+        for keys in (rng.integers(0, 3, ways), np.zeros(ways, np.int64),
+                     rng.integers(-2**31, 2**31, ways)):
+            assert _warp_pick(keys, np.greater) == (int(np.argmax(keys)),
+                                                    int(keys.max()))
+            assert _warp_pick(keys, np.less) == (int(np.argmin(keys)),
+                                                 int(keys.min()))
+
+
+def test_route_bounds():
+    """The set walk's routes by way count and the lane scan's slot: in
+    shared memory while it fits a block's, else a global scratch slot a
+    (bucket, lane, set)."""
+    assert [K.set_walk_route(w) for w in (1, 128, 129, 256, 257, 29056,
+                                          29057)] == [
+        "thread", "thread", "registers", "registers", "shared", "shared",
+        "global"]
+    assert K.wide_slot_bytes(129) == 8 * 130 + 8 * 256
+    assert K.wide_slot_bytes(1024) == 8 * 1024 * 2
+    sz = dict(lanes=2, max_sets=3)
+    assert K.wide_scratch_bytes([dict(sz, max_ways=128)]) == 0
+    assert K.wide_scratch_bytes([dict(sz, max_ways=4096)]) == 0
+    assert K.wide_slot_bytes(12672) <= K.SHARED_BYTES \
+        < K.wide_slot_bytes(12673)
+    assert K.wide_scratch_bytes([dict(sz, max_ways=14600),
+                                 dict(sz, max_ways=8)]) == \
+        6 * K.wide_slot_bytes(14600)
 
 
 # --------------------------------------------------------------------------
@@ -527,27 +866,107 @@ def test_set_walk_does_not_write_its_inputs(monkeypatch):
     assert not torch.equal(new_tags, tags)
 
 
-@pytest.mark.parametrize("engine", ["set_walk", "lane_scan"])
-def test_cuda_route_raises_on_unsupported_ways(monkeypatch, engine):
-    """More ways than the kernels' bound raise on CUDA: no plain loop
-    and no launch."""
-    calls = []
+def _card_route(monkeypatch, calls):
+    """The ops see a CUDA device; the kernels' emulations launch; the
+    plain loops may not run."""
+    monkeypatch.setattr(cache, "_on_card", lambda x: True)
     monkeypatch.setattr(ops, "_device_type", lambda x: "cuda")
     monkeypatch.setattr(ref, "set_walk_ref", _no_plain)
     monkeypatch.setattr(ref, "lane_scan_ref", _no_plain)
     monkeypatch.setattr(K, "set_walk_kernel", _set_walk_stand_in(calls))
     monkeypatch.setattr(K, "lane_scan_kernel", _lane_scan_stand_in(calls))
-    ways = K.MAX_WAYS + 1
-    with pytest.raises(ValueError, match="ways"):
+
+
+@pytest.mark.parametrize("ways", WIDE_WAYS)
+@pytest.mark.parametrize("engine", ["set_walk", "lane_scan"])
+def test_cuda_route_runs_wide_ways_through_the_warp_routes(monkeypatch,
+                                                           engine, ways):
+    """Past 128 ways a CUDA tensor takes the warp routes (one launch of
+    each engine; stood in for by the emulations), never the plain loops,
+    and their results are the CPU route's bit for bit."""
+    # past the capacity (2 sets): a long run, a revisit, a random tail
+    segs = [(0, 64, 3 * ways), (64 * ways, 32, 4 * ways),
+            (0, 64, 2 * ways)] + _trace(ways, n=20)
+    cfg = LLCConfig(64 * ways * 2, ways, 64)
+    lane_segs = [s for s in segs if s[1] <= 32]
+    b, s_, c = (np.asarray(v, np.int64) for v in zip(*lane_segs))
+    lane_args = ([[0] * 3 + list(b)], [[16] * 3 + list(s_)],
+                 [[12000] * 3 + list(c)], np.full(b.shape[0] + 3, ways),
+                 np.zeros(b.shape[0] + 3, bool), [2, 1], [ways, 129],
+                 [64, 32])
+    lane_kw = dict(max_sets=2, max_ways=ways, r_pad=ways, collect=True,
+                   return_state=True, device="cpu")
+
+    def run():
         if engine == "set_walk":
-            cache.simulate_segments([(0, 64, 4)],
-                                    LLCConfig(64 * ways, ways, 64),
+            res = cache.simulate_segments(segs, cfg, per_segment=True,
+                                          collect_miss_runs=True,
+                                          device="cpu")
+            return [res.per_segment_hits, res.miss_runs,
+                    *(t.numpy() for t in res.state)]
+        hits, miss, (tags, ts) = cache.segment_lane_scan(*lane_args,
+                                                         **lane_kw)
+        return [hits, miss, tags, ts]
+
+    want = run()
+    calls = []
+    _card_route(monkeypatch, calls)
+    got = run()
+    assert calls == (["set_walk"] if engine == "set_walk"
+                     else ["lane_scan warp"])
+    for g, w in zip(got, want):
+        if isinstance(w, list):
+            assert g == w
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("engine", ["set_walk", "lane_scan"])
+def test_cuda_route_raises_past_the_cards_memory(monkeypatch, engine):
+    """What is left of a width limit on the card is its memory: the ops
+    hold their allocations (the set walk's state, the lane scan's miss
+    bits (L, S, r_pad, max_sets) at r_pad = max_ways) to the free bytes
+    before any allocation or launch, and name them."""
+    from repro_torch.utils import env
+
+    calls = []
+    _card_route(monkeypatch, calls)
+    monkeypatch.setattr(env, "free_device_bytes", lambda dev: 10_000)
+    monkeypatch.setattr(ops, "check_device_memory", lambda dev, n, what:
+                        env.check_device_memory(torch.device("cuda"), n,
+                                                what))
+    ways = 4096
+    with pytest.raises(MemoryError, match="set_walk's state" if engine ==
+                       "set_walk" else "miss bits"):
+        if engine == "set_walk":
+            cache.simulate_segments([(0, 64, 4)], LLCConfig(64 * ways, ways,
+                                                            64),
                                     device="cpu")
         else:
             cache.segment_lane_scan([[0]], [[64]], [[4]], [1], [False], [1],
                                     [ways], [64], max_sets=1, max_ways=ways,
-                                    r_pad=1, device="cpu")
+                                    r_pad=ways, collect=True, device="cpu")
     assert calls == []
+
+
+def test_kernels_raise_past_int32_indexing():
+    """The other limit: every count the kernels index (ways, sets,
+    arrivals, segments, blocks) stays under 2**31 - 32, and the wrappers
+    raise, naming it, before a launch."""
+    for name in ("ways", "sets", "arrivals", "blocks"):
+        with pytest.raises(ValueError, match=f"int32: .* {name}"):
+            K.check_int32(**{name: 2**31})
+    K.check_int32(ways=2**31 - 33)
+    table = torch.zeros((1, 1, len(K.FIELDS)), dtype=torch.int64)
+    rounds = torch.zeros(1, dtype=torch.int32)
+    geo = torch.ones((1, 3), dtype=torch.int64)
+    with pytest.raises(ValueError, match="int32: .* ways"):
+        K.bucket_sizes(table, rounds, geo, max_sets=1, max_ways=2**31,
+                       r_pad=1, suffix="full")
+    with pytest.raises(ValueError, match=r"int32: .* \(lane, set\) blocks"):
+        K.bucket_sizes(table.expand(2**16, 1, -1), rounds,
+                       geo.expand(2**16, 3), max_sets=2**16, max_ways=8,
+                       r_pad=1, suffix="full")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -998,3 +1417,123 @@ def test_padded_lanes_on_card_are_the_plain_loop():
         assert K.set_walk_launches == before + len({c.ways for c in cfgs})
         want = sweep.batched_hits(addrs, cfgs, device="cpu")
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@settings(max_examples=20, deadline=None, database=None)
+@given(case=_wide_arrivals())
+def test_warp_set_walk_kernel_is_the_plain_walk_on_card(case):
+    """The set walk's warp route (registers up to 256 ways, shared memory
+    past them) on the card, one launch, bit-equal to the plain walk."""
+    dev = _card()
+    args = [torch.as_tensor(a, device=dev) for a in case]
+    before = K.set_walk_launches
+    got = ops.set_walk(*args)
+    want = ref.set_walk_ref(*args)
+    torch.cuda.synchronize()
+    assert K.set_walk_launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ways", [300, 4096, 30000])
+def test_set_walk_kernel_in_shared_and_global_memory_on_card(ways):
+    """A set in shared memory (300 and 4,096 ways) and one past a block's
+    shared memory, walked in place in global memory (30,000 ways): warm
+    sets with ages over all of int32, so that victims are chosen."""
+    dev = _card()
+    rng = np.random.default_rng(ways)
+    sets, n = 2, 2000
+    per_set = np.array([n, n])
+    case = (rng.integers(0, 2 * ways, (sets, ways)).astype(np.int32),
+            rng.integers(-2**31, 2**31, (sets, ways)).astype(np.int32),
+            rng.integers(0, 2 * ways, 2 * n).astype(np.int32),
+            rng.integers(1, 2**31, 2 * n).astype(np.int32), per_set,
+            np.cumsum(per_set) - per_set)
+    assert K.set_walk_route(ways) == ("global" if ways == 30000
+                                      else "shared")
+    args = [torch.as_tensor(a, device=dev) for a in case]
+    for g, w in zip(ops.set_walk(*args), ref.set_walk_ref(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@settings(max_examples=15, deadline=None, database=None)
+@given(plan=_wide_lane_plans(), collect=st.booleans())
+def test_warp_lane_scan_kernel_is_the_plain_scan_on_card(plan, collect):
+    dev = _card()
+    table, rounds, geo, max_sets, max_ways, r_pad, suffix = plan
+    args = [torch.as_tensor(a, device=dev) for a in (table, rounds, geo)]
+    kw = dict(max_sets=max_sets, max_ways=max_ways, r_pad=r_pad,
+              collect=collect, suffix=suffix)
+    before = K.lane_scan_launches
+    got = ops.lane_scan(*args, **kw)
+    want = ref.lane_scan_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert K.lane_scan_launches == before + 1
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@settings(max_examples=8, deadline=None, database=None)
+@given(narrow=_lane_plans(), wide=_wide_lane_plans())
+def test_narrow_and_wide_buckets_on_card_are_two_launches(narrow, wide):
+    dev = _card()
+    buckets = [tuple(torch.as_tensor(a, device=dev) for a in p[:3]) + p[3:]
+               for p in (narrow, wide)]
+    before = K.lane_scan_launches
+    got = ops.lane_scan_many(buckets, collect=True)
+    torch.cuda.synchronize()
+    assert K.lane_scan_launches == before + 2
+    for g, (table, rounds, geo, max_sets, max_ways, r_pad, suffix) in zip(
+            got, buckets):
+        want = ref.lane_scan_ref(table, rounds, geo, max_sets=max_sets,
+                                 max_ways=max_ways, r_pad=r_pad,
+                                 collect=True, suffix=suffix)
+        for a, w in zip(g, want):
+            assert torch.equal(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("suffix", ["full", "one"])
+def test_warp_lane_scan_in_global_slots_on_card(suffix):
+    """A slot past a block's shared memory (13,000 ways: its sort keys
+    and state in a global scratch), over a stream that overflows it."""
+    dev = _card()
+    ways = 13000
+    assert K.wide_slot_bytes(ways) > K.SHARED_BYTES
+    # two cold runs past the set, then a revisit of 4,000 blocks
+    segs = [(0, 32, 30000), (64 * 20000, 16, 40000), (0, 64, 4000)]
+    b, s_, c = (np.asarray(v, np.int64)[None] for v in zip(*segs))
+    nb = (b + (c - 1) * s_) // 64 - b // 64 + 1
+    cold = np.array([[True, True, False]])
+    table, rounds, geo, _ = cache._lane_plan_tables(
+        b, s_, c, np.where(cold, 0, np.minimum(nb, ways)), cold, [1], [ways],
+        [64], r_pad=ways, suffix=suffix)
+    args = [torch.as_tensor(a, device=dev) for a in (table, rounds, geo)]
+    kw = dict(max_sets=1, max_ways=ways, r_pad=ways, collect=True,
+              suffix=suffix)
+    for g, w in zip(ops.lane_scan(*args, **kw), ref.lane_scan_ref(*args,
+                                                                  **kw)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sets, ways", [(512, 8), (16, 256), (4, 1024),
+                                        (1, 200), (1, 4096)])
+def test_simulate_trace_on_card_is_one_set_walk_and_the_plain_loop(sets,
+                                                                   ways):
+    """``cache.simulate_trace`` on the card: one ``llc_set_walk`` launch,
+    no per-access host loop, the plain loop's hits on a trace past the
+    capacity (victims chosen)."""
+    dev = _card()
+    blocks = np.random.default_rng(ways).integers(0, 3 * sets * ways // 2,
+                                                  4 * sets * ways // 2)
+    before = K.set_walk_launches
+    got = cache.simulate_trace(blocks, sets=sets, ways=ways, device=dev)
+    assert K.set_walk_launches == before + 1
+    want = cache.simulate_trace(blocks, sets=sets, ways=ways, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < want.shape[0]

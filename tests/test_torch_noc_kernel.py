@@ -7,14 +7,18 @@ in registers, the eligible heads grouped by destination (the
 ``__match_any_sync`` mask), each group's first member in rotation from
 its egress's pointer (a shift and ``__ffs``), the granted egresses
 gathered by one OR, the bundle loop's early exit and its count of
-bundles started.  On the CPU it is held bit for bit to the per-cycle
-scheduler (``core.noc.simulate_reference``), the plain version
+bundles started; past 32 ports the block route (``_emulate_switch_block``:
+the port table, each eligible head's rotation key posted to its egress
+by ``atomicMin`` in any order, the least key the winner).  On the CPU
+it is held bit for bit to the per-cycle scheduler
+(``core.noc.simulate_reference``), the plain version
 (``kernels/noc/ref.py``, the token-bundle loop the port ran before)
 and the JAX package's ``NoCSwitch`` over hypothesis-drawn schedules
-(1–8 and 32 ports, links 0–6, bundles 1, 3, 7 and 64, unbounded and
-overflowing FIFOs), explicit edges and the SoC farm's schedules, and it
-stands in for the kernel to show that ``NoCSwitch.simulate`` on a CUDA
-tensor takes one launch and never the plain loop.  The ``gpu`` cases
+(1–8, 32, 33, 64 and 100 ports, links 0–6, bundles 1, 3, 7 and 64,
+unbounded and overflowing FIFOs), explicit edges and the SoC farm's
+schedules (up to 62 nodes), and it stands in for the kernel to show
+that ``NoCSwitch.simulate`` on a CUDA tensor takes one launch and never
+the plain loop.  The ``gpu`` cases
 hold the built kernel to the plain version on the card, bit for bit.
 The reference is imported inside the tests that use it, so the module
 stays JAX-free for the card.
@@ -46,13 +50,96 @@ def _ffs(x: int) -> int:
     return (x & -x).bit_length()
 
 
+def _emulate_switch_block(dests, status, granted, src, lat, *, link, depth,
+                          total, bundle, n_chunks):
+    """``noc_switch_wide_kernel`` (more than ``K.WARP_PORTS`` ports): one
+    block walks the switch from its port table, the schedule staged
+    ``K.stage_rows(ports)`` rows at a time; a cycle's three phases
+    between barriers: each ingress injects and, with an eligible head,
+    posts its rotation key (p - pointer[e]) mod ports to its egress e by
+    ``atomicMin`` (the least key wins, in whatever order the posts
+    land); each egress turns its least key into its winner, writes its
+    row, moves its pointer and clears the key; each ingress its egress
+    named pops.  The delivered count is folded at bundle boundaries."""
+    t_rows, ports = dests.shape
+    h_pad = granted.shape[0]
+    rows = K.stage_rows(ports)
+    flat = dests.reshape(-1)
+    ring = np.zeros((ports, depth, 2), np.int64)
+    head, size, h_ts, h_dst, rr = (np.zeros(ports, np.int64)
+                                   for _ in range(5))
+    bid = np.full(ports, ports, np.int64)
+    delivered = overflow = bundles = granted_here = 0
+    staged, stage = -rows, None
+    p_idx = np.arange(ports)
+    for b in range(n_chunks):
+        delivered, granted_here = delivered + granted_here, 0
+        if delivered >= total:
+            break
+        c0 = b * bundle
+        if c0 >= h_pad:
+            bundles = n_chunks
+            break
+        bundles += 1
+        for c in range(c0, min(c0 + bundle, h_pad)):
+            if c >= staged + rows:
+                staged = c
+                g = c * ports + np.arange(rows * ports)
+                stage = np.full(g.shape, -1, np.int64)
+                stage[g < flat.size] = flat[g[g < flat.size]]
+            # inject, then post each eligible head's key (the posts'
+            # order is shuffled: the least key is the same in any order)
+            d = stage[(c - staged) * ports + p_idx]
+            for p in np.random.default_rng(c).permutation(ports).tolist():
+                if d[p] >= 0:
+                    if size[p] < depth:
+                        pos = head[p] + size[p]
+                        pos -= depth if pos >= depth else 0
+                        ring[p, pos] = (c, d[p])
+                        if size[p] == 0:
+                            h_ts[p], h_dst[p] = c, d[p]
+                        size[p] += 1
+                    else:
+                        overflow = 1
+                if size[p] > 0 and c - h_ts[p] >= link:
+                    e = h_dst[p]
+                    key = p - rr[e]
+                    key += ports if key < 0 else 0
+                    bid[e] = min(bid[e], key)
+            # grant
+            won = bid < ports
+            winner = np.where(won, bid + rr, -1)
+            winner = np.where(winner >= ports, winner - ports, winner)
+            granted[c] = won
+            src[c] = winner
+            lat[c] = np.where(won, c - h_ts[np.maximum(winner, 0)], 0)
+            rr = np.where(won, np.where(winner + 1 == ports, 0, winner + 1),
+                          rr)
+            bid[:] = ports
+            granted_here += int(won.sum())
+            # deliver
+            pop = (size > 0) & (c - h_ts >= link) & (winner[h_dst] == p_idx)
+            size -= pop
+            head = np.where(pop, np.where(head + 1 == depth, 0, head + 1),
+                            head)
+            reload = pop & (size > 0)
+            h_ts[reload] = ring[p_idx[reload], head[reload], 0]
+            h_dst[reload] = ring[p_idx[reload], head[reload], 1]
+    status[:] = (delivered + granted_here, int(overflow), bundles)
+
+
 def _emulate_switch(dests, status, granted, src, lat, *, link, depth, total,
                     bundle, n_chunks):
     """``noc_switch_kernel``: one warp walks the switch, lane p owning
     ingress FIFO p and egress p's pointer; dests (T, ports) int32;
     status (3,), granted / src / lat (h_pad, ports) written as the
-    kernel writes them (zero on entry)."""
+    kernel writes them (zero on entry).  More than ``K.WARP_PORTS``
+    ports take the block route (``_emulate_switch_block``)."""
     t_rows, ports = dests.shape
+    if ports > K.WARP_PORTS:
+        return _emulate_switch_block(dests, status, granted, src, lat,
+                                     link=link, depth=depth, total=total,
+                                     bundle=bundle, n_chunks=n_chunks)
     h_pad = granted.shape[0]
     lanes = np.arange(ports)
     flat = dests.reshape(-1)
@@ -139,9 +226,18 @@ def _emulated_run(dests, *, link, depth, total, h_pad, bundle) -> ops.SwitchRun:
 
 
 def _switch_stand_in(calls):
-    def launch(dests, status, granted, src, lat, fifo, *, link, depth, total,
-               bundle, n_chunks):
-        calls.append(None if fifo is None else tuple(fifo.shape))
+    """Stands in for ``kernel.switch_kernel``: notes the FIFO scratch's
+    shape (None: the rings in shared memory) and, where the block route
+    takes one, the port table scratch's."""
+    def launch(dests, status, granted, src, lat, fifo, table, *, link, depth,
+               total, bundle, n_chunks):
+        if (table is None) != K.table_in_shared(dests.shape[1]) or (
+                fifo is None) != K.fifo_in_shared(dests.shape[1], depth):
+            raise AssertionError("the scratches do not match the shared "
+                                 "memory rules")
+        calls.append((None if fifo is None else tuple(fifo.shape))
+                     if table is None else (tuple(fifo.shape),
+                                            tuple(table.shape)))
         _emulate_switch(dests.numpy(), status.numpy(), granted.numpy(),
                         src.numpy(), lat.numpy(), link=link, depth=depth,
                         total=total, bundle=bundle, n_chunks=n_chunks)
@@ -238,12 +334,39 @@ def _schedules(draw):
     return dests.astype(np.int64), ports, link, depth, bundle
 
 
+@st.composite
+def _wide_schedules(draw):
+    """``_schedules`` past ``K.WARP_PORTS``: 33, 64 or 100 ports (the
+    block route), over fewer cycles."""
+    ports = draw(st.sampled_from([33, 64, 100]))
+    cycles = draw(st.integers(0, 12))
+    rng = np.random.default_rng(draw(st.integers(0, 2**32 - 1)))
+    p_inject = draw(st.sampled_from([0.1, 0.4, 0.8]))
+    dests = np.where(rng.random((cycles, ports)) < p_inject,
+                     rng.integers(0, ports, (cycles, ports)), -1)
+    if draw(st.booleans()):   # hot egresses: long queues and rotation
+        dests = np.where(dests >= 0, dests % 3, dests)
+    return (dests.astype(np.int64), ports, draw(st.integers(0, 6)),
+            draw(st.sampled_from([None, None, 1, 2, 4])),
+            draw(st.sampled_from([1, 3, 7, 64])))
+
+
 # --------------------------------------------------------------------------
 # the emulation against the scheduler, the plain version, the reference
 # --------------------------------------------------------------------------
 @settings(max_examples=40, deadline=None, database=None)
 @given(case=_schedules())
 def test_emulation_is_the_scheduler_the_plain_version_and_the_reference(case):
+    _hold_to_all(*case)
+
+
+@settings(max_examples=12, deadline=None, database=None)
+@given(case=_wide_schedules())
+def test_block_route_emulation_is_the_scheduler_the_plain_version_and_the_reference(  # noqa: E501
+        case):
+    """The block route (33, 64 and 100 ports): the posted least rotation
+    keys, in any order, against the per-cycle scheduler, the plain
+    version and the JAX package's ``NoCSwitch``."""
     _hold_to_all(*case)
 
 
@@ -261,6 +384,10 @@ EDGES = {
     "32 ports round robin": (np.tile(np.arange(32)[::-1], (4, 1)), 32, 0,
                              None, 7),
     "link longer than the schedule": (np.full((2, 2), 1), 2, 40, None, 3),
+    "33 ports onto one egress": (np.full((3, 33), 32), 33, 1, None, 64),
+    "64 ports round robin": (np.tile(np.arange(64)[::-1], (4, 1)), 64, 0,
+                             None, 7),
+    "100 ports, overflow": (np.full((6, 100), 7), 100, 0, 2, 3),
 }
 
 
@@ -272,7 +399,7 @@ def test_emulation_edges(name):
         assert not got.granted.any()
 
 
-@pytest.mark.parametrize("nodes", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("nodes", [0, 1, 2, 3, 4, 30, 31, 62])
 @pytest.mark.parametrize("bundle", [7, 64])
 def test_emulation_on_the_farm_schedules(nodes, bundle):
     farm = FarmConfig(nodes=nodes)
@@ -321,15 +448,133 @@ def test_cuda_route_raises_on_overflow_after_one_launch(monkeypatch):
     assert calls == [None]
 
 
-def test_33_ports_raise_on_cuda_with_no_launch(monkeypatch):
+def _sparse_reference(dests, cfg):
+    """``core.noc.simulate_reference`` with each egress's rotation scan
+    taken over the heads aimed at it only (the first in rotation from
+    its pointer is the least (p - pointer) mod ports among them): the
+    same scheduler, O(flits) a cycle instead of O(ports**2), for switches
+    too wide for the plain-Python loop (held to it below)."""
+    dests = np.asarray(dests, np.int64)
+    total, horizon, depth = noc._schedule_params(dests, cfg)
+    ports, link = cfg.ports, cfg.link_latency
+    queues = [[] for _ in range(ports)]
+    rr, rows, delivered, c = [0] * ports, [], 0, 0
+    while delivered < total and c < horizon:
+        if c < dests.shape[0]:
+            for p in np.flatnonzero(dests[c] >= 0).tolist():
+                if len(queues[p]) >= depth:
+                    raise noc.NoCOverflowError(f"FIFO {p} at cycle {c}")
+                queues[p].append((c, int(dests[c, p])))
+        heads = {}
+        for p, q in enumerate(queues):
+            if q and q[0][0] + link <= c:
+                heads.setdefault(q[0][1], []).append(p)
+        for e in sorted(heads):
+            p = min(heads[e], key=lambda p: (p - rr[e]) % ports)
+            rows.append((c, e, p, c - queues[p].pop(0)[0]))
+            rr[e] = (p + 1) % ports
+            delivered += 1
+        c += 1
+    arr = np.asarray(rows, np.int64).reshape(-1, 4)
+    return noc.NoCResult(deliver_cycle=arr[:, 0], egress=arr[:, 1],
+                         src=arr[:, 2], latency=arr[:, 3], cycles_run=c)
+
+
+@pytest.mark.parametrize("ports", [33, 100])
+def test_sparse_reference_is_the_scheduler(ports):
+    rng = np.random.default_rng(ports)
+    dests = np.where(rng.random((30, ports)) < 0.4,
+                     rng.integers(0, ports, (30, ports)), -1)
+    cfg = noc.NoCConfig(ports=ports, link_latency=1)
+    want, got = noc.simulate_reference(dests, cfg), _sparse_reference(dests,
+                                                                      cfg)
+    for f in FIELDS + ("cycles_run",):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("ports, depth", [(33, None), (64, 512), (100, 3),
+                                         (7000, None)])
+def test_cuda_route_runs_wide_switches_in_one_launch(monkeypatch, ports,
+                                                     depth):
+    """Past 32 ports ``NoCSwitch.simulate`` on a CUDA tensor is one
+    launch of the block route (stood in for by its emulation), its port
+    table and rings in shared memory, in global scratches where they do
+    not fit (64 ports at depth 512: 256 KiB of rings; 7,000 ports: the
+    table too), never the plain loop; its log is the per-cycle
+    scheduler's, or it overflows where the scheduler does."""
+    rng = np.random.default_rng(ports)
+    cycles = 40 if ports < 1000 else 4
+    dests = np.where(rng.random((cycles, ports)) < 0.3,
+                     rng.integers(0, ports, (cycles, ports)), -1)
+    dests[:, 1] = ports - 1   # one egress oversubscribed
+    cfg = noc.NoCConfig(ports=ports, link_latency=2, queue_depth=depth)
     calls = []
     monkeypatch.setattr(ops, "_device_type", lambda x: "cuda")
     monkeypatch.setattr(ref, "switch_ref", _no_plain)
     monkeypatch.setattr(K, "switch_kernel", _switch_stand_in(calls))
-    with pytest.raises(ValueError, match=f"1..{K.MAX_PORTS} ports"):
-        noc.NoCSwitch(noc.NoCConfig(ports=33), device="cpu").simulate(
-            np.full((4, 33), 0))
+    try:
+        want = (noc.simulate_reference if ports < 1000 else
+                _sparse_reference)(dests, cfg)
+    except noc.NoCOverflowError:
+        with pytest.raises(noc.NoCOverflowError):
+            noc.NoCSwitch(cfg, device="cpu").simulate(dests, bundle_cycles=7)
+        assert len(calls) == 1
+        return
+    got = noc.NoCSwitch(cfg, device="cpu").simulate(dests, bundle_cycles=7)
+    d = depth or int((dests >= 0).sum(axis=0).max())
+    rings = None if K.fifo_in_shared(ports, d) else (ports, d, 2)
+    assert calls == [rings if K.table_in_shared(ports)
+                     else (rings, (K.table_bytes(ports) // 4,))]
+    assert (ports, depth) != (64, 512) or rings is not None
+    assert ports != 7000 or not K.table_in_shared(ports)
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+def test_wide_switch_raises_past_the_cards_memory(monkeypatch):
+    """What is left of the port limit on the card is its memory: the op
+    holds the log, rings and port table to the free bytes before any
+    allocation or launch, and names them."""
+    from repro_torch.utils import env
+
+    calls = []
+    monkeypatch.setattr(ops, "_device_type", lambda x: "cuda")
+    monkeypatch.setattr(ref, "switch_ref", _no_plain)
+    monkeypatch.setattr(K, "switch_kernel", _switch_stand_in(calls))
+    monkeypatch.setattr(env, "free_device_bytes", lambda dev: 10_000)
+    monkeypatch.setattr(ops, "check_device_memory", lambda dev, n, what:
+                        env.check_device_memory(torch.device("cuda"), n,
+                                                what))
+    with pytest.raises(MemoryError, match="switch's log"):
+        noc.NoCSwitch(noc.NoCConfig(ports=64), device="cpu").simulate(
+            np.full((40, 64), 3))
     assert calls == []
+
+
+def test_switch_raises_past_int32_indexing(monkeypatch):
+    """The other limit: cycles and ports index in int32, and the op
+    raises on the card route before any allocation or launch."""
+    calls = []
+    monkeypatch.setattr(ops, "_device_type", lambda x: "cuda")
+    monkeypatch.setattr(ref, "switch_ref", _no_plain)
+    monkeypatch.setattr(K, "switch_kernel", _switch_stand_in(calls))
+    with pytest.raises(ValueError, match="int32"):
+        ops.switch(torch.full((2, 40), -1, dtype=torch.int32), link=0,
+                   depth=1, total=0, h_pad=2**31, bundle=1)
+    assert calls == []
+
+
+def test_block_route_tables_fit_their_memory():
+    """The block route's port table (kPortFields arrays and the staged
+    rows, fewer for wide switches) and where each part lives."""
+    assert [K.stage_rows(p) for p in (33, 64, 100, 1000, 5000)] == [
+        64, 64, 40, 4, 1]
+    assert K.table_bytes(64) == 4 * 64 * (K.PORT_FIELDS + 64)
+    assert K.threads(33) == 64 and K.threads(1000) == 1024 \
+        and K.threads(5000) == 1024
+    assert K.fifo_in_shared(64, 256) and not K.fifo_in_shared(64, 512)
+    assert K.table_in_shared(6000) and not K.table_in_shared(7000)
+    assert not K.fifo_in_shared(7000, 1)
 
 
 @pytest.mark.parametrize("route", ["cpu", "cuda"])
@@ -358,8 +603,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         K.switch_kernel(z, torch.zeros(3, dtype=torch.int32),
                         torch.zeros((4, 2), dtype=torch.bool), z.clone(),
-                        z.clone(), None, link=0, depth=1, total=0, bundle=1,
-                        n_chunks=4)
+                        z.clone(), None, None, link=0, depth=1, total=0,
+                        bundle=1, n_chunks=4)
 
 
 def test_bundle_count_is_chunked_scans():
@@ -413,6 +658,39 @@ def test_switch_kernel_on_the_farm_schedules_on_card(nodes, bundle):
     farm = FarmConfig(nodes=nodes)
     _kernel_against_plain(farm_schedule(128, farm), nodes + 2,
                           farm.link_latency, None, bundle, _card())
+
+
+@pytest.mark.gpu
+@settings(max_examples=30, deadline=None, database=None)
+@given(case=_wide_schedules())
+def test_block_route_kernel_is_the_plain_version_on_card(case):
+    _kernel_against_plain(*case, _card())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nodes", [30, 31, 62])
+@pytest.mark.parametrize("bundle", [1, 7, 64])
+def test_switch_kernel_on_wide_farm_schedules_on_card(nodes, bundle):
+    """The farm at 32 ports (the one-warp route's edge), 33 and 64 (the
+    block route, its rings in global memory at 64)."""
+    farm = FarmConfig(nodes=nodes)
+    _kernel_against_plain(farm_schedule(128, farm), nodes + 2,
+                          farm.link_latency, None, bundle, _card())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ports, depth", [(64, 512), (1000, 4),
+                                         (7000, None)])
+def test_block_route_with_global_scratches_on_card(ports, depth):
+    """Rings past shared memory (64 x 512), a thread a port at 1,000
+    ports (its FIFOs overflowing), and the port table in global memory
+    too at 7,000 ports."""
+    rng = np.random.default_rng(ports)
+    dests = np.where(rng.random((12, ports)) < 0.2,
+                     rng.integers(0, ports, (12, ports)), -1)
+    dests[:, :3] = 5
+    assert ports != 7000 or not K.table_in_shared(ports)
+    _kernel_against_plain(dests, ports, 1, depth, 7, _card())
 
 
 @pytest.mark.gpu

@@ -58,7 +58,7 @@ def test_pipeline_hits_match_exact_cache_sim():
     addrs = _trace()
     res = t_soc.simulate_dbb_stream(addrs, llc=LLC, device=CPU)
     hits = t_cache.simulate_trace(addrs // LLC.block_bytes, sets=LLC.sets,
-                                  ways=LLC.ways)
+                                  ways=LLC.ways, device=CPU)
     np.testing.assert_array_equal(res.latencies.numpy() == 20, hits)
     np.testing.assert_array_equal(res.latencies.numpy(),
                                   np.asarray(_j_stream(addrs).latencies))
@@ -195,22 +195,27 @@ def test_card_route_keeps_address_wide_tags(monkeypatch, early_exit):
     assert got.host_cycles == want.host_cycles
 
 
-def test_card_route_raises_past_the_kernels_ways(monkeypatch):
-    """On the card the stream's LLC is one set walk, which takes 1..128
-    ways: a 256-way LLC raises there with no launch and no plain replay
-    (the CPU replays it)."""
-    from repro_torch.kernels.llc import kernel as llc_k
-
-    ways = 2 * llc_k.MAX_WAYS
-    wide = LLCConfig(size_bytes=64 * ways, ways=ways, block_bytes=64)
-    addrs = np.arange(64, dtype=np.int64) * 64
-    assert t_soc.simulate_dbb_stream(addrs, llc=wide,
-                                     device=CPU).latencies.shape == (64,)
+@pytest.mark.parametrize("ways", [129, 256, 1024])
+def test_card_route_runs_wide_llcs_as_one_walk(monkeypatch, ways):
+    """Past 128 ways the stream's LLC is still one set walk on the card
+    (the warp route; emulated), never a plain replay: its latencies and
+    host cycles are the reference's under seeded stalls, on a stream
+    that overflows the cache."""
+    rng = np.random.default_rng(ways)
+    wide = LLCConfig(size_bytes=64 * ways * 2, ways=ways, block_bytes=64)
+    addrs = rng.integers(0, 3 * ways, 6 * ways) * 64
+    stalls = rng.random((3 * addrs.shape[0], 2)) < 0.3
+    want = _j_stream(addrs, llc=j_cache.LLCConfig(wide.size_bytes, ways, 64),
+                     host_stalls=stalls)
     calls = []
     _card_route(monkeypatch, calls)
-    with pytest.raises(ValueError, match=f"1..{llc_k.MAX_WAYS} ways"):
-        t_soc.simulate_dbb_stream(addrs, llc=wide, device=CPU)
-    assert calls == []
+    got = t_soc.simulate_dbb_stream(addrs, llc=wide, host_stalls=stalls,
+                                    device=CPU)
+    assert calls == ["set_walk"]
+    np.testing.assert_array_equal(got.latencies.numpy(),
+                                  np.asarray(want.latencies))
+    assert got.host_cycles == want.host_cycles
+    assert (got.latencies.numpy() > 20).sum() > ways
 
 
 def test_dram_row_locality_visible_through_pipeline():

@@ -492,33 +492,33 @@ def test_padded_lanes_card_route_is_the_reference(monkeypatch):
 
 @pytest.mark.parametrize("name", ["batched_hits", "batched_hit_rates",
                                   "batched_hits_per_trace"])
-def test_padded_lanes_card_route_raises_past_the_kernels_ways(monkeypatch,
-                                                              name):
-    """On the card the padded lanes walk by ``llc_set_walk``, which takes
-    1..128 ways: a 256-way lane raises there with no launch and no plain
-    loop (the CPU loop takes it)."""
+def test_padded_lanes_card_route_runs_wide_ways(monkeypatch, name):
+    """On the card the padded lanes walk by ``llc_set_walk`` at any way
+    count: a 256-way lane beside a narrow one is one more walk (the warp
+    route; emulated), no plain loop, and equals the CPU loop."""
     from test_torch_llc import _no_plain, _set_walk_stand_in
 
     from repro_torch.kernels.llc import kernel as llc_k
     from repro_torch.kernels.llc import ops as llc_ops
     from repro_torch.kernels.llc import ref as llc_ref
 
-    ways = 2 * llc_k.MAX_WAYS
+    ways = 256
     configs = [LLC, LLCConfig(64 * ways, ways, 64)]
     addrs = t_tr.expand(_window(64)[0])
     arg = np.stack([addrs, addrs]) if name == "batched_hits_per_trace" \
         else addrs
     with pytest.warns(DeprecationWarning):
-        getattr(t_sweep, name)(arg, configs, device=CPU)
+        want = getattr(t_sweep, name)(arg, configs, device=CPU)
     calls = []
     monkeypatch.setattr(t_sweep, "_on_card", lambda x: True)
     monkeypatch.setattr(llc_ops, "_device_type", lambda x: "cuda")
     monkeypatch.setattr(llc_ref, "set_walk_ref", _no_plain)
     monkeypatch.setattr(llc_k, "set_walk_kernel", _set_walk_stand_in(calls))
-    with pytest.warns(DeprecationWarning), \
-            pytest.raises(ValueError, match=f"1..{llc_k.MAX_WAYS} ways"):
-        getattr(t_sweep, name)(arg, configs, device=CPU)
-    assert calls == []
+    with pytest.warns(DeprecationWarning):
+        got = getattr(t_sweep, name)(arg, configs, device=CPU)
+    assert calls == ["set_walk"] * 2
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("name", ["batched_hits", "batched_hit_rates",
