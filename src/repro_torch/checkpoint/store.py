@@ -22,6 +22,13 @@ from the tree it is given, never from that string.
 * ``restore(..., device=)`` places the leaves on a device (by default
   the device of the matching leaf of ``tree_like``): the saved arrays
   are whole, so a restart may resume anywhere;
+* ``restore(..., shardings=, device_mesh=)`` places each leaf straight
+  onto a ``DeviceMesh`` with the DTensor placements of the matching
+  leaf of ``shardings`` (the reference's ``NamedSharding`` tree), so a
+  sharded run resumes onto another mesh (elastic restore).  Every rank
+  reads the same whole arrays and keeps its own shards: no collective;
+* a DTensor leaf is saved gathered whole (``full_tensor``, a collective
+  every rank of its mesh must join, in leaf order);
 * async save — ``CheckpointManager(async_save=True)`` copies the state
   to host memory synchronously and writes in a background thread, so
   the train loop only blocks for the device-to-host copy.
@@ -51,8 +58,11 @@ class CheckpointCorruptError(OSError):
 
 
 def _host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array of its own (a copy of a tensor)."""
+    """A leaf as a host numpy array of its own (a copy of a tensor, a
+    DTensor gathered whole)."""
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
 
@@ -130,11 +140,37 @@ def latest_step(directory: str) -> int | None:
     return best
 
 
+def _is_placements(x) -> bool:
+    """A leaf of a ``shardings`` tree: a sequence of DTensor placements,
+    one a mesh dimension."""
+    from torch.distributed.tensor import Placement
+
+    return isinstance(x, (tuple, list)) and bool(x) and all(
+        isinstance(p, Placement) for p in x)
+
+
+def _placed(arr: np.ndarray, placements, device_mesh):
+    """A whole saved array as a DTensor of ``placements`` on
+    ``device_mesh``: this rank's shards of its own copy, no collective
+    (every rank read the same bytes)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(torch.from_numpy(arr), device_mesh,
+                             list(placements), src_data_rank=None)
+
+
 def restore(tree_like, directory: str, step: int | None = None, *,
-            device=None):
+            device=None, shardings=None, device_mesh=None):
     """Restore into the structure of `tree_like` (values are ignored):
     tensors on ``device``, or, where None, on the device of the matching
-    leaf of ``tree_like`` (the CPU for a leaf that is no tensor)."""
+    leaf of ``tree_like`` (the CPU for a leaf that is no tensor).
+
+    ``shardings``: a tree matching `tree_like` of DTensor placements
+    (``launch.specs.param_sharding_tree``'s leaves) on ``device_mesh``:
+    each leaf is placed straight onto it (elastic reshard)."""
+    if shardings is not None and (device_mesh is None or device is not None):
+        raise ValueError("shardings= places leaves on device_mesh=; pass "
+                         "the mesh, and no device=")
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -160,8 +196,16 @@ def restore(tree_like, directory: str, step: int | None = None, *,
             f"checkpoint has {manifest.get('n_leaves')} leaves, "
             f"target tree has {len(leaves_like)}")
 
+    placements = [None] * len(leaves_like)
+    if shardings is not None:
+        placements = tree_flatten(shardings, is_leaf=_is_placements)[0]
+        if len(placements) != len(leaves_like):
+            raise ValueError(f"shardings has {len(placements)} leaves, "
+                             f"the target tree {len(leaves_like)}")
+
     out = []
-    for entry, like in zip(manifest["leaves"], leaves_like):
+    for entry, like, where in zip(manifest["leaves"], leaves_like,
+                                  placements):
         leaf_path = os.path.join(path, f"leaf_{entry['index']:05d}.npy")
         try:
             arr = np.load(leaf_path)
@@ -176,6 +220,9 @@ def restore(tree_like, directory: str, step: int | None = None, *,
                 f"stored {entry['crc32']}, recomputed {_crc(arr)} — the "
                 "leaf bytes changed after commit; delete the checkpoint "
                 "or restore an earlier step")
+        if where is not None:
+            out.append(_placed(arr, where, device_mesh))
+            continue
         dev = device if device is not None else (
             like.device if isinstance(like, torch.Tensor) else "cpu")
         out.append(torch.from_numpy(arr).to(dev))
@@ -218,6 +265,8 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def restore_latest(self, tree_like, *, device=None):
+    def restore_latest(self, tree_like, *, device=None, shardings=None,
+                       device_mesh=None):
         self.wait()
-        return restore(tree_like, self.directory, None, device=device)
+        return restore(tree_like, self.directory, None, device=device,
+                       shardings=shardings, device_mesh=device_mesh)

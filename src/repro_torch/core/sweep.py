@@ -49,6 +49,7 @@ serialize on burst count (or replay one geometry at a time).
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import warnings
 
@@ -1035,7 +1036,9 @@ def _mesh_lane_metrics(nvdla_segs: list, *, llcs, drams, mixes,
     longer) replays on ``mesh.devices[d]``.  No lane is padded: every
     lane's result is independent of its batchmates, so the slices need
     not be equal.  Every future's result is read, so a slice's error
-    propagates."""
+    propagates.  A pool thread starts with device 0 current, so each
+    makes its slice's CUDA device current (the kernels' launch guard,
+    ``kernels._build.launch_stream``, does so again at each launch)."""
     n_dev = len(mesh.devices)
     per, extra = divmod(len(llcs), n_dev)
     bounds, lo = [], 0
@@ -1046,10 +1049,12 @@ def _mesh_lane_metrics(nvdla_segs: list, *, llcs, drams, mixes,
         lo = hi
 
     def run(dev, lo, hi):
-        return interference_lane_metrics_batch(
-            nvdla_segs, llcs=llcs[lo:hi], drams=drams[lo:hi],
-            mixes=mixes[lo:hi], chunk_bursts=chunk_bursts,
-            t_llc_hit=t_llc_hit, device=dev)
+        with torch.cuda.device(dev) if dev.type == "cuda" \
+                else contextlib.nullcontext():
+            return interference_lane_metrics_batch(
+                nvdla_segs, llcs=llcs[lo:hi], drams=drams[lo:hi],
+                mixes=mixes[lo:hi], chunk_bursts=chunk_bursts,
+                t_llc_hit=t_llc_hit, device=dev)
 
     with concurrent.futures.ThreadPoolExecutor(
             max_workers=max(1, len(bounds)),

@@ -9,9 +9,15 @@ process (or an explicit ``build()``).  Libraries land in
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source or header is never served stale, each
 beside its ``ptxas`` report (``report``).  A failed build raises.
+
+Every launch goes through ``launch_stream``: the C launchers act on the
+*current* device (``cudaGetDevice``'s SM count, ``cudaFuncSetAttribute``'s
+per-device limits), so the tensors' device is made current around the
+call, whichever thread and device the caller runs on.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -93,6 +99,17 @@ def report(name: str) -> str:
     kernel) of the library built from ``csrc/<name>.cu``."""
     library(name)
     return _target(CSRC / f"{name}.cu").with_suffix(".log").read_text()
+
+
+@contextlib.contextmanager
+def launch_stream(dev):
+    """The launch guard: CUDA device ``dev`` (the launch's tensors')
+    current for the block, which gets the handle of its current stream
+    to launch on."""
+    import torch
+
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -127,12 +127,12 @@ def matmul_int8_kernel(a: torch.Tensor, bt: torch.Tensor,
     partial = torch.empty((plan.splits, m, n), dtype=torch.int32,
                           device=a.device) if plan.splits > 1 else None
     lib = _library()
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.convcore_matmul_int8(
-        a.data_ptr(), bt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), None if partial is None else partial.data_ptr(),
-        m, n, kp, int(relu), int(out.dtype == torch.bfloat16), plan.bn,
-        plan.splits, plan.kps, plan.m_blocks, stream)
+    with _build.launch_stream(a.device) as stream:
+        err = lib.convcore_matmul_int8(
+            a.data_ptr(), bt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), None if partial is None else partial.data_ptr(),
+            m, n, kp, int(relu), int(out.dtype == torch.bfloat16), plan.bn,
+            plan.splits, plan.kps, plan.m_blocks, stream)
     _build.check(lib, "convcore", err)
     launches += 1
     return out

@@ -130,6 +130,12 @@ def _check(tensors: dict, dtypes: dict, what: str) -> torch.device:
     return dev
 
 
+def _upload(array: np.ndarray, dev) -> torch.Tensor:
+    """``array`` on ``dev`` by way of pinned memory, so that the copy
+    queues behind the stream's work instead of waiting for it."""
+    return torch.from_numpy(array).pin_memory().to(dev, non_blocking=True)
+
+
 def set_walk_kernel(tags: torch.Tensor, age: torch.Tensor,
                     tag_s: torch.Tensor, acc_s: torch.Tensor,
                     per_set: torch.Tensor, first: torch.Tensor,
@@ -156,10 +162,11 @@ def set_walk_kernel(tags: torch.Tensor, age: torch.Tensor,
                          f"sets of {ways} ways")
     check_int32(ways=ways, sets=sets, arrivals=tag_s.shape[0])
     lib = _library()
-    err = lib.llc_set_walk_launch(
-        tags.data_ptr(), age.data_ptr(), tag_s.data_ptr(), acc_s.data_ptr(),
-        per_set.data_ptr(), first.data_ptr(), hit_s.data_ptr(), sets, ways,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with _build.launch_stream(dev) as stream:
+        err = lib.llc_set_walk_launch(
+            tags.data_ptr(), age.data_ptr(), tag_s.data_ptr(),
+            acc_s.data_ptr(), per_set.data_ptr(), first.data_ptr(),
+            hit_s.data_ptr(), sets, ways, stream)
     _build.check(lib, "llc", err)
     set_walk_launches += 1
 
@@ -279,25 +286,24 @@ def lane_scan_kernel(buckets: list[tuple], outs: list[tuple],
     if len({t.device for b in buckets for t in b[:3]}) != 1:
         raise ValueError("lane_scan_kernel takes every bucket on one device")
     sizes = [b[3] for b in buckets]
-    # from pinned memory, so that the copies queue behind the stream's
-    # work instead of waiting for it
-    desc = torch.from_numpy(np.asarray(rows, np.int64)).pin_memory().to(
-        dev, non_blocking=True)
     lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for wide, which, plan in route_plans(sizes, depths):
-        check_int32(blocks=plan.shape[0])
-        blocks = torch.from_numpy(plan).pin_memory().to(dev, non_blocking=True)
-        widest = max(sizes[i]["max_ways"] for i in which)
-        if wide:
-            nbytes = wide_scratch_bytes([sizes[i] for i in which])
-            scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) \
-                if nbytes else None
-            err = lib.llc_lane_scan_wide_launch(
-                desc.data_ptr(), blocks.data_ptr(), plan.shape[0], widest,
-                None if scratch is None else scratch.data_ptr(), stream)
-        else:
-            err = lib.llc_lane_scan_launch(desc.data_ptr(), blocks.data_ptr(),
-                                           plan.shape[0], widest, stream)
-        _build.check(lib, "llc", err)
-        lane_scan_launches += 1
+    with _build.launch_stream(dev) as stream:
+        desc = _upload(np.asarray(rows, np.int64), dev)
+        for wide, which, plan in route_plans(sizes, depths):
+            check_int32(blocks=plan.shape[0])
+            blocks = _upload(plan, dev)
+            widest = max(sizes[i]["max_ways"] for i in which)
+            if wide:
+                nbytes = wide_scratch_bytes([sizes[i] for i in which])
+                scratch = torch.empty(nbytes, dtype=torch.uint8,
+                                      device=dev) if nbytes else None
+                err = lib.llc_lane_scan_wide_launch(
+                    desc.data_ptr(), blocks.data_ptr(), plan.shape[0],
+                    widest, None if scratch is None else scratch.data_ptr(),
+                    stream)
+            else:
+                err = lib.llc_lane_scan_launch(
+                    desc.data_ptr(), blocks.data_ptr(), plan.shape[0],
+                    widest, stream)
+            _build.check(lib, "llc", err)
+            lane_scan_launches += 1

@@ -165,11 +165,11 @@ def switch_kernel(dests: torch.Tensor, status: torch.Tensor,
                          f"where fifo_in_shared is ({SHARED_FIFO_BYTES} "
                          "bytes of shared memory)")
     lib = _library()
-    err = lib.noc_switch_launch(
-        dests.data_ptr(), t_rows, ports, link, depth, total, h_pad, bundle,
-        n_chunks, None if fifo is None else fifo.data_ptr(),
-        None if table is None else table.data_ptr(), status.data_ptr(),
-        granted.data_ptr(), src.data_ptr(), lat.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with _build.launch_stream(dev) as stream:
+        err = lib.noc_switch_launch(
+            dests.data_ptr(), t_rows, ports, link, depth, total, h_pad,
+            bundle, n_chunks, None if fifo is None else fifo.data_ptr(),
+            None if table is None else table.data_ptr(), status.data_ptr(),
+            granted.data_ptr(), src.data_ptr(), lat.data_ptr(), stream)
     _build.check(lib, "noc", err)
     launches += 1

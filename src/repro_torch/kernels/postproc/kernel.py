@@ -160,11 +160,12 @@ def postprocess_kernel(x: torch.Tensor, scale: torch.Tensor,
                          "scale/bias (C,), out (N, H // pool, W // pool, C), "
                          "x and out 16-byte aligned")
     lib = _library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.postproc_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16),
-        n, h, w, c, ACTS[act], pool, stream)
+    with _build.launch_stream(x.device) as stream:
+        err = lib.postproc_launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(),
+            int(out.dtype == torch.bfloat16), n, h, w, c, ACTS[act], pool,
+            stream)
     _build.check(lib, "postproc", err)
     launches += 1
     return out

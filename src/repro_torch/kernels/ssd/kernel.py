@@ -76,9 +76,9 @@ def ssd_intra_chunk_kernel(x: torch.Tensor, dt: torch.Tensor,
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in (x, dt, cum, B, C, y, states)),
-             bb * nc, q, h, p, n, stream)
+    with _build.launch_stream(x.device) as stream:
+        err = fn(*(t.data_ptr() for t in (x, dt, cum, B, C, y, states)),
+                 bb * nc, q, h, p, n, stream)
     _build.check(lib, "ssd", err)
     launches += 1
     return y, states
@@ -218,10 +218,10 @@ def ssd_intra_chunk_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
         return tuple(g.zero_() for g in grads)
     scratch = bwd_scratch(x, B)
     lib = _bwd_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ssd_bwd_launch(
-        *(t.data_ptr() for t in (*tensors, *grads, *scratch)),
-        bb * nc, q, h, p, n, stream)
+    with _build.launch_stream(x.device) as stream:
+        err = lib.ssd_bwd_launch(
+            *(t.data_ptr() for t in (*tensors, *grads, *scratch)),
+            bb * nc, q, h, p, n, stream)
     _build.check(lib, "ssd_bwd", err)
     bwd_launches += 1
     return grads

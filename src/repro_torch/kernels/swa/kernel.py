@@ -112,12 +112,12 @@ def swa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return (out, lse) if with_lse else out
     lib = _library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
     if path == "tc":
         ptrs.append(lse.data_ptr() if with_lse else None)
-    err = getattr(lib, name)(*ptrs, b, s, hq, hkv, d, int(window),
-                             float(scale), float(softcap), stream)
+    with _build.launch_stream(q.device) as stream:
+        err = getattr(lib, name)(*ptrs, b, s, hq, hkv, d, int(window),
+                                 float(scale), float(softcap), stream)
     _build.check(lib, "swa", err)
     launches += 1
     launches_by_path[path] += 1
@@ -245,21 +245,21 @@ def swa_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     if dq.numel() == 0:
         return dq, dk, dv
     lib = _bwd_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch = bwd_scratch(q)
-    if route == "tc":
-        stats, part = scratch["stats"], scratch["part"]
-        err = lib.swa_bwd_tc_launch(
-            *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, stats,
-                                     part)),
-            b, s, stats.shape[2], hq, hkv, d, int(window), float(scale),
-            float(softcap), stream)
-    else:
-        err = lib.swa_bwd_fma_launch(
-            *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv,
-                                     scratch["lse_s"], scratch["delta"])),
-            b, s, hq, hkv, d, int(window), float(scale), float(softcap),
-            int(q.dtype == torch.bfloat16), stream)
+    with _build.launch_stream(q.device) as stream:
+        if route == "tc":
+            stats, part = scratch["stats"], scratch["part"]
+            err = lib.swa_bwd_tc_launch(
+                *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv,
+                                         stats, part)),
+                b, s, stats.shape[2], hq, hkv, d, int(window), float(scale),
+                float(softcap), stream)
+        else:
+            err = lib.swa_bwd_fma_launch(
+                *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv,
+                                         scratch["lse_s"], scratch["delta"])),
+                b, s, hq, hkv, d, int(window), float(scale), float(softcap),
+                int(q.dtype == torch.bfloat16), stream)
     _build.check(lib, "swa_bwd", err)
     bwd_launches += 1
     bwd_launches_by_path[route] += 1

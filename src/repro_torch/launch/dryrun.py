@@ -127,9 +127,10 @@ def _all_to_all_as_on_gpus():
     from torch.distributed.tensor import placement_types
 
     def all_to_all(input, gather_dim, shard_dim, mesh, mesh_dim):
-        group = funcol._resolve_group((mesh, mesh_dim))
+        # the group by name: the op's argument in every torch this runs on
         return torch.ops._dtensor.shard_dim_alltoall(
-            input, gather_dim, shard_dim, funcol._group_or_group_name(group))
+            input, gather_dim, shard_dim,
+            funcol._resolve_group_name((mesh, mesh_dim)))
 
     prev = placement_types.shard_dim_alltoall
     placement_types.shard_dim_alltoall = all_to_all

@@ -223,6 +223,14 @@ def _splitk_shards(cfg: ModelConfig, cache_len: int) -> int:
     return 0
 
 
+def _scores_local(qg, kr):
+    return torch.einsum("bkgh,bsckh->bskgc", qg, kr)
+
+
+def _pv_local(p, vr):
+    return torch.einsum("bskgc,bsckh->bskgh", p, vr)
+
+
 def _attend_decode_splitk(q, k, v, t, cfg: ModelConfig, ns: int, scale):
     """q (B, 1, nq, hd); k/v (B, S, n_kv, hd) sequence-sharded; t the
     position (a scalar or one per row) -> (B, 1, nq, hd) in q's dtype.
@@ -248,13 +256,17 @@ def _attend_decode_splitk(q, k, v, t, cfg: ModelConfig, ns: int, scale):
             + torch.arange(c, device=q.device)[None, :])     # (ns, c)
     valid = kpos[None] <= ts[:, None, None]                 # (B or 1, ns, c)
     qg = q.reshape(b, nkv, nq // nkv, hd).to(f32)
-    scores = torch.einsum("bkgh,bsckh->bskgc", qg, kr.to(f32)) * scale
+    # the products on batch and sequence shards: DTensor's einsum plans
+    # a flatten of a sharded dim for some shapes (torch 2.11)
+    scores = on_local_shards(_scores_local, (qg, kr.to(f32)),
+                             ((0, None), (0, 1)), ((0, 1),)) * scale
     scores = _softcap(scores, cfg.attn_logit_softcap)
     scores = torch.where(valid[:, :, None, None, :], scores, NEG_INF)
     m_i = scores.amax(dim=-1)                               # (B, ns, nkv, g)
     p = torch.exp(scores - m_i[..., None])
     l_i = p.sum(dim=-1)
-    o_i = torch.einsum("bskgc,bsckh->bskgh", p, vr.to(f32))
+    o_i = on_local_shards(_pv_local, (p, vr.to(f32)),
+                          ((0, 1), (0, 1)), ((0, 1),))
     # combine over the sharded ns axis (small all-reduces under DTensor)
     m = m_i.amax(dim=1, keepdim=True)
     w = torch.exp(m_i - m)                                  # (B, ns, nkv, g)

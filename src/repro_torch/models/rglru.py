@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _dense_init
 from repro_torch.sharding import logical_constraint
+from repro_torch.sharding.local import on_local_shards
 from repro_torch.types import Param
 
 RGLRU_C = 8.0
@@ -59,19 +60,44 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                 ) -> torch.Tensor:
-    """Depthwise causal conv1d (no activation). x (B, L, C); w (K, C)."""
+def _causal_conv_local(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                       ) -> torch.Tensor:
     k = w.shape[0]
     pad = F.pad(x, (0, 0, k - 1, 0))
     return sum(pad[:, i:i + x.shape[1], :] * w[i] for i in range(k)) + b
 
 
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv1d (no activation). x (B, L, C); w (K, C).
+    On DTensors it runs on batch and channel shards, the sequence whole
+    (DTensor's own pad fails to plan its redistribution on a 2-D mesh in
+    torch 2.11)."""
+    return on_local_shards(_causal_conv_local, (x, w, b),
+                           ((0, 2), (None, 1), (None, 0)), ((0, 2),))
+
+
+def _project_local(x, w):
+    return x @ w
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., w_in) @ w (w_in, w_out).  On DTensors on batch and output
+    shards, the weight gathered over its input shards: DTensor plans a
+    redistribution it cannot run for the batch-sharded product on the
+    (data, model) mesh (torch 2.11)."""
+    last = x.dim() - 1
+    return on_local_shards(_project_local, (x, w), ((0, None), (None, 1)),
+                           ((0, last),))
+
+
 def _gates(params, u: torch.Tensor):
     """u (..., w) -> (a, gated_input), both fp32."""
     uf = u.to(torch.float32)
-    r = torch.sigmoid(uf @ params["w_a"].to(torch.float32) + params["b_a"])
-    i = torch.sigmoid(uf @ params["w_i"].to(torch.float32) + params["b_i"])
+    r = torch.sigmoid(_project(uf, params["w_a"].to(torch.float32))
+                      + params["b_a"])
+    i = torch.sigmoid(_project(uf, params["w_i"].to(torch.float32))
+                      + params["b_i"])
     log_a = -RGLRU_C * F.softplus(params["lam"]) * r           # <= 0
     a = torch.exp(log_a)
     # sqrt(1 - a^2) input normalisation (Griffin eq. 4)

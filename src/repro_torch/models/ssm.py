@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import _dense_init
 from repro_torch.sharding import logical_constraint
+from repro_torch.sharding.local import on_local_shards
 from repro_torch.types import Param
 
 
@@ -54,13 +55,21 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                 ) -> torch.Tensor:
-    """Depthwise causal conv1d. x (B, L, C); w (K, C)."""
+def _causal_conv_local(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                       ) -> torch.Tensor:
     k = w.shape[0]
     pad = F.pad(x, (0, 0, k - 1, 0))
     y = sum(pad[:, i:i + x.shape[1], :] * w[i] for i in range(k))
     return F.silu(y + b)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv1d. x (B, L, C); w (K, C).  On DTensors it
+    runs on batch and channel shards, the sequence whole (DTensor's own
+    pad fails to plan its redistribution on a 2-D mesh in torch 2.11)."""
+    return on_local_shards(_causal_conv_local, (x, w, b),
+                           ((0, 2), (None, 1), (None, 0)), ((0, 2),))
 
 
 def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
@@ -79,7 +88,18 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int):
     B, C (Bb, L, G, N) with H a multiple of G; D (H,).  Returns (y (Bb,
     L, H, P), final state (Bb, H, N, P)).  The intra-chunk part is
     ``kernels.ssd.ssd_intra_chunk`` (one launch per group); the
-    inter-chunk recurrence, ``y_inter`` and the D-skip run here."""
+    inter-chunk recurrence, ``y_inter`` and the D-skip run here.  On
+    DTensors all of it runs on batch and head shards (a head shard
+    holds its heads' groups whole where G > 1 shards with the heads;
+    with one group B and C are whole on every head shard), so the
+    kernels launch on the local shards."""
+    bc = (0, 2) if B.shape[2] > 1 else (0, None)
+    return on_local_shards(_ssd_chunked_local, (x, dt, A, B, C, D),
+                           ((0, 2), (0, 2), (None, 0), bc, bc, (None, 0)),
+                           ((0, 2), (0, 1)), chunk=chunk)
+
+
+def _ssd_chunked_local(x, dt, A, B, C, D, *, chunk: int):
     bb, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if g == 1:

@@ -21,6 +21,7 @@ objective: fp32 token-mean cross entropy and accuracy.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -32,7 +33,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.sharding import logical_constraint
+from repro_torch.sharding import logical_constraint, sharding_context
 from repro_torch.types import (
     Param,
     is_param,
@@ -314,8 +315,11 @@ def _run_stack(params, x, cfg: ModelConfig, pattern, *, positions=None,
 
         for i in range(n_layers):
             if remat:
-                x, group_caches = checkpoint(group, x, i,
-                                             use_reentrant=False)
+                # the recompute sees the forward's rules and replication
+                x, group_caches = checkpoint(
+                    group, x, i, use_reentrant=False,
+                    context_fn=lambda: (contextlib.nullcontext(),
+                                        sharding_context()))
             else:
                 x, group_caches = group(x, i)
             for j, c in enumerate(group_caches):

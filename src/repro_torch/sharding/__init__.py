@@ -7,6 +7,7 @@ from repro_torch.sharding.specs import (  # noqa: F401
     activate_rules,
     active_rules,
     logical_constraint,
+    sharding_context,
     spec_for,
     sharding_for,
     param_shardings,

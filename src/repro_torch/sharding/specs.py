@@ -98,6 +98,27 @@ def active_rules() -> AxisRules | None:
 
 
 @contextlib.contextmanager
+def _using(rules: AxisRules | None, implicit: bool | None = None):
+    """``rules`` active in this thread for the block, and DTensor's
+    implicit replication of plain tensors set to ``implicit`` (left as
+    it is where None); both restored after."""
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    prev = getattr(_state, "rules", None), \
+        dispatcher._allow_implicit_replication
+    _state.rules = rules
+    if implicit is not None:
+        dispatcher._allow_implicit_replication = implicit
+    try:
+        yield rules
+    finally:
+        _state.rules = prev[0]
+        if implicit is not None:
+            dispatcher._allow_implicit_replication = prev[1]
+
+
+@contextlib.contextmanager
 def activate_rules(mesh, overrides: Mapping[str, tuple[str, ...]] | None
                    = None):
     """The default rules, ``overrides`` on top, active on ``mesh`` for
@@ -106,12 +127,21 @@ def activate_rules(mesh, overrides: Mapping[str, tuple[str, ...]] | None
     rules.update(DEFAULT_ACT_RULES)
     if overrides:
         rules.update(overrides)
-    prev = getattr(_state, "rules", None)
-    _state.rules = AxisRules(mesh=mesh, rules=rules)
-    try:
-        yield _state.rules
-    finally:
-        _state.rules = prev
+    with _using(AxisRules(mesh=mesh, rules=rules)) as active:
+        yield active
+
+
+def sharding_context():
+    """A context manager that brings this thread's sharding state as it
+    is now (the active rules, DTensor's implicit replication) into
+    whichever thread enters it.  A checkpointed block's recompute needs
+    it: on CUDA, autograd runs the backward in a thread of its own, where
+    neither is set, and a recompute that placed its tensors otherwise
+    would not match its forward pass."""
+    from torch.distributed.tensor import DTensor
+
+    return _using(active_rules(),
+                  DTensor._op_dispatcher._allow_implicit_replication)
 
 
 def spec_for(shape: Sequence[int], axes: Sequence[str | None],

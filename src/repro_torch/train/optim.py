@@ -50,9 +50,10 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_init(params) -> dict:
-    """fp32 zero moments shaped like ``params`` and an int32 count."""
+    """fp32 zero moments shaped (and, for DTensors, placed) like
+    ``params`` and an int32 count."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     leaves = tree_flatten(params)[0]
     dev = leaves[0].device if leaves else None

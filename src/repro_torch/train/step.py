@@ -52,15 +52,28 @@ def init_train_state(params, *, compress: bool = False) -> TrainState:
                       ef=ef)
 
 
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient with its parameter's placements, as the
+    reference's jitted step binds a gradient to its parameter's sharding:
+    a partial gradient is reduced here (the data-parallel reduction), and
+    the optimizer's element-wise update keeps the state's placements
+    step after step.  A plain tensor passes through."""
+    if hasattr(p, "placements") and tuple(g.placements) != tuple(
+            p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def grads_of(params, batch: dict, cfg: ModelConfig):
     """(grads, metrics) of ``loss_fn`` at ``params``: grads in the
-    parameters' tree and dtypes, metrics detached."""
+    parameters' tree, dtypes and placements, metrics detached."""
     flat, treedef = tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in flat]
     with torch.enable_grad():
         loss, metrics = loss_fn(tree_unflatten(treedef, leaves), batch, cfg)
         grads = torch.autograd.grad(loss, leaves)
-    return tree_unflatten(treedef, list(grads)), \
+    return tree_unflatten(treedef, [_placed_as(g, p)
+                                    for g, p in zip(grads, flat)]), \
         {k: v.detach() for k, v in metrics.items()}
 
 
@@ -87,8 +100,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
 
     def train_step(state: TrainState, batch: dict):
         if microbatches > 1:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             ms = []
             for one in _split_microbatches(batch, microbatches):
                 g, m = grads_of(state.params, one, cfg)
